@@ -1,0 +1,78 @@
+"""Carry weights and env state across from the JAX package, as numpy.
+
+Agents load from the `.npz` naming of `drone2d_tpu/models/policy.py`
+(`params_to_flat_dict`), and an `EnvState` maps leaf for leaf: the JAX
+package's batched state, with each leaf turned into a numpy array, becomes
+the port's state with the same padded shapes (`max_wps`, `max_obs`, the
+path table) and int32 `t` and `family`.  Nothing here imports JAX: both
+directions go through numpy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from drone2d_tpu_torch.device import resolve_device
+from drone2d_tpu_torch.env.types import EnvState, ObstacleSet
+from drone2d_tpu_torch.models.policy import flat_dict_to_params, params_to_flat_dict
+from drone2d_tpu_torch.ops.path import PathData
+from drone2d_tpu_torch.ops.physics import BodyState
+
+# an agent's flat dict <-> ActorCritic
+params_from_flat = flat_dict_to_params
+params_to_flat = params_to_flat_dict
+
+_INT_LEAVES = ("path.n_wps", "t", "family")
+
+
+def flatten_fields(tree, prefix: str = "") -> dict:
+    """Nested NamedTuples or dataclasses -> {"path.wps": ndarray, ...};
+    None leaves are dropped."""
+    if dataclasses.is_dataclass(tree):
+        names = [f.name for f in dataclasses.fields(tree)]
+    elif hasattr(tree, "_fields"):
+        names = list(tree._fields)
+    else:
+        if isinstance(tree, torch.Tensor):
+            tree = tree.detach().cpu()
+        return {prefix[:-1]: np.asarray(tree)}
+    out = {}
+    for name in names:
+        leaf = getattr(tree, name)
+        if leaf is not None:
+            out.update(flatten_fields(leaf, f"{prefix}{name}."))
+    return out
+
+
+def env_state_from_numpy(tree, device=None) -> EnvState:
+    """The JAX package's batched EnvState (leaves as numpy arrays, or the
+    flat dict `flatten_fields` makes of it) -> the port's EnvState."""
+    flat = dict(tree) if isinstance(tree, Mapping) else flatten_fields(tree)
+    if "obstacles.half_wh" in flat:
+        raise ValueError("box obstacles (half_wh) are not ported")
+    dev = resolve_device(device)
+
+    def leaf(name):
+        a = np.asarray(flat[name])
+        dtype = torch.int32 if name in _INT_LEAVES else (
+            torch.bool if a.dtype == bool else torch.float32)
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    def group(cls, prefix):
+        return cls(**{f.name: leaf(f"{prefix}{f.name}") for f in dataclasses.fields(cls)})
+
+    top = {f.name: leaf(f.name) for f in dataclasses.fields(EnvState)
+           if f.name not in ("path", "obstacles", "body")}
+    return EnvState(
+        path=group(PathData, "path."), obstacles=group(ObstacleSet, "obstacles."),
+        body=group(BodyState, "body."), **top,
+    )
+
+
+def env_state_to_numpy(state: EnvState) -> dict:
+    """The port's EnvState -> {"path.wps": ndarray, ...} (JAX leaf names)."""
+    return flatten_fields(state)

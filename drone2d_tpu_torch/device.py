@@ -1,0 +1,24 @@
+"""Where the port runs: the CUDA card unless the caller asks for the CPU."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on.
+
+    `None` means the card: it raises when CUDA is absent and never falls back
+    to the CPU on its own.  Pass `device="cpu"` to run on the host (the tests
+    do).  Also pins float32 matrix products and convolutions to full float32:
+    the JAX package computes in float32, and TF32 keeps only ~3 decimal
+    digits, which would break parity with it.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the host"
+        )
+    return dev

@@ -1,0 +1,88 @@
+"""Environment state as dataclasses of batch-first tensors.
+
+Counterpart of `drone2d_tpu/env/types.py`: the same leaves, with the env
+batch dimension N written out in front of each.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+from drone2d_tpu_torch.ops.path import PathData
+from drone2d_tpu_torch.ops.physics import BodyState
+
+
+@dataclasses.dataclass
+class ObstacleSet:
+    """Padded circle obstacles; padding sits at 1e6 with radius 0."""
+
+    xy: torch.Tensor    # (N, MAX_OBS, 2) centers
+    r: torch.Tensor     # (N, MAX_OBS) radii
+    mask: torch.Tensor  # (N, MAX_OBS) bool, True = live obstacle
+
+
+@dataclasses.dataclass
+class EnvState:
+    """Full per-env episode state."""
+
+    path: PathData
+    obstacles: ObstacleSet
+    body: BodyState
+    target: torch.Tensor        # (N, 2) last waypoint
+    t: torch.Tensor             # (N,) int32 current time step
+    path_error: torch.Tensor    # (N,) running sum of distance from path
+    total_reward: torch.Tensor  # (N,) episode return
+    la_locked: torch.Tensor     # (N,) bool lookahead locked to the goal
+    left_force: torch.Tensor    # (N,) last applied rotor forces
+    right_force: torch.Tensor   # (N,)
+    family: torch.Tensor        # (N,) int32 rehearsal family (0 = schedule)
+
+
+def _select(mask: torch.Tensor, a, b):
+    """Leaf-wise `where(mask, b, a)` over matching dataclass trees."""
+    if dataclasses.is_dataclass(a):
+        return type(a)(**{
+            f.name: _select(mask, getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a)
+        })
+    m = mask.reshape(mask.shape + (1,) * (a.dim() - 1))
+    return torch.where(m, b, a)
+
+
+def select_state(mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
+    """Per env, the state `b` where mask (N,) is True, else `a`."""
+    return _select(mask, a, b)
+
+
+@dataclasses.dataclass
+class StepOutput:
+    state: EnvState
+    obs: torch.Tensor                # (N, 27)
+    reward: torch.Tensor             # (N,)
+    done: torch.Tensor               # (N,) bool
+    info: Dict[str, torch.Tensor]    # each (N,)
+
+
+# family-axis layout for rehearsal accounting (EnvState.family values)
+N_FAMILIES = 8
+
+# Names of the info-dict metric bus (drone_2d_env.py:114-137, 575-613).
+INFO_FIELDS = (
+    "reward",
+    "collision_avoidance_reward",
+    "path_adherence",
+    "path_progression",
+    "collision_reward",
+    "reach_end_reward",
+    "agressive_alpha_reward",
+    "dist_closest_obs",
+    "env_steps",
+    "APE",
+    "n_collisions",
+    "n_successful_runs",
+    "n_failed_runs",
+    "total_reward",
+)

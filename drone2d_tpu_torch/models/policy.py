@@ -1,0 +1,144 @@
+"""Actor-critic MLP, parity with SB3 `PPO("MlpPolicy", ...)`.
+
+Counterpart of `drone2d_tpu/models/policy.py`: separate policy and value
+trunks of tanh layers, a linear action-mean head and value head, and a
+state-independent log_std.  Weights are stored (in, out) as in the JAX
+package, so `x @ w + b` is the same product and the `.npz` agent files map
+leaf for leaf (`params_to_flat_dict` / `flat_dict_to_params`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from drone2d_tpu_torch.device import resolve_device
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+
+class Dense(nn.Module):
+    """y = x @ w + b with w stored (in, out)."""
+
+    def __init__(self, n_in: int, n_out: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(n_in, n_out))
+        self.b = nn.Parameter(torch.zeros(n_out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.w + self.b
+
+
+class ActorCritic(nn.Module):
+    """SB3 MlpPolicy-shaped actor-critic.
+
+    `generator` seeds SB3's orthogonal init (gain sqrt(2) on hidden layers,
+    0.01 on the action head, 1.0 on the value head, zero biases).  Weights
+    are made on the host from that generator and then moved to `device`
+    (the card unless device="cpu").
+    """
+
+    def __init__(
+        self,
+        obs_dim: int = 27,
+        act_dim: int = 2,
+        hidden: Sequence[int] = (64, 64),
+        *,
+        generator: torch.Generator | None = None,
+        device=None,
+    ):
+        super().__init__()
+
+        def trunk():
+            dims = [obs_dim, *hidden]
+            return nn.ModuleList(Dense(a, b) for a, b in zip(dims[:-1], dims[1:]))
+
+        self.pi = trunk()
+        self.vf = trunk()
+        self.pi_out = Dense(hidden[-1], act_dim)
+        self.vf_out = Dense(hidden[-1], 1)
+        self.log_std = nn.Parameter(torch.zeros(act_dim))
+        with torch.no_grad():
+            for layer in [*self.pi, *self.vf]:
+                nn.init.orthogonal_(layer.w, math.sqrt(2.0), generator=generator)
+            nn.init.orthogonal_(self.pi_out.w, 0.01, generator=generator)
+            nn.init.orthogonal_(self.vf_out.w, 1.0, generator=generator)
+        self.to(resolve_device(device))
+
+    @staticmethod
+    def _mlp(layers, x):
+        for layer in layers:
+            x = torch.tanh(layer(x))
+        return x
+
+    def policy_value(
+        self, obs: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(action_mean (B, 2), log_std (2,), value (B,))."""
+        mean = self.pi_out(self._mlp(self.pi, obs))
+        value = self.vf_out(self._mlp(self.vf, obs))[..., 0]
+        return mean, self.log_std, value
+
+    def sample_action(
+        self,
+        obs: torch.Tensor,
+        generator: torch.Generator | None = None,
+        noise: torch.Tensor | None = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """a ~ N(mean, exp(log_std)^2) -> (action, log_prob, value).
+
+        `noise` is the (B, 2) standard-normal draw; when it is None it is
+        drawn from `generator`.  Runs through `ops.fused_policy`: on a CUDA
+        tensor that launches the hand-written kernel.  Forward only: the
+        outputs carry no gradient.  log_prob is of the unclipped sample (SB3
+        semantics; clipping happens only on the copy sent to the env).
+        """
+        from drone2d_tpu_torch.ops.fused_policy import fused_sample_action
+
+        if noise is None:
+            noise = torch.randn(obs.shape[0], self.log_std.shape[0],
+                                generator=generator, device=obs.device)
+        return fused_sample_action(self, obs, noise)
+
+    def deterministic_action(self, obs: torch.Tensor) -> torch.Tensor:
+        """Greedy action clipped to the Box bounds (SB3 predict)."""
+        mean, _, _ = self.policy_value(obs)
+        return torch.clamp(mean, -1.0, 1.0)
+
+
+def params_to_flat_dict(params: ActorCritic) -> dict:
+    """Flat `.npz` naming of the JAX package (models/policy.py:126-170), as
+    numpy arrays."""
+    def npy(t):
+        return t.detach().cpu().numpy()
+
+    out = {"log_std": npy(params.log_std)}
+    for name, layers in (("pi", params.pi), ("vf", params.vf)):
+        for i, layer in enumerate(layers):
+            out[f"{name}{i}/w"] = npy(layer.w)
+            out[f"{name}{i}/b"] = npy(layer.b)
+    for name in ("pi_out", "vf_out"):
+        out[f"{name}/w"] = npy(getattr(params, name).w)
+        out[f"{name}/b"] = npy(getattr(params, name).b)
+    return out
+
+
+def flat_dict_to_params(flat: Mapping[str, np.ndarray], device=None) -> ActorCritic:
+    """Inverse of params_to_flat_dict; accepts an `np.load` of an agent."""
+    hidden = []
+    while f"pi{len(hidden)}/w" in flat:
+        hidden.append(np.shape(flat[f"pi{len(hidden)}/w"])[1])
+    obs_dim = np.shape(flat["pi0/w"])[0]
+    act_dim = np.shape(flat["log_std"])[0]
+    model = ActorCritic(obs_dim, act_dim, hidden, device="cpu")
+    state = {}
+    for key, value in flat.items():
+        name = key.replace("/", ".")
+        name = name[:2] + "." + name[2:] if name[2].isdigit() else name
+        state[name] = torch.tensor(np.asarray(value, np.float32))
+    model.load_state_dict(state)
+    return model.to(resolve_device(device))

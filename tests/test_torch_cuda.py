@@ -1,0 +1,77 @@
+"""The port's CUDA kernel on the card: built from source, held against its
+plain PyTorch version, counted, and refused on mixed devices.
+
+These need an NVIDIA GPU and nvcc, and skip without one.  This file imports
+no JAX, so on a machine with the card and without JAX it runs alone:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from drone2d_tpu_torch.config import EnvConfig, PPOConfig
+from drone2d_tpu_torch.learn.ppo import PPOLearner
+from drone2d_tpu_torch.models.policy import ActorCritic
+from drone2d_tpu_torch.ops.fused_policy import fused_sample_action, fused_sample_action_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _scaled_err(got, want):
+    """max |d| / max(1, max |want|): float32 sums in another order differ
+    relative to the size of the summed terms (see chip_smoke.py)."""
+    return float((got.double() - want.double()).abs().max()
+                 / max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.parametrize("hidden", [64, 128, 256])
+@pytest.mark.parametrize("batch", [1, 15, 16, 17, 4096])
+def test_kernel_matches_plain(dev, hidden, batch):
+    gen = torch.Generator().manual_seed(hidden + batch)
+    params = ActorCritic(27, 2, (hidden, hidden), generator=gen, device=dev)
+    with torch.no_grad():
+        params.log_std.copy_(torch.tensor([-0.3, 0.2]))
+        for p in params.parameters():  # non-zero biases and larger heads
+            p.add_(0.1 * torch.randn(p.shape, generator=gen).to(dev))
+    obs = torch.randn(batch, 27, generator=gen).to(dev)
+    noise = torch.randn(batch, 2, generator=gen).to(dev)
+    got = fused_sample_action(params, obs, noise)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = fused_sample_action_ref(params, obs, noise)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.device == w.device
+        assert _scaled_err(g, w) <= 1e-5
+
+
+def test_launch_count_and_no_fallback(dev):
+    params = ActorCritic(27, 2, (128, 128), device=dev)
+    obs, noise = torch.randn(64, 27, device=dev), torch.randn(64, 2, device=dev)
+    before = fused_sample_action.launches
+    fused_sample_action(params, obs, noise)
+    assert fused_sample_action.launches == before + 1
+    fused_sample_action(params.cpu(), obs.cpu(), noise.cpu())  # plain version
+    assert fused_sample_action.launches == before + 1
+    with pytest.raises(ValueError):
+        fused_sample_action(params.cpu(), obs, noise)  # mixed devices
+
+
+def test_rollout_on_card_launches_kernel_each_step(dev):
+    learner = PPOLearner(EnvConfig(), PPOConfig(n_steps=8, hidden_sizes=(128, 128)), 256)
+    state = learner.init(0)
+    before = fused_sample_action.launches
+    state, batch, last_values, _ = learner.rollout(state)
+    torch.cuda.synchronize()
+    assert fused_sample_action.launches - before == 8 + 1
+    assert batch.obs.device.type == "cuda"
+    assert np.isfinite(batch.obs.cpu().numpy()).all()
+    assert np.isfinite(last_values.cpu().numpy()).all()
