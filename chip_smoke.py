@@ -37,8 +37,9 @@ ROOT = Path(__file__).resolve().parent
 AGENT = ROOT / "artifacts" / "agent_s8004" / "new_agent.npz"
 NUM_ENVS, N_STEPS, HIDDEN = 4096, 128, (128, 128)
 START_STEP = 3e6  # curriculum stage 5
-# H100 SXM peaks (NVIDIA data sheet, dense): float32 on the CUDA cores, HBM3
-PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, dense): float32 on the CUDA cores,
+# fp16 on the tensor cores, HBM3
+PEAK_F32_FLOPS, PEAK_F16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
 TOL = 1e-5
 
 
@@ -103,10 +104,23 @@ def load_agent(device):
     return flat_dict_to_params(dict(np.load(AGENT)), device=device)
 
 
+def kernel_work(b: int, h: int, k: int = 27) -> dict:
+    """What one call of the fused policy must do at batch b, width h: its
+    float32 FLOPs (both trunks and the three head dot products), the FLOPs
+    of its matrix products as the kernel runs them on the tensor cores
+    (three fp16 MMAs a product), and the bytes it must move (obs, noise and
+    weights read once, outputs written once)."""
+    n_params = 2 * (k * h + h + h * h + h) + h * 3 + 3 + 2
+    products = b * 2 * 2 * (k * h + h * h)
+    return {"flops": products + b * 2 * 3 * h, "tc_flops": 3 * products,
+            "bytes": 4 * (b * k + b * 2 + n_params + b * 2 + b + b)}
+
+
 def phase_kernel_vs_plain() -> dict:
     """fused_sample_action against its plain version at the main path's
-    shapes (B=4096, H=128, the flagship weights), plus a ragged batch and the
-    other compiled widths."""
+    shapes (B=4096, H=128, the flagship weights), a ragged batch and the
+    other padded widths, then its times at H=128 and at PPOConfig's default
+    H=64."""
     dev = torch.device("cuda")
     params = load_agent(dev)
     with torch.no_grad():
@@ -131,21 +145,30 @@ def phase_kernel_vs_plain() -> dict:
 
     log(f"kernel vs plain (tolerance: |d| <= {TOL} * max(1, max |plain|)):")
     obs, noise, abs_err = check(params, NUM_ENVS, f"B={NUM_ENVS} H=128 agent_s8004")
-    check(params, 4093, "B=4093 H=128 (ragged)")
-    for h in (64, 256):
-        p = ActorCritic(27, 2, (h, h), generator=torch.Generator().manual_seed(h), device=dev)
+    check(params, 4093, "B=4093 H=128 agent_s8004 (ragged)")
+    widths = {h: ActorCritic(27, 2, (h, h), generator=torch.Generator().manual_seed(h),
+                             device=dev) for h in (32, 64, 96, 256)}
+    for h, p in widths.items():
         check(p, 1000, f"B=1000 H={h}")
 
-    with torch.no_grad():
-        ms = device_ms(lambda: fused_sample_action(params, obs, noise))
-        plain_ms = device_ms(lambda: fused_sample_action_ref(params, obs, noise))
-    b, k, h = NUM_ENVS, 27, 128
-    flops = b * 2 * (2 * (k * h + h * h) + 3 * h)
-    n_params = sum(t.numel() for t in params.parameters())
-    nbytes = 4 * (b * k + b * 2 + n_params + b * 2 + b + b)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    log(f"  time at B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-        f"{flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.3f} MB -> bound {max(t_ops, t_bytes):.4f} ms")
+    def times(p, o, n, h):
+        with torch.no_grad():
+            ms = device_ms(lambda: fused_sample_action(p, o, n))
+            plain_ms = device_ms(lambda: fused_sample_action_ref(p, o, n))
+        w = kernel_work(o.shape[0], h)
+        t_ops, t_bytes = w["flops"] / PEAK_F32_FLOPS * 1e3, w["bytes"] / PEAK_BYTES * 1e3
+        t_tc = w["tc_flops"] / PEAK_F16_FLOPS * 1e3
+        bound = max(t_ops, t_bytes)
+        log(f"  time at B={o.shape[0]} H={h}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms; "
+            f"{w['flops'] / 1e6:.1f} MFLOP, {w['bytes'] / 1e6:.3f} MB -> bound {bound:.5f} ms "
+            f"({100 * bound / ms:.1f}% of it); fp16 pieces {w['tc_flops'] / 1e6:.1f} MFLOP "
+            f"-> bound_tc {t_tc:.5f} ms ({100 * t_tc / ms:.1f}%)")
+        return ms, plain_ms, bound, t_ops >= t_bytes, t_tc
+
+    obs64 = torch.randn(NUM_ENVS, 27, generator=gen, device=dev)
+    times(widths[64], obs64, noise, 64)  # PPOConfig's default width
+    times(params, obs[:32], noise[:32], 128)  # one block: the latency floor
+    ms, plain_ms, bound, by_ops, t_tc = times(params, obs, noise, 128)
     log("  library_ms: null (no single PyTorch call computes this function: "
         "two MLP trunks, two heads and the Gaussian sample)")
     return {
@@ -157,8 +180,9 @@ def phase_kernel_vs_plain() -> dict:
         "max_abs_err": abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound,
+        "bound_by": "operations" if by_ops else "bytes",
+        "bound_tc_ms": t_tc,
         "library_ms": None,
     }
 

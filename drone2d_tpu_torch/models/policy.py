@@ -92,8 +92,11 @@ class ActorCritic(nn.Module):
         """a ~ N(mean, exp(log_std)^2) -> (action, log_prob, value).
 
         `noise` is the (B, 2) standard-normal draw; when it is None it is
-        drawn from `generator`.  Runs through `ops.fused_policy`: on a CUDA
-        tensor that launches the hand-written kernel.  Forward only: the
+        drawn from `generator`.  Runs through `ops.fused_policy`: on the CPU
+        that is the plain version, for any `hidden`; on a CUDA tensor it
+        launches the hand-written kernel, which takes two hidden layers of
+        one width (a multiple of 8 up to 256) and raises
+        NotImplementedError on any other architecture.  Forward only: the
         outputs carry no gradient.  log_prob is of the unclipped sample (SB3
         semantics; clipping happens only on the copy sent to the env).
         """

@@ -4,20 +4,25 @@ plain version.
 Replaces the TPU kernel `drone2d_tpu/ops/pallas_policy.py::fused_sample_action`
 with `csrc/fused_policy.cu`, a CUDA kernel written by hand for `sm_90a` and
 called through ctypes.  It computes exactly `ActorCritic.sample_action`
-with the standard-normal noise as an input: both 2-hidden-layer tanh trunks,
-the mean and value heads, `action = mean + exp(log_std) * noise` and the
-diagonal-Gaussian log-prob.
+with the standard-normal noise as an input: both tanh trunks, the mean and
+value heads, `action = mean + exp(log_std) * noise` and the diagonal-Gaussian
+log-prob.
 
-Bound on the card: at B=4096 and H=128 the products are 80,128 FLOP a row,
-328 MFLOP a call, against ~0.7 MB of traffic, so the kernel is bound by
-float32 operations on the CUDA cores (4.9 us at 67 TFLOP/s; the bytes alone
-would take 0.2 us).  The design (see the source's header) keeps each block's
-rows and both hidden layers in shared memory and reuses every weight it
-loads for all of the block's rows; it does not copy the TPU kernel's
-block-diagonal packing, which would double the arithmetic here.
+Bounds on the card at B=4096 and H=128: 328 MFLOP a call against ~0.7 MB
+of traffic, i.e. 4.9 us of float32 work on the CUDA cores at 67 TFLOP/s
+(the bytes alone would take 0.2 us).  The kernel runs its matrix products
+on the tensor cores, float32-accurate through fp16 pieces (three MMAs a
+product, 3 x 325 MFLOP, 1.0 us at 989 TFLOP/s).  The design (see the
+source's header) keeps 32 rows a block, stages the weights in shared memory
+with bulk asynchronous copies, and keeps both hidden layers on the chip; it
+does not copy the TPU kernel's block-diagonal packing, which would double
+the arithmetic here.
 
-`fused_sample_action` takes a CPU tensor through the plain version and a
-CUDA tensor through the kernel; there is no fallback between the two.
+`fused_sample_action` takes a CPU tensor through the plain version, for any
+actor-critic, and a CUDA tensor through the kernel, which takes two hidden
+layers of one width H (a multiple of 8 from 8 to 256), obs_dim up to 32
+and two actions, and raises `NotImplementedError` on any other
+architecture.  There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -31,11 +36,11 @@ import torch
 from drone2d_tpu_torch.ops import cuda_build
 
 _LOG_2PI = math.log(2.0 * math.pi)
-HIDDEN_WIDTHS = (64, 128, 256)  # the kernel's compiled widths
+MAX_HIDDEN, MAX_OBS_DIM = 256, 32  # the kernel's limits (H a multiple of 8)
 
 
 def fused_sample_action_ref(params, obs: torch.Tensor, noise: torch.Tensor):
-    """The plain PyTorch version: (action (B, 2), log_prob (B,), value (B,))."""
+    """The plain PyTorch version: (action (B, act_dim), log_prob (B,), value (B,))."""
     mean, log_std, value = params.policy_value(obs)
     action = mean + torch.exp(log_std) * noise
     log_prob = torch.sum(-0.5 * (noise**2 + _LOG_2PI) - log_std, dim=-1)
@@ -56,52 +61,59 @@ def _library():
     return fn
 
 
-def _tensors(params):
-    """The kernel's weight operands, checked: exactly two hidden layers of
-    one width H in each trunk, float32, contiguous."""
-    if len(params.pi) != 2 or len(params.vf) != 2:
-        raise ValueError("fused_sample_action needs exactly 2 hidden layers a trunk")
+def _kernel_operands(params):
+    """The kernel's weight operands, checked.  Raises NotImplementedError
+    for an architecture the kernel does not take, ValueError for operands
+    it cannot read (dtype, layout, alignment of the bulk copies)."""
+    hidden = tuple(layer.w.shape[1] for layer in params.pi)
+    vf_hidden = tuple(layer.w.shape[1] for layer in params.vf)
+    obs_dim, act_dim = params.pi[0].w.shape[0], params.log_std.shape[0]
+    h = hidden[0] if hidden else 0
+    if not (len(hidden) == 2 and hidden[1] == h and vf_hidden == hidden
+            and h % 8 == 0 and 8 <= h <= MAX_HIDDEN
+            and obs_dim <= MAX_OBS_DIM and act_dim == 2):
+        raise NotImplementedError(
+            "fused_sample_action on the card takes two hidden layers of one width H "
+            f"(H a multiple of 8, 8 <= H <= {MAX_HIDDEN}), obs_dim <= {MAX_OBS_DIM} and "
+            f"2 actions; got hidden {hidden} (value trunk {vf_hidden}), "
+            f"obs_dim {obs_dim}, act_dim {act_dim}")
     (p0, p1), (v0, v1) = params.pi, params.vf
-    obs_dim, h = p0.w.shape
-    shapes = {
-        "pi0/w": (p0.w, (obs_dim, h)), "pi0/b": (p0.b, (h,)),
-        "pi1/w": (p1.w, (h, h)), "pi1/b": (p1.b, (h,)),
-        "vf0/w": (v0.w, (obs_dim, h)), "vf0/b": (v0.b, (h,)),
-        "vf1/w": (v1.w, (h, h)), "vf1/b": (v1.b, (h,)),
-        "pi_out/w": (params.pi_out.w, (h, 2)), "pi_out/b": (params.pi_out.b, (2,)),
-        "vf_out/w": (params.vf_out.w, (h, 1)), "vf_out/b": (params.vf_out.b, (1,)),
-        "log_std": (params.log_std, (2,)),
+    weights = {
+        "pi0/w": p0.w, "pi0/b": p0.b, "pi1/w": p1.w, "pi1/b": p1.b,
+        "vf0/w": v0.w, "vf0/b": v0.b, "vf1/w": v1.w, "vf1/b": v1.b,
+        "pi_out/w": params.pi_out.w, "pi_out/b": params.pi_out.b,
+        "vf_out/w": params.vf_out.w, "vf_out/b": params.vf_out.b,
+        "log_std": params.log_std,
     }
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+    for name, t in weights.items():
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
-    if h not in HIDDEN_WIDTHS:
-        raise ValueError(f"hidden width {h} not in {HIDDEN_WIDTHS}")
-    return obs_dim, h, [t.detach() for t, _ in shapes.values()]
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the kernel's bulk copies")
+    return obs_dim, h, [t.detach() for t in weights.values()]
 
 
 def fused_sample_action(
     params, obs: torch.Tensor, noise: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(action (B, 2), log_prob (B,), value (B,)) for obs (B, obs_dim) and
-    standard-normal noise (B, 2); forward only (no gradient).
+    """(action (B, act_dim), log_prob (B,), value (B,)) for obs (B, obs_dim)
+    and standard-normal noise (B, act_dim); forward only (no gradient).
 
-    A CPU `obs` goes through `fused_sample_action_ref`; a CUDA `obs` launches
-    the kernel or raises.  `fused_sample_action.launches` counts the kernel
-    launches.
+    A CPU `obs` goes through `fused_sample_action_ref`, for any actor-critic;
+    a CUDA `obs` launches the kernel or raises (NotImplementedError for an
+    architecture the kernel does not take).  `fused_sample_action.launches`
+    counts the kernel launches.
     """
-    obs_dim, h, weights = _tensors(params)
-    B = obs.shape[0]
+    obs_dim, act_dim = params.pi[0].w.shape[0], params.log_std.shape[0]
     if obs.dim() != 2 or obs.shape[1] != obs_dim:
         raise ValueError(f"obs has shape {tuple(obs.shape)}, want (B, {obs_dim})")
-    if tuple(noise.shape) != (B, 2):
-        raise ValueError(f"noise has shape {tuple(noise.shape)}, want ({B}, 2)")
+    B = obs.shape[0]
+    if tuple(noise.shape) != (B, act_dim):
+        raise ValueError(f"noise has shape {tuple(noise.shape)}, want ({B}, {act_dim})")
     for name, t in (("obs", obs), ("noise", noise)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
-    for t in [noise, *weights]:
+    for t in [noise, *params.parameters()]:
         if t.device != obs.device:
             raise ValueError(f"operands on {t.device} and {obs.device}")
 
@@ -111,19 +123,17 @@ def fused_sample_action(
     if obs.device.type != "cuda":
         raise ValueError(f"unsupported device {obs.device}")
 
+    obs_dim, h, weights = _kernel_operands(params)
+    if noise.data_ptr() % 8:
+        raise ValueError("noise must be 8-byte aligned: the kernel reads a row as a float2")
     action = torch.empty((B, 2), dtype=torch.float32, device=obs.device)
     logp = torch.empty((B,), dtype=torch.float32, device=obs.device)
     value = torch.empty((B,), dtype=torch.float32, device=obs.device)
-    p0w, p0b, p1w, p1b, v0w, v0b, v1w, v1b, pow_, pob, vow, vob, log_std = weights
     with torch.cuda.device(obs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library()(
-            obs.data_ptr(), B, obs_dim, h,
-            p0w.data_ptr(), p0b.data_ptr(), p1w.data_ptr(), p1b.data_ptr(),
-            v0w.data_ptr(), v0b.data_ptr(), v1w.data_ptr(), v1b.data_ptr(),
-            pow_.data_ptr(), pob.data_ptr(), vow.data_ptr(), vob.data_ptr(),
-            log_std.data_ptr(), noise.data_ptr(),
-            action.data_ptr(), logp.data_ptr(), value.data_ptr(), stream,
+            obs.data_ptr(), B, obs_dim, h, *(t.data_ptr() for t in weights),
+            noise.data_ptr(), action.data_ptr(), logp.data_ptr(), value.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_sample_action kernel launch failed: CUDA error {err}")

@@ -1,5 +1,7 @@
 """The port's CUDA kernel on the card: built from source, held against its
-plain PyTorch version, counted, and refused on mixed devices.
+plain PyTorch version at every padded width and at ragged batches, on the
+flagship agent's weights, counted, refused on mixed devices, and refused
+(NotImplementedError) for an architecture it does not take.
 
 These need an NVIDIA GPU and nvcc, and skip without one.  This file imports
 no JAX, so on a machine with the card and without JAX it runs alone:
@@ -7,16 +9,21 @@ no JAX, so on a machine with the card and without JAX it runs alone:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from drone2d_tpu_torch.config import EnvConfig, PPOConfig
 from drone2d_tpu_torch.learn.ppo import PPOLearner
-from drone2d_tpu_torch.models.policy import ActorCritic
+from drone2d_tpu_torch.models.policy import ActorCritic, flat_dict_to_params
 from drone2d_tpu_torch.ops.fused_policy import fused_sample_action, fused_sample_action_ref
 
 pytestmark = pytest.mark.cuda
+
+AGENT = os.path.join(os.path.dirname(__file__), "..", "artifacts", "agent_s8004",
+                     "new_agent.npz")
 
 
 @pytest.fixture
@@ -33,8 +40,21 @@ def _scaled_err(got, want):
                  / max(1.0, float(want.abs().max())))
 
 
-@pytest.mark.parametrize("hidden", [64, 128, 256])
-@pytest.mark.parametrize("batch", [1, 15, 16, 17, 4096])
+def _check(params, obs, noise):
+    got = fused_sample_action(params, obs, noise)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = fused_sample_action_ref(params, obs, noise)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.device == w.device
+        assert _scaled_err(g, w) <= 1e-5
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)  # log-prob: bit-equal
+
+
+# every padded width of the kernel (H = 8 pads to 32, 96 is not a power of
+# two) and batches around the 32-row block
+@pytest.mark.parametrize("hidden", [8, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("batch", [1, 15, 16, 17, 31, 32, 33, 4093, 4096])
 def test_kernel_matches_plain(dev, hidden, batch):
     gen = torch.Generator().manual_seed(hidden + batch)
     params = ActorCritic(27, 2, (hidden, hidden), generator=gen, device=dev)
@@ -44,13 +64,34 @@ def test_kernel_matches_plain(dev, hidden, batch):
             p.add_(0.1 * torch.randn(p.shape, generator=gen).to(dev))
     obs = torch.randn(batch, 27, generator=gen).to(dev)
     noise = torch.randn(batch, 2, generator=gen).to(dev)
-    got = fused_sample_action(params, obs, noise)
-    torch.cuda.synchronize()
+    _check(params, obs, noise)
+
+
+@pytest.mark.parametrize("batch", [4093, 4096])
+def test_kernel_matches_plain_on_flagship(dev, batch):
+    """The flagship agent: critic head weights up to ~38, values up to ~1e3."""
+    params = flat_dict_to_params(dict(np.load(AGENT)), device=dev)
     with torch.no_grad():
-        want = fused_sample_action_ref(params, obs, noise)
-    for g, w in zip(got, want):
-        assert g.shape == w.shape and g.device == w.device
-        assert _scaled_err(g, w) <= 1e-5
+        params.log_std.copy_(torch.tensor([-0.3, 0.2]))
+    gen = torch.Generator().manual_seed(batch)
+    obs = torch.randn(batch, 27, generator=gen).to(dev)
+    noise = torch.randn(batch, 2, generator=gen).to(dev)
+    _check(params, obs, noise)
+
+
+def test_depth_three_raises_on_card_and_runs_on_cpu(dev):
+    params = ActorCritic(27, 2, (64, 64, 64), generator=torch.Generator().manual_seed(0),
+                         device=dev)
+    obs, noise = torch.randn(8, 27, device=dev), torch.randn(8, 2, device=dev)
+    before = fused_sample_action.launches
+    with pytest.raises(NotImplementedError, match="two hidden layers"):
+        params.sample_action(obs, noise=noise)
+    assert fused_sample_action.launches == before
+    cpu = params.cpu()
+    out = cpu.sample_action(obs.cpu(), noise=noise.cpu())
+    want = fused_sample_action_ref(cpu, obs.cpu(), noise.cpu())
+    for g, w in zip(out, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 def test_launch_count_and_no_fallback(dev):

@@ -163,10 +163,12 @@ def test_gae_matches_jax(runs, case):
     np.testing.assert_allclose(_np(ret), jret, rtol=1e-6, atol=1e-4)
 
 
-def test_rollout_draws_from_generator_and_advances():
+@pytest.mark.parametrize("hidden", [(64, 64), (32, 32)], ids=lambda h: "x".join(map(str, h)))
+def test_rollout_draws_from_generator_and_advances(hidden):
     """rollout() draws its template and noise from the state's generator:
-    two equal seeds give equal rollouts, and the step counter advances."""
-    learner = PPOLearner(EnvConfig(), PPOConfig(n_steps=4, hidden_sizes=(64, 64)), 8,
+    two equal seeds give equal rollouts, and the step counter advances.
+    (32, 32) is the width the JAX package's own training tests use."""
+    learner = PPOLearner(EnvConfig(), PPOConfig(n_steps=4, hidden_sizes=hidden), 8,
                          device="cpu")
     a, b = learner.init(3), learner.init(3)
     (sa, ba, la, _), (sb, bb, lb, _) = learner.rollout(a), learner.rollout(b)
