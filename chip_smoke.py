@@ -3,20 +3,29 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `drone2d_tpu_torch/csrc/`, holds each
-against its plain PyTorch version on the card, drives the port's main path
-(the PPO rollout of the flagship 27-128-128 actor-critic over 4096 curriculum
-envs x 128 steps, twice, then GAE), checks that the path launched the
-kernels and that its outputs are right, and prints one JSON line of kernel
-measurements and, last, one JSON status line.  Any failure raises, so the
-exit code is 0 only when every phase passed.  Needs CUDA; imports no JAX.
+against its plain PyTorch version on the card, and drives the port's two
+main paths, each with the kernel counts set to 0 just before it and read
+just after: the PPO rollout of the flagship 27-128-128 actor-critic over
+4096 curriculum envs x 128 steps (twice, then GAE), and training through
+`drone2d_tpu_torch.train` at the published flagship-scratch recipe
+(128-128 actor-critic, 1024 envs x 128 steps, 64 minibatches x 10 epochs,
+3 updates from scratch, then 1 after a resume).  It checks that the paths
+launched the kernels and that their outputs are right (an update on the card
+against the same update on the CPU, finite losses, moved weights, finished
+episodes, files on disk), times the update by layer, and prints one JSON
+line of kernel measurements and, last, one JSON status line.  Any failure
+raises, so the exit code is 0 only when every phase passed.  Needs CUDA;
+imports no JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -27,11 +36,13 @@ import torch
 from drone2d_tpu_torch.config import EnvConfig, PPOConfig
 from drone2d_tpu_torch.env.env import Drone2DEnv, _observe, _rewards_and_done
 from drone2d_tpu_torch.env.types import select_state
+from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.gae import compute_gae
 from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState
 from drone2d_tpu_torch.models.policy import ActorCritic, flat_dict_to_params
 from drone2d_tpu_torch.ops import cuda_build, geometry, physics
 from drone2d_tpu_torch.ops.fused_policy import fused_sample_action, fused_sample_action_ref
+from drone2d_tpu_torch.train import parse_args, train
 
 ROOT = Path(__file__).resolve().parent
 AGENT = ROOT / "artifacts" / "agent_s8004" / "new_agent.npz"
@@ -41,6 +52,13 @@ START_STEP = 3e6  # curriculum stage 5
 # fp16 on the tensor cores, HBM3
 PEAK_F32_FLOPS, PEAK_F16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
 TOL = 1e-5
+# the update on the card against the CPU, as tests/test_torch_ppo.py holds
+# the port against the JAX package: loss and aux to UPDATE_TOL of
+# max(|value|, 1); each weight to PARAM_TOL of the lr x SGD-steps budget
+# (Adam moves a weight by at most ~lr a step) plus PARAM_ULPS float32 ulps
+# of the weight (the same step added to a weight rounds to its ulp)
+UPDATE_TOL, PARAM_TOL, PARAM_ULPS = 1e-5, 1e-3, 4
+TRAIN_UPDATES = 3  # from scratch, then 1 more after a resume
 
 
 def log(*args):
@@ -117,10 +135,10 @@ def kernel_work(b: int, h: int, k: int = 27) -> dict:
 
 
 def phase_kernel_vs_plain() -> dict:
-    """fused_sample_action against its plain version at the main path's
+    """fused_sample_action against its plain version at the rollout path's
     shapes (B=4096, H=128, the flagship weights), a ragged batch and the
-    other padded widths, then its times at H=128 and at PPOConfig's default
-    H=64."""
+    other padded widths, then its times at H=128 (B=4096; B=1024, the
+    training path's batch; one block) and at PPOConfig's default H=64."""
     dev = torch.device("cuda")
     params = load_agent(dev)
     with torch.no_grad():
@@ -168,6 +186,8 @@ def phase_kernel_vs_plain() -> dict:
     obs64 = torch.randn(NUM_ENVS, 27, generator=gen, device=dev)
     times(widths[64], obs64, noise, 64)  # PPOConfig's default width
     times(params, obs[:32], noise[:32], 128)  # one block: the latency floor
+    ms_1k, plain_ms_1k, bound_1k, by_ops_1k, t_tc_1k = times(
+        params, obs[:1024], noise[:1024], 128)  # the training path's batch
     ms, plain_ms, bound, by_ops, t_tc = times(params, obs, noise, 128)
     log("  library_ms: null (no single PyTorch call computes this function: "
         "two MLP trunks, two heads and the Gaussian sample)")
@@ -184,6 +204,10 @@ def phase_kernel_vs_plain() -> dict:
         "bound_by": "operations" if by_ops else "bytes",
         "bound_tc_ms": t_tc,
         "library_ms": None,
+        # the same columns at B=1024, the training path's batch
+        "b1024": {"ms": ms_1k, "plain_ms": plain_ms_1k, "bound_ms": bound_1k,
+                  "bound_by": "operations" if by_ops_1k else "bytes",
+                  "bound_tc_ms": t_tc_1k, "library_ms": None},
     }
 
 
@@ -202,8 +226,11 @@ def phase_reference():
         learner = PPOLearner(EnvConfig(), PPOConfig(n_steps=t, hidden_sizes=HIDDEN), n,
                              device=dev)
         move = lambda x: _to(x, dev)  # noqa: E731
-        s = TrainState(params=load_agent(dev), env_state=move(env_state), obs=move(obs),
-                       generator=torch.Generator(), global_step=torch.tensor(3e6, device=dev))
+        params = load_agent(dev)
+        s = TrainState(params=params, optimizer=optim.adam(params.parameters(), 3e-4),
+                       env_state=move(env_state), obs=move(obs), generator=torch.Generator(),
+                       global_step=torch.tensor(3e6, device=dev),
+                       episodes_total=torch.tensor(0.0, device=dev))
         out[dev] = learner.rollout_from(s, move(tmpl), move(tmpl_obs), move(noise))
     (_, bc, lc, _), (_, bg, lg, _) = out["cpu"], out["cuda"]
     if not torch.equal(bc.dones, bg.dones.cpu()):
@@ -323,8 +350,9 @@ def phase_slice(kernel_row: dict):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         episodes += float(stats.n_episodes)
+        summary = {k: round(float(v), 3) for k, v in stats.summary().items()}
         log(f"  rollout {i + 1}: {dt:.3f} s, {NUM_ENVS * N_STEPS / dt:.1f} env_steps_per_s, "
-            f"episodes {stats.summary()}")
+            f"episodes {summary}")
     launches = fused_sample_action.launches
     log(f"  rollout 2 env_steps_per_s {NUM_ENVS * N_STEPS / dt:.1f} "
         f"({NUM_ENVS} envs x {N_STEPS} steps, rollout + GAE, synchronized)")
@@ -343,7 +371,7 @@ def phase_slice(kernel_row: dict):
     if episodes <= 0:
         raise AssertionError("no episode finished in two rollouts")
     log(f"  kernel launches on the main path: {launches}; episodes finished: {episodes:.0f}")
-    kernel_row["launches"] = launches
+    kernel_row["launches_by_path"] = {"rollout": launches}
 
     # the rate is bound by host launch overhead on a shared host: repeat it
     rates = []
@@ -360,13 +388,262 @@ def phase_slice(kernel_row: dict):
     return learner, state
 
 
+def params_excess(got: ActorCritic, want: ActorCritic, budget: float) -> float:
+    """max over every weight of |got - want| / (budget + PARAM_ULPS ulps of
+    |want|); at most 1 passes."""
+    worst = 0.0
+    for g, w in zip(got.parameters(), want.parameters()):
+        g, w = g.detach().double().cpu(), w.detach().double().cpu()
+        allowed = budget + PARAM_ULPS * 2.0**-23 * w.abs()
+        worst = max(worst, float(((g - w).abs() / allowed).max()))
+    return worst
+
+
+def phase_update_reference():
+    """`learn_from` on the card against the same call on the CPU, from
+    identical inputs: the flagship weights, a 256-env x 8-step rollout batch
+    made on the CPU at curriculum stage 5, 4 minibatches x 2 epochs with
+    fixed shuffles, in each shuffle mode."""
+    n, t = 256, 8
+    env_cfg = EnvConfig()
+    cpu = PPOLearner(env_cfg, PPOConfig(n_steps=t, hidden_sizes=HIDDEN), n, device="cpu")
+    start = cpu.init(0, params=load_agent("cpu"), global_step=START_STEP)
+    _, batch, last_values, _ = cpu.rollout(start)
+    log(f"update on the card vs the CPU, {n} envs x {t} steps, 4 minibatches x 2 epochs "
+        f"(loss and aux to {UPDATE_TOL} of max(|v|, 1); weights to excess <= 1):")
+    for shuffle in ("exact", "affine", "timeperm"):
+        ppo = PPOConfig(n_steps=t, num_minibatches=4, n_epochs=2, shuffle=shuffle,
+                        hidden_sizes=HIDDEN)
+        perms = PPOLearner(env_cfg, ppo, n, device="cpu").draw_perms(
+            torch.Generator().manual_seed(4))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            learner = PPOLearner(env_cfg, ppo, n, device=dev)
+            params = load_agent(dev)
+            # learn_from reads only the state's weights and optimizer
+            state = dataclasses.replace(
+                start, params=params, optimizer=optim.adam(params.parameters(), ppo.learning_rate))
+            metrics = learner.learn_from(state, _to(batch, dev), last_values.to(dev),
+                                         perms.to(dev))
+            out[dev] = params, {k: float(v) for k, v in metrics.items()}
+        (pc, mc), (pg, mg) = out["cpu"], out["cuda"]
+        errs = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1.0) for k in mc}
+        budget = PARAM_TOL * ppo.learning_rate * ppo.n_epochs * ppo.num_minibatches
+        excess = params_excess(pg, pc, budget)
+        log(f"  {shuffle}: loss {mc['loss']:.4f}, clip_fraction {mc['clip_fraction']:.4f}; "
+            f"errors " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f"; weights excess {excess:.3f}")
+        if max(errs.values()) > UPDATE_TOL or excess > 1.0:
+            raise AssertionError(f"{shuffle} update disagrees between the card and the CPU: "
+                                 f"{errs}, weights excess {excess}")
+
+
+def phase_train(kernel_row: dict):
+    """The training path: `train` at the flagship-scratch recipe from
+    scratch for TRAIN_UPDATES updates in a temporary directory, then
+    resumed for 1 more, each run with the kernel count set to 0 just
+    before it and read just after."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        return _train_in(d, kernel_row)
+
+
+def _train_in(d: str, kernel_row: dict):
+    _, train_cfg, env_cfg, ppo_cfg = parse_args(
+        ["--preset", "flagship-scratch", "--checkpoint-dir", d,
+         "--metrics-path", f"{d}/metrics.jsonl"])
+    steps = ppo_cfg.n_steps * train_cfg.num_envs
+    log(f"training (flagship-scratch: hidden {ppo_cfg.hidden_sizes}, {train_cfg.num_envs} envs "
+        f"x {ppo_cfg.n_steps} steps, {ppo_cfg.num_minibatches} minibatches x "
+        f"{ppo_cfg.n_epochs} epochs, shuffle {ppo_cfg.shuffle}, stage_mix_prob "
+        f"{env_cfg.stage_mix_prob}):")
+    init = ActorCritic(27, 2, ppo_cfg.hidden_sizes, device="cuda",
+                       generator=torch.Generator().manual_seed(train_cfg.seed)).requires_grad_(False)
+    launches = {}
+    for name, kw, updates in (("train", {}, TRAIN_UPDATES), ("train_resume", dict(resume=True), 1)):
+        torch.cuda.synchronize()
+        fused_sample_action.launches = 0
+        t0 = time.perf_counter()
+        state = train(train_cfg, env_cfg, ppo_cfg, max_updates=updates, **kw)
+        torch.cuda.synchronize()
+        launches[name] = fused_sample_action.launches
+        log(f"  {name}: {updates} update(s) in {time.perf_counter() - t0:.2f} s, "
+            f"kernel launches {launches[name]}")
+        if launches[name] != updates * (ppo_cfg.n_steps + 1):
+            raise AssertionError(f"{name}: fused_sample_action launched {launches[name]} "
+                                 f"times, want {updates} x {ppo_cfg.n_steps + 1}")
+
+    with open(f"{d}/metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    want_steps = [steps * k for k in range(1, TRAIN_UPDATES + 2)]
+    if [r["global_step"] for r in rows] != want_steps:
+        raise AssertionError(f"metrics rows at {[r['global_step'] for r in rows]}, "
+                             f"want {want_steps}")
+    for r in rows:
+        log(f"  step {r['global_step']}: loss {r['loss']:.4f}, value_loss "
+            f"{r['value_loss']:.4f}, entropy {r['entropy']:.4f}, approx_kl "
+            f"{r['approx_kl']:.5f}, episodes {r['episodes/episodes']:.0f} (avg length "
+            f"{r['episodes/avg_length']:.1f}, return {r['episodes/avg_total_reward']:.2f})"
+            + (f", env_steps_per_s logged by train {r['throughput/env_steps_per_s']:.1f}"
+               if "throughput/env_steps_per_s" in r else ""))
+    if not all(math.isfinite(r[k]) for r in rows for k in ("loss", "value_loss", "entropy")):
+        raise AssertionError("non-finite loss")
+    if rows[-1]["time/episodes"] <= 0:
+        raise AssertionError("no episode finished in training")
+    with torch.no_grad():
+        moved = [float((a - b).abs().max()) for a, b in zip(state.params.parameters(),
+                                                            init.parameters())]
+    if min(moved) <= 0.0:
+        raise AssertionError(f"a weight did not move in training: {moved}")
+    for f in (f"ckpt_{want_steps[-1]}.pt", "new_agent.npz"):
+        if not Path(d, f).exists():
+            raise AssertionError(f"training wrote no {f}")
+    saved = flat_dict_to_params(dict(np.load(f"{d}/new_agent.npz")), device="cuda")
+    if params_excess(saved, state.params, 0.0) > 0.0:
+        raise AssertionError("new_agent.npz differs from the trained weights")
+    log(f"  {len(rows)} metrics rows at global_step {want_steps}; episodes finished "
+        f"{rows[-1]['time/episodes']}; smallest weight change per leaf {min(moved):.3e}; "
+        f"ckpt_{want_steps[-1]}.pt and new_agent.npz on disk")
+    kernel_row["launches_by_path"].update(launches)
+    return (train_cfg, env_cfg, ppo_cfg), state
+
+
+def phase_train_timing(cfgs, state):
+    """Seconds per update at the recipe, split into rollout, GAE and SGD
+    (host clock, each part synchronized), the median of 3 updates; one
+    update each with the 'exact' and 'affine' shuffles; the device's busy
+    share over one update under the profiler."""
+    train_cfg, env_cfg, ppo_cfg = cfgs
+    learner = PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs)
+    steps = ppo_cfg.n_steps * train_cfg.num_envs
+    parts = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, batch, last_values, _ = learner.rollout(state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        adv, ret = compute_gae(batch.rewards, batch.values, batch.dones, last_values,
+                               gamma=ppo_cfg.gamma, gae_lambda=ppo_cfg.gae_lambda)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        metrics = learner.sgd(state, batch, adv, ret, learner.draw_perms(state.generator))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        parts.append((t1 - t0, t2 - t1, t3 - t2, t3 - t0))
+        if not math.isfinite(float(metrics["loss"])):
+            raise AssertionError("non-finite loss")
+    rollout_s, gae_s, sgd_s, total_s = (statistics.median(p[i] for p in parts) for i in range(4))
+    sgd_steps = ppo_cfg.n_epochs * ppo_cfg.num_minibatches
+    log(f"training update at the recipe (host clock, synchronized, median of 3): "
+        f"rollout {rollout_s:.4f} s, GAE {gae_s:.4f} s, SGD {sgd_s:.4f} s "
+        f"({1e3 * sgd_s / sgd_steps:.3f} ms a minibatch step), total {total_s:.4f} s; "
+        f"all: {[tuple(round(x, 4) for x in p) for p in parts]}")
+    log(f"  train_steps_per_s {steps / total_s:.1f} ({train_cfg.num_envs} envs x "
+        f"{ppo_cfg.n_steps} steps / seconds per update)")
+
+    # one minibatch step by layer, each synchronized, median of 20
+    mb = [x.reshape((-1,) + x.shape[2:])[: learner.minibatch_size]
+          for x in (batch.obs, batch.actions, batch.log_probs, adv, ret)]
+    params, opt = state.params, state.optimizer
+    layers = {"loss (forward)": [], "backward": [], "clip": [], "adam": []}
+    for i in range(21):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = learner.loss_fn(params, *mb)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        optim.clip_by_global_norm_([p.grad for p in params.parameters()], ppo_cfg.max_grad_norm)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        if i:
+            for name, dt in zip(layers, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                layers[name].append(dt * 1e3)
+    log(f"  SGD step layers, minibatch {learner.minibatch_size} (host clock, synchronized, "
+        f"median ms of 20): " + ", ".join(f"{k} {statistics.median(v):.3f}"
+                                          for k, v in layers.items()))
+
+    for shuffle in ("exact", "affine"):
+        other = PPOLearner(env_cfg, ppo_cfg.replace(shuffle=shuffle), train_cfg.num_envs)
+        fused_sample_action.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = other.update(state)
+        loss = float(metrics["loss"])
+        dt = time.perf_counter() - t0
+        log(f"  shuffle {shuffle}: one update {dt:.4f} s, loss {loss:.4f}, "
+            f"kernel launches {fused_sample_action.launches}")
+        if not math.isfinite(loss) or fused_sample_action.launches != ppo_cfg.n_steps + 1:
+            raise AssertionError(f"shuffle {shuffle}: loss {loss}, "
+                                 f"{fused_sample_action.launches} launches")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = learner.update(state)
+        float(metrics["loss"])
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device_events = [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.time_range.elapsed_us() for e in device_events)
+    if dev_us > 0:
+        log(f"  profiler, one update: device busy {dev_us / 1e3:.1f} ms of "
+            f"{wall_us / 1e3:.1f} ms wall ({100 * dev_us / wall_us:.1f}%), "
+            f"{len(device_events)} device ops")
+    else:
+        log("  profiler, one update: device time not measured (no device events)")
+    return learner, state
+
+
+def phase_weights_live(learner, state):
+    """After an optimizer step the kernel reads the updated weights: one
+    kernel call against the plain version on the same, updated weights."""
+    params, obs = state.params, state.obs
+    noise = torch.randn(obs.shape[0], 2, device=obs.device)
+    before = fused_sample_action(params, obs, noise)
+    state, batch, last_values, _ = learner.rollout(state)
+    adv, ret = compute_gae(batch.rewards, batch.values, batch.dones, last_values,
+                           gamma=learner.cfg.gamma, gae_lambda=learner.cfg.gae_lambda)
+    mb = [x.reshape((-1,) + x.shape[2:])[: learner.minibatch_size]
+          for x in (batch.obs, batch.actions, batch.log_probs, adv, ret)]
+    loss, _ = learner.loss_fn(params, *mb)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optim.clip_by_global_norm_([p.grad for p in params.parameters()], learner.cfg.max_grad_norm)
+    state.optimizer.step()
+    got = fused_sample_action(params, obs, noise)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = fused_sample_action_ref(params, obs, noise)
+    errs = [scaled_err(g, w) for g, w in zip(got, want)]
+    moved = max(float((g - b).abs().max()) for g, b in zip(got, before))
+    log(f"kernel after an optimizer step, B={obs.shape[0]}: scaled errors against the plain "
+        f"version on the updated weights {', '.join(f'{e:.2e}' for e in errs)}; "
+        f"outputs moved by up to {moved:.3e}")
+    if max(errs) > TOL or moved <= 0.0:
+        raise AssertionError(f"the kernel did not read the updated weights: {errs}, {moved}")
+
+
 def main():
     phase_device()
     phase_build()
     row = phase_kernel_vs_plain()
     phase_reference()
+    phase_update_reference()
     learner, state = phase_slice(row)
     phase_breakdown(learner, state)
+    cfgs, state = phase_train(row)
+    learner, state = phase_train_timing(cfgs, state)
+    phase_weights_live(learner, state)
+    row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": [row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

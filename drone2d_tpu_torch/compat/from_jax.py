@@ -1,11 +1,13 @@
-"""Carry weights and env state across from the JAX package, as numpy.
+"""Carry weights, optimizer state and env state across from the JAX
+package, as numpy.
 
 Agents load from the `.npz` naming of `drone2d_tpu/models/policy.py`
 (`params_to_flat_dict`), and an `EnvState` maps leaf for leaf: the JAX
 package's batched state, with each leaf turned into a numpy array, becomes
 the port's state with the same padded shapes (`max_wps`, `max_obs`, the
-path table) and int32 `t` and `family`.  Nothing here imports JAX: both
-directions go through numpy.
+path table) and int32 `t` and `family`.  optax's Adam state maps into the
+port's `torch.optim.Adam` (`opt_state_from_numpy`).  Nothing here imports
+JAX: every direction goes through numpy.
 """
 
 from __future__ import annotations
@@ -18,7 +20,12 @@ import torch
 
 from drone2d_tpu_torch.device import resolve_device
 from drone2d_tpu_torch.env.types import EnvState, ObstacleSet
-from drone2d_tpu_torch.models.policy import flat_dict_to_params, params_to_flat_dict
+from drone2d_tpu_torch.models.policy import (
+    ActorCritic,
+    flat_dict_to_params,
+    params_to_flat_dict,
+    state_dict_key,
+)
 from drone2d_tpu_torch.ops.path import PathData
 from drone2d_tpu_torch.ops.physics import BodyState
 
@@ -76,3 +83,32 @@ def env_state_from_numpy(tree, device=None) -> EnvState:
 def env_state_to_numpy(state: EnvState) -> dict:
     """The port's EnvState -> {"path.wps": ndarray, ...} (JAX leaf names)."""
     return flatten_fields(state)
+
+
+def opt_state_from_numpy(optimizer: torch.optim.Adam, params: ActorCritic, adam_state) -> None:
+    """Load optax's `ScaleByAdamState` into `optimizer`, the port's Adam over
+    `params` (`learn/optim.py`).
+
+    `adam_state` has `count` (the steps taken), `mu` and `nu` (the first and
+    second moments), with numpy leaves; `mu` and `nu` are trees of the
+    `ActorCriticParams` layout or flat dicts in the agent-file naming.  The
+    next step then applies the bias correction of step `count + 1`, as
+    optax does.
+    """
+    moments = {k: v if isinstance(v, Mapping) else params_to_flat_dict(v)
+               for k, v in (("exp_avg", adam_state.mu), ("exp_avg_sq", adam_state.nu))}
+    by_key = dict(params.named_parameters())
+    index = {id(p): i for i, p in enumerate(optimizer.param_groups[0]["params"])}
+    state = {}
+    for name in moments["exp_avg"]:
+        p = by_key[state_dict_key(name)]
+        state[index[id(p)]] = {
+            "step": torch.tensor(float(np.asarray(adam_state.count)), dtype=torch.float32),
+            **{k: torch.tensor(np.asarray(m[name], np.float32)).reshape(p.shape)
+               for k, m in moments.items()},
+        }
+    if len(state) != len(index):
+        raise ValueError(f"Adam state for {len(state)} of {len(index)} parameters")
+    sd = optimizer.state_dict()
+    sd["state"] = state
+    optimizer.load_state_dict(sd)

@@ -1,9 +1,10 @@
-"""Environment and learner configuration.
+"""Environment, learner and training-run configuration.
 
-The port's own copy of the `EnvConfig` and `PPOConfig` dataclasses of the
-JAX package (`drone2d_tpu/config.py`), field for field with the same
-defaults, so that one set of values configures both packages.  Defaults are
-the reference's committed values (`rl_config.py`, `drone_2d_env.py`).
+The port's own copy of the `EnvConfig`, `PPOConfig` and `TrainConfig`
+dataclasses, the published `PRESETS` and `apply_preset` of the JAX package
+(`drone2d_tpu/config.py`), field for field with the same defaults, so that
+one set of values configures both packages.  Defaults are the reference's
+committed values (`rl_config.py`, `drone_2d_env.py`).
 """
 
 from __future__ import annotations
@@ -137,3 +138,115 @@ class PPOConfig:
 
     def replace(self, **kw) -> "PPOConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-run configuration (reference `rl_config.py:5-8` + main.py)."""
+
+    total_timesteps: int = 9_000_000   # rl_config.py:6
+    num_envs: int = 4096
+    seed: int = 0
+    checkpoint_every_steps: int = 100_000  # main.py:161 save_freq semantics
+    log_every_updates: int = 1
+    checkpoint_dir: str = "logs"
+    metrics_path: str = "logs/metrics.jsonl"
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# --- Published training recipes as first-class presets (VERDICT r4 #3) ----
+#
+# The reference ships its best configs verbatim
+# (best_models_config_and_res/run17see3/{rl_config,env_train_config}.txt);
+# these presets are the rebuild's equivalent: the exact recipes behind the
+# shipped strict-dominance agents (docs/RESULTS.md rounds 3-4), selectable
+# as `--preset NAME` on the train CLIs of both packages.  Explicit
+# CLI flags override preset values.  The committed per-knob defaults above
+# deliberately stay at REFERENCE values (conformance first); the presets
+# carry the quality deltas.
+PRESETS: dict = {
+    # Hunt-7 from-scratch recipe: 24 seeds x 150M of this + selection
+    # produced three strict n=1000-dominance finalists (stage_1 3000/3000,
+    # means 0.849-0.856) with no warm start (docs/RESULTS.md round 4).
+    # Train a pool of seeds (sweep.py --vmap 8), then pick with
+    # scripts/select_agents.py: expect large seed variance (the reference
+    # hand-picked from ~20 runs the same way).
+    "flagship-scratch": dict(
+        doc="published-quality from-scratch recipe (hunt 7, round 4)",
+        env=dict(
+            PP_rew_max=8.0,               # the r4 pace lever (3.5 saturates)
+            rew_collision=-70.0,
+            abs_inv_CA_min_rew=1.0 / 6.0,
+            curriculum_scale=4.0,
+            obstacle_radius_max=160.0,
+            stage_mix_prob=0.25,
+        ),
+        ppo=dict(
+            hidden_sizes=(128, 128),      # r3 capacity finding
+            n_steps=128,
+            num_minibatches=64,
+            shuffle="timeperm",
+        ),
+        train=dict(total_timesteps=150_000_000, num_envs=1024),
+    ),
+    # Hunt-8 pace fine-tune (adaptive rehearsal: the port's env raises
+    # NotImplementedError on it): 8 seeds x 30M from a trained winner
+    # (--init-params required) lifted every candidate to true stage_1
+    # 1000/1000 and produced the shipped flagship agent_s8004 (0.8822 true
+    # mean, gen-2 of the s250 -> s6006 -> s8004 chain).
+    "flagship-finetune": dict(
+        doc="pace fine-tune recipe (hunt 8, round 4); needs --init-params",
+        env=dict(
+            PP_rew_max=8.0,
+            rew_collision=-70.0,
+            abs_inv_CA_min_rew=1.0 / 6.0,
+            curriculum_scale=0.05,
+            obstacle_radius_max=160.0,
+            stage_mix_prob=0.3,
+            stage_mix_weights=(3.0, 1.0, 1.0, 1.0, 1.0),
+            adaptive_rehearsal=True,
+            rehearsal_adapt=False,
+        ),
+        ppo=dict(
+            hidden_sizes=(128, 128),
+            n_steps=128,
+            num_minibatches=64,
+            shuffle="timeperm",
+        ),
+        train=dict(total_timesteps=30_000_000, num_envs=1024),
+    ),
+}
+
+
+def apply_preset(
+    name: str,
+    env_cfg: EnvConfig,
+    ppo_cfg: PPOConfig,
+    train_cfg: TrainConfig,
+    provided: set = frozenset(),
+) -> Tuple[EnvConfig, PPOConfig, TrainConfig]:
+    """Overlay preset `name` on the three configs.
+
+    `provided` holds the keys the user set explicitly on the CLI, namespaced
+    like the train-CLI argparse attributes ('env_PP_rew_max',
+    'ppo_hidden_sizes', 'total_timesteps'); those keep their user value —
+    preset fills everything else it defines.
+    """
+    preset = PRESETS[name]
+    for section, cfg_name, cfg in (
+        ("env", "env_", env_cfg), ("ppo", "ppo_", ppo_cfg),
+        ("train", "", train_cfg),
+    ):
+        kw = {
+            k: v for k, v in preset.get(section, {}).items()
+            if f"{cfg_name}{k}" not in provided
+        }
+        if section == "env":
+            env_cfg = cfg.replace(**kw)
+        elif section == "ppo":
+            ppo_cfg = cfg.replace(**kw)
+        else:
+            train_cfg = cfg.replace(**kw)
+    return env_cfg, ppo_cfg, train_cfg

@@ -228,17 +228,26 @@ def _rewards_and_done(
 class Drone2DEnv:
     """Binds an EnvConfig and a device; every method works on the batch.
 
-    Only the curriculum mode with the default (zero) rehearsal mixes is
-    ported; the other settings raise.
+    Only the curriculum mode is ported, with the static stage-rehearsal mix
+    (`stage_mix_prob`); the corridor, cross and adaptive mixes and the
+    initial throw raise.
     """
 
     def __init__(self, cfg: EnvConfig, device=None):
         if cfg.mode != "curriculum":
             raise NotImplementedError("only mode='curriculum' is ported")
-        if (cfg.stage_mix_prob or cfg.corridor_mix_prob or cfg.cross_mix_prob
-                or cfg.adaptive_rehearsal or cfg.initial_motion_enabled):
+        if (cfg.corridor_mix_prob or cfg.cross_mix_prob or cfg.adaptive_rehearsal
+                or cfg.initial_motion_enabled):
             raise NotImplementedError(
-                "rehearsal mixes and the initial throw are not ported"
+                "the corridor, cross and adaptive rehearsal mixes and the initial "
+                "throw are not ported"
+            )
+        if len(set(cfg.stage_mix_weights)) > 1:
+            # as the JAX learner checks (learn/ppo.py initial_rehearsal_probs):
+            # the static mix draws its stage uniformly
+            raise ValueError(
+                "non-uniform stage_mix_weights only take effect through the "
+                f"adaptive reset path, which is not ported; got {cfg.stage_mix_weights}"
             )
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -253,13 +262,22 @@ class Drone2DEnv:
     def reset_batch(
         self, gen: torch.Generator, num_envs: int, global_step=0.0
     ) -> Tuple[EnvState, torch.Tensor]:
-        """`num_envs` fresh curriculum episodes -> (state, obs (N, 27))."""
+        """`num_envs` fresh curriculum episodes -> (state, obs (N, 27)).
+
+        With `stage_mix_prob` > 0 each env draws its own stage rehearsal
+        (`drone2d_tpu/env/env.py:363-370`): with that probability a uniform
+        stage in 1..5 replaces the scheduled one, is treated as forced (gs
+        -1) and is recorded as the env's `family`.  The mix never fires
+        under a forced `scenario="stage_k"`.  Its draws are made only when
+        the mix is on, so the generator's stream at 0 is unchanged.
+        """
         cfg, dev, N = self.cfg, self.device, num_envs
         angle = scenarios._uniform(gen, (N,), -math.pi / 4, math.pi / 4, dev)
         wps = scenarios.random_corner_waypoints(gen, cfg, N, dev)
         n_wps = torch.full((N,), cfg.n_wps, dtype=torch.int32, device=dev)
         pd = tpath.make_path(wps, n_wps, table_n=cfg.path_table_n,
                              margin=cfg.closest_u_margin)
+        family = torch.zeros(N, dtype=torch.int32, device=dev)
         if self._stage_override is not None:
             stage = torch.full((N,), self._stage_override, dtype=torch.int32, device=dev)
             gs = torch.full((N,), -1.0, device=dev)  # sim_num = -1 when forced
@@ -267,6 +285,13 @@ class Drone2DEnv:
             scaled = torch.as_tensor(global_step, dtype=torch.float32, device=dev)
             gs = (scaled / cfg.curriculum_scale).expand(N)
             stage = scenarios.stage_from_step(gs)
+            if cfg.stage_mix_prob > 0.0:
+                mix = torch.rand(N, generator=gen, device=dev) < cfg.stage_mix_prob
+                rand_stage = torch.randint(1, 6, (N,), generator=gen, device=dev,
+                                           dtype=torch.int32)
+                stage = torch.where(mix, rand_stage, stage)
+                gs = torch.where(mix, -1.0, gs)
+                family = torch.where(mix, rand_stage, family)
         xy, r, mask = scenarios.curriculum_obstacles(gen, cfg, pd, stage, gs)
         obstacles = ObstacleSet(xy=xy, r=r, mask=mask)
         # stage 2 spawns anywhere on screen (:329-333); others at path start
@@ -284,8 +309,7 @@ class Drone2DEnv:
             path=pd, obstacles=obstacles, body=body, target=target,
             t=torch.zeros(N, dtype=torch.int32, device=dev),
             path_error=zeros, total_reward=zeros, la_locked=la_locked,
-            left_force=zeros, right_force=zeros,
-            family=torch.zeros(N, dtype=torch.int32, device=dev),
+            left_force=zeros, right_force=zeros, family=family,
         )
         return state, obs
 

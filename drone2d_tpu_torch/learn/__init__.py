@@ -1,1 +1,1 @@
-"""PPO rollout and GAE."""
+"""PPO: the rollout, GAE, the update and its optimizer."""

@@ -1,14 +1,19 @@
-"""PPO rollout: the acting half of the SB3 `PPO("MlpPolicy")` learner.
+"""PPO learner: the SB3 `PPO("MlpPolicy")` equivalent.
 
-Counterpart of the rollout part of `drone2d_tpu/learn/ppo.py`.  A rollout
-steps all envs in lockstep for `n_steps`: the policy sample (the fused
-kernel on the card), a clip of the action to [-1, 1] for the env, and the
-auto-resetting env step against a reset template built once per rollout.
-The PPO update (loss, gradients, Adam) is not ported yet.
+Counterpart of `drone2d_tpu/learn/ppo.py`.  A rollout steps all envs in
+lockstep for `n_steps`: the policy sample (the fused kernel on the card), a
+clip of the action to [-1, 1] for the env, and the auto-resetting env step
+against a reset template built once per rollout.  An update is a rollout,
+GAE, then `n_epochs` x `num_minibatches` steps of the clipped-surrogate loss
+through plain `policy_value` with gradients, clipped by global norm and
+applied by Adam (`learn/optim.py`).
 
-`rollout_from` is the deterministic core: it takes the reset template and
-the (T, N, 2) standard-normal noise, so a test can feed it the JAX
-package's draws.  `rollout` draws both from the state's generator.
+The deterministic cores take what the JAX package draws from its key, so a
+test can feed them its draws: `rollout_from` takes the reset template and
+the (T, N, 2) standard-normal noise, `learn_from` the minibatch
+permutations, and `update_from` all three.  `rollout` and `update` draw them
+from the state's generator.  The parameters and the optimizer are updated
+in place.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from drone2d_tpu_torch.config import EnvConfig, PPOConfig
 from drone2d_tpu_torch.device import resolve_device
 from drone2d_tpu_torch.env.env import ACT_DIM, OBS_DIM, Drone2DEnv
 from drone2d_tpu_torch.env.types import EnvState
+from drone2d_tpu_torch.learn import optim
+from drone2d_tpu_torch.learn.gae import compute_gae
 from drone2d_tpu_torch.models.policy import ActorCritic
 
 # Final-step info components averaged over finished episodes
@@ -39,6 +46,8 @@ _STAT_KEYS = (
     "env_steps", "total_reward", "APE", "n_successful_runs", "n_failed_runs",
     "n_collisions",
 )
+# loss_fn's aux values, in the order the update's metrics average them
+_AUX_KEYS = ("policy_loss", "value_loss", "entropy", "clip_fraction", "approx_kl")
 
 
 @dataclasses.dataclass
@@ -54,31 +63,36 @@ class EpisodeStats:
     n_collision: torch.Tensor
     sum_components: torch.Tensor    # (7,) final-step reward components
 
-    def summary(self) -> Dict[str, float]:
-        n = max(float(self.n_episodes), 1.0)
+    def summary(self) -> Dict[str, torch.Tensor]:
+        """Per-episode means, as () tensors on the stats' device."""
+        n = torch.clamp(self.n_episodes, min=1.0)
         out = {
-            "episodes": float(self.n_episodes),
-            "avg_length": float(self.sum_length) / n,
-            "avg_total_reward": float(self.sum_total_reward) / n,
-            "avg_APE": float(self.sum_ape) / n,
-            "success_rate": float(self.n_success) / n,
-            "failure_rate": float(self.n_fail) / n,
-            "collision_rate": float(self.n_collision) / n,
+            "episodes": self.n_episodes,
+            "avg_length": self.sum_length / n,
+            "avg_total_reward": self.sum_total_reward / n,
+            "avg_APE": self.sum_ape / n,
+            "success_rate": self.n_success / n,
+            "failure_rate": self.n_fail / n,
+            "collision_rate": self.n_collision / n,
         }
         for i, k in enumerate(_COMPONENT_KEYS):
-            out[f"avg_{k}"] = float(self.sum_components[i]) / n
+            out[f"avg_{k}"] = self.sum_components[i] / n
         return out
 
 
 @dataclasses.dataclass
 class TrainState:
     params: ActorCritic
+    optimizer: torch.optim.Adam    # Adam's moments over `params` (learn/optim.py)
     env_state: EnvState            # batched over num_envs
     obs: torch.Tensor              # (N, 27)
-    generator: torch.Generator     # reset templates and action noise
+    generator: torch.Generator     # reset templates, action noise, permutations
     # float32 env-step counter, advanced once per rollout by n_steps*num_envs
     # (exact in float32 for power-of-two increments), as in the JAX package
     global_step: torch.Tensor      # () float32
+    # finished episodes over all updates, summed on the device so that the
+    # train loop copies nothing to the host between logged updates
+    episodes_total: torch.Tensor   # () float32
 
 
 @dataclasses.dataclass
@@ -93,20 +107,49 @@ class RolloutBatch:
 
 class PPOLearner:
     """Binds (EnvConfig, PPOConfig, num_envs) to a device (the card unless
-    device="cpu")."""
+    device="cpu").  `update(state)` is one training step: a rollout of
+    n_steps, GAE, then epochs x minibatches of SGD."""
 
     def __init__(self, env_cfg: EnvConfig, ppo_cfg: PPOConfig, num_envs: int,
                  *, device=None):
+        batch_size = ppo_cfg.n_steps * num_envs
+        # the JAX learner's checks and messages (learn/ppo.py:160-182)
+        if batch_size % ppo_cfg.num_minibatches:
+            raise ValueError(
+                f"n_steps*num_envs={batch_size} not divisible by "
+                f"num_minibatches={ppo_cfg.num_minibatches}"
+            )
+        if ppo_cfg.shuffle not in ("exact", "affine", "timeperm"):
+            raise ValueError(
+                "shuffle must be 'exact', 'affine' or 'timeperm', "
+                f"got {ppo_cfg.shuffle!r}"
+            )
+        if ppo_cfg.shuffle == "affine" and batch_size & (batch_size - 1):
+            raise ValueError(
+                "shuffle='affine' needs a power-of-two batch (odd multiplier "
+                f"bijection); n_steps*num_envs={batch_size}"
+            )
+        if ppo_cfg.shuffle == "timeperm" and ppo_cfg.n_steps % ppo_cfg.num_minibatches:
+            raise ValueError(
+                "shuffle='timeperm' slices minibatches as whole timesteps: "
+                f"n_steps={ppo_cfg.n_steps} must be divisible by "
+                f"num_minibatches={ppo_cfg.num_minibatches}"
+            )
         self.device = resolve_device(device)
         self.env = Drone2DEnv(env_cfg, self.device)
         self.cfg = ppo_cfg
         self.num_envs = num_envs
+        self.batch_size = batch_size
+        self.minibatch_size = batch_size // ppo_cfg.num_minibatches
+
+    # -- construction --------------------------------------------------------
 
     def init(self, seed: int, params: ActorCritic | None = None,
              global_step: float = 0.0) -> TrainState:
-        """Fresh envs and, unless given, fresh weights.  The curriculum clock
-        starts at `global_step` (0 for a run from scratch; a trained agent
-        resumes where its curriculum has obstacles)."""
+        """Fresh envs, a fresh optimizer and, unless given, fresh weights,
+        all from `seed`.  The curriculum clock starts at `global_step` (0 for
+        a run from scratch; a trained agent resumes where its curriculum has
+        obstacles)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         if params is None:
@@ -114,10 +157,22 @@ class PPOLearner:
                 OBS_DIM, ACT_DIM, self.cfg.hidden_sizes,
                 generator=torch.Generator().manual_seed(seed), device=self.device,
             )
-        step = torch.tensor(global_step, dtype=torch.float32, device=self.device)
-        env_state, obs = self.env.reset_batch(gen, self.num_envs, step)
-        return TrainState(params=params, env_state=env_state, obs=obs, generator=gen,
-                          global_step=step)
+        return self.start(gen, params, global_step)
+
+    def start(self, generator: torch.Generator, params: ActorCritic,
+              global_step: float = 0.0, episodes_total: float = 0.0) -> TrainState:
+        """A state over `params` with a fresh optimizer and envs reset from
+        `generator` at `global_step`."""
+        f32 = dict(dtype=torch.float32, device=self.device)
+        step = torch.tensor(global_step, **f32)
+        env_state, obs = self.env.reset_batch(generator, self.num_envs, step)
+        return TrainState(
+            params=params, optimizer=optim.adam(params.parameters(), self.cfg.learning_rate),
+            env_state=env_state, obs=obs, generator=generator, global_step=step,
+            episodes_total=torch.tensor(episodes_total, **f32),
+        )
+
+    # -- rollout -------------------------------------------------------------
 
     def rollout(
         self, state: TrainState
@@ -125,14 +180,15 @@ class PPOLearner:
         """Collect n_steps across all envs under the current policy.
 
         Returns (state', batch, last_values, episode_stats)."""
-        reset_state, reset_obs = self.env.reset_batch(
-            state.generator, self.num_envs, state.global_step
-        )
+        return self.rollout_from(state, *self._rollout_draws(state.generator, state.global_step))
+
+    def _rollout_draws(self, gen: torch.Generator, global_step: torch.Tensor):
+        """A rollout's reset template, then its (T, N, 2) action noise."""
+        reset_state, reset_obs = self.env.reset_batch(gen, self.num_envs, global_step)
         noise = torch.randn(
-            (self.cfg.n_steps, self.num_envs, ACT_DIM),
-            generator=state.generator, device=self.device,
+            (self.cfg.n_steps, self.num_envs, ACT_DIM), generator=gen, device=self.device,
         )
-        return self.rollout_from(state, reset_state, reset_obs, noise)
+        return reset_state, reset_obs, noise
 
     @torch.no_grad()
     def rollout_from(
@@ -194,3 +250,159 @@ class PPOLearner:
             state, env_state=env_state, obs=obs, global_step=global_step
         )
         return new_state, batch, last_values, stats
+
+    # -- loss ----------------------------------------------------------------
+
+    def loss_fn(
+        self,
+        params: ActorCritic,
+        obs: torch.Tensor,
+        actions: torch.Tensor,
+        old_log_probs: torch.Tensor,
+        advantages: torch.Tensor,
+        returns: torch.Tensor,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The clipped-surrogate loss of one minibatch and its aux values
+        (`drone2d_tpu/learn/ppo.py:323-371`, one device)."""
+        cfg = self.cfg
+        log_prob, entropy, value = params.action_log_prob_entropy(obs, actions)
+
+        # per-minibatch advantage normalization (SB3 normalize_advantage),
+        # two-pass with the population variance, as the JAX package writes
+        # it (torch.std would divide by n - 1)
+        m = torch.mean(advantages)
+        var = torch.mean(torch.square(advantages - m))
+        adv = (advantages - m) / (torch.sqrt(var) + 1e-8)
+
+        ratio = torch.exp(log_prob - old_log_probs)
+        pg1 = adv * ratio
+        pg2 = adv * torch.clamp(ratio, 1.0 - cfg.clip_range, 1.0 + cfg.clip_range)
+        pg_loss = -torch.mean(torch.minimum(pg1, pg2))
+
+        v_loss = torch.mean((returns - value) ** 2)
+        ent = torch.mean(entropy)
+        loss = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * ent
+
+        clip_frac = torch.mean(((ratio - 1.0).abs() > cfg.clip_range).to(torch.float32))
+        approx_kl = torch.mean(old_log_probs - log_prob)
+        aux = dict(
+            policy_loss=pg_loss,
+            value_loss=v_loss,
+            entropy=ent,
+            clip_fraction=clip_frac,
+            approx_kl=approx_kl,
+        )
+        return loss, aux
+
+    # -- update --------------------------------------------------------------
+
+    def draw_perms(self, gen: torch.Generator) -> torch.Tensor:
+        """One epoch's shuffle a row, drawn from `gen`: (n_epochs, n_steps)
+        permutations of the time axis for 'timeperm', else (n_epochs, B)
+        permutations of the flat batch: uniform for 'exact', a random affine
+        bijection i -> (a*i + b) mod B, a odd, for 'affine'."""
+        cfg, dev, B = self.cfg, self.device, self.batch_size
+        if cfg.shuffle == "affine":
+            a = torch.randint(0, B // 2, (cfg.n_epochs, 1), generator=gen, device=dev) * 2 + 1
+            b = torch.randint(0, B, (cfg.n_epochs, 1), generator=gen, device=dev)
+            return affine_perm(a, b, B)
+        n = cfg.n_steps if cfg.shuffle == "timeperm" else B
+        return torch.stack([torch.randperm(n, generator=gen, device=dev)
+                            for _ in range(cfg.n_epochs)])
+
+    def sgd(
+        self,
+        state: TrainState,
+        batch: RolloutBatch,
+        advantages: torch.Tensor,
+        returns: torch.Tensor,
+        perms: torch.Tensor,
+    ) -> Dict[str, torch.Tensor]:
+        """The epochs x minibatches of clipped-surrogate steps, in place on
+        `state.params` and `state.optimizer`, with the shuffles `perms` (see
+        `draw_perms`).  Returns the loss and aux values averaged over every
+        minibatch, as () tensors on the device."""
+        cfg, M, mb = self.cfg, self.cfg.num_minibatches, self.minibatch_size
+        n = cfg.n_steps if cfg.shuffle == "timeperm" else self.batch_size
+        if tuple(perms.shape) != (cfg.n_epochs, n):
+            raise ValueError(f"perms has shape {tuple(perms.shape)}, want {(cfg.n_epochs, n)}")
+        perms = perms.to(device=self.device, dtype=torch.int64)
+        data = (batch.obs, batch.actions, batch.log_probs, advantages, returns)
+        flat = [x.reshape((self.batch_size,) + x.shape[2:]) for x in data]
+        params, opt = state.params, state.optimizer
+        leaves = list(params.parameters())
+        # one row of (loss, *aux) a minibatch, averaged at the end
+        rows = torch.empty((cfg.n_epochs * M, 1 + len(_AUX_KEYS)), dtype=torch.float32,
+                           device=self.device)
+        for e in range(cfg.n_epochs):
+            if cfg.shuffle == "timeperm":
+                # permute whole timesteps, then slice: minibatch k holds
+                # n_steps/M permuted timesteps x all envs, time-major, as
+                # the JAX package's x[perm].reshape((M, mb, ...)) does
+                xs = [x.index_select(0, perms[e]).reshape((M, mb) + x.shape[2:])
+                      for x in data]
+                minibatches = (tuple(x[k] for x in xs) for k in range(M))
+            else:
+                # gather each minibatch by its indices; a shuffled copy of
+                # the batch an epoch would move the same bytes and write more
+                idx = perms[e].view(M, mb)
+                minibatches = (tuple(x.index_select(0, idx[k]) for x in flat)
+                               for k in range(M))
+            for k, mb_data in enumerate(minibatches):
+                loss, aux = self.loss_fn(params, *mb_data)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                optim.clip_by_global_norm_([p.grad for p in leaves], cfg.max_grad_norm)
+                opt.step()
+                rows[e * M + k] = torch.stack([v.detach() for v in (loss, *map(aux.get, _AUX_KEYS))])
+        means = rows.mean(dim=0)
+        return {key: means[i] for i, key in enumerate(("loss",) + _AUX_KEYS)}
+
+    def learn_from(
+        self,
+        state: TrainState,
+        batch: RolloutBatch,
+        last_values: torch.Tensor,
+        perms: torch.Tensor,
+    ) -> Dict[str, torch.Tensor]:
+        """GAE over `batch`, then `sgd` with the shuffles `perms`; updates
+        `state.params` and `state.optimizer` in place and returns the SGD
+        metrics."""
+        advantages, returns = compute_gae(
+            batch.rewards, batch.values, batch.dones, last_values,
+            gamma=self.cfg.gamma, gae_lambda=self.cfg.gae_lambda,
+        )
+        return self.sgd(state, batch, advantages, returns, perms)
+
+    def update(self, state: TrainState) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One PPO iteration with the draws made from the state's generator:
+        the rollout's reset template and noise, then the shuffles."""
+        draws = self._rollout_draws(state.generator, state.global_step)
+        return self.update_from(state, *draws, self.draw_perms(state.generator))
+
+    def update_from(
+        self,
+        state: TrainState,
+        reset_state: EnvState,
+        reset_obs: torch.Tensor,
+        noise: torch.Tensor,
+        perms: torch.Tensor,
+    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One PPO iteration with its draws given.  Returns (state',
+        metrics): the keys of the JAX package's metrics
+        (`learn/ppo.py:468-478`), as () tensors on the device."""
+        state, batch, last_values, stats = self.rollout_from(state, reset_state, reset_obs, noise)
+        metrics = self.learn_from(state, batch, last_values, perms)
+        episodes_total = state.episodes_total + stats.n_episodes
+        metrics.update({f"episodes/{k}": v for k, v in stats.summary().items()})
+        metrics["episodes/total"] = episodes_total
+        metrics["global_step"] = state.global_step
+        return dataclasses.replace(state, episodes_total=episodes_total), metrics
+
+
+def affine_perm(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
+    """(a * i + b) mod n for i in 0..n-1, broadcast over a and b.  The JAX
+    package computes it in uint32, wrapping at 2^32; int64 gives the same
+    values, because n is a power of two that divides 2^32 (so reducing mod
+    2^32 first changes nothing mod n) and a*i + b < n^2 + n stays exact."""
+    return (a.to(torch.int64) * torch.arange(n, device=a.device) + b.to(torch.int64)) % n

@@ -107,6 +107,18 @@ class ActorCritic(nn.Module):
                                 generator=generator, device=obs.device)
         return fused_sample_action(self, obs, noise)
 
+    def action_log_prob_entropy(
+        self, obs: torch.Tensor, action: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(log_prob(action) (B,), entropy (B,), value (B,)) for PPO's update
+        pass: differentiable plain torch through `policy_value`.  The
+        entropy depends on log_std only and is broadcast to the batch."""
+        mean, log_std, value = self.policy_value(obs)
+        z = (action - mean) / torch.exp(log_std)
+        log_prob = torch.sum(-0.5 * (z**2 + _LOG_2PI) - log_std, dim=-1)
+        entropy = torch.sum(log_std + 0.5 * (_LOG_2PI + 1.0)).expand(log_prob.shape)
+        return log_prob, entropy, value
+
     def deterministic_action(self, obs: torch.Tensor) -> torch.Tensor:
         """Greedy action clipped to the Box bounds (SB3 predict)."""
         mean, _, _ = self.policy_value(obs)
@@ -115,9 +127,10 @@ class ActorCritic(nn.Module):
 
 def params_to_flat_dict(params: ActorCritic) -> dict:
     """Flat `.npz` naming of the JAX package (models/policy.py:126-170), as
-    numpy arrays."""
+    numpy arrays.  Also takes any tree of that layout with numpy leaves (the
+    JAX package's `ActorCriticParams`, or optax's Adam moments of it)."""
     def npy(t):
-        return t.detach().cpu().numpy()
+        return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
     out = {"log_std": npy(params.log_std)}
     for name, layers in (("pi", params.pi), ("vf", params.vf)):
@@ -138,10 +151,13 @@ def flat_dict_to_params(flat: Mapping[str, np.ndarray], device=None) -> ActorCri
     obs_dim = np.shape(flat["pi0/w"])[0]
     act_dim = np.shape(flat["log_std"])[0]
     model = ActorCritic(obs_dim, act_dim, hidden, device="cpu")
-    state = {}
-    for key, value in flat.items():
-        name = key.replace("/", ".")
-        name = name[:2] + "." + name[2:] if name[2].isdigit() else name
-        state[name] = torch.tensor(np.asarray(value, np.float32))
-    model.load_state_dict(state)
+    model.load_state_dict({state_dict_key(key): torch.tensor(np.asarray(value, np.float32))
+                           for key, value in flat.items()})
     return model.to(resolve_device(device))
+
+
+def state_dict_key(flat_name: str) -> str:
+    """An agent file's name ("pi0/w", "vf_out/b", "log_std") -> the
+    ActorCritic state_dict key ("pi.0.w", "vf_out.b", "log_std")."""
+    name = flat_name.replace("/", ".")
+    return name[:2] + "." + name[2:] if name[2].isdigit() else name

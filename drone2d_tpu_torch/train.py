@@ -1,0 +1,228 @@
+"""Training driver: the port's counterpart of `drone2d_tpu/train.py` (the
+`mode == "train"` path of reference `main.py:149-210`).
+
+    python -m drone2d_tpu_torch.train --preset flagship-scratch
+
+Runs on the CUDA card unless `--device cpu`, on one device (data
+parallelism is not ported).  It maps the reference pipeline as the JAX
+package does:
+  PPO("MlpPolicy", ent_coef=0.01)     -> drone2d_tpu_torch.learn.PPOLearner
+  CheckpointCallback(100000//n_cpu)   -> torch.save every checkpoint_every_steps
+  TensorboardLogger                   -> MetricsWriter (JSONL + TB)
+  curriculum via checkpoint glob      -> global_step carried in TrainState
+  model.save('new_agent')             -> final checkpoint + new_agent.npz
+The `.npz` keeps the JAX package's flat naming, so either package loads it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+
+from drone2d_tpu_torch.config import (
+    PRESETS,
+    EnvConfig,
+    PPOConfig,
+    TrainConfig,
+    apply_preset,
+)
+from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState
+from drone2d_tpu_torch.models.policy import flat_dict_to_params, params_to_flat_dict
+from drone2d_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+from drone2d_tpu_torch.utils.metrics import MetricsWriter
+
+
+def _add_dataclass_args(
+    parser: argparse.ArgumentParser, prefix: str, cls, *, suppress: bool = False
+) -> None:
+    for f in dataclasses.fields(cls):
+        if not isinstance(f.default, (int, float, str, bool)):
+            continue
+        name = f"--{prefix.replace('_', '-')}{f.name.replace('_', '-')}"
+        default = argparse.SUPPRESS if suppress else f.default
+        if isinstance(f.default, bool):
+            parser.add_argument(name, type=lambda s: s.lower() in ("1", "true", "yes"),
+                                default=default, metavar="BOOL")
+        else:
+            parser.add_argument(name, type=type(f.default), default=default)
+
+
+def _collect(args, prefix: str, cls):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        key = f"{prefix}{f.name}"
+        if hasattr(args, key):
+            kw[f.name] = getattr(args, key)
+    return cls(**kw)
+
+
+def build_parser(*, suppress: bool = False) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    _add_dataclass_args(p, "", TrainConfig, suppress=suppress)
+    _add_dataclass_args(p, "env_", EnvConfig, suppress=suppress)
+    _add_dataclass_args(p, "ppo_", PPOConfig, suppress=suppress)
+    p.add_argument(
+        "--preset", default=None, choices=sorted(PRESETS),
+        help="published training recipe (config.PRESETS) applied over the "
+        "defaults; explicit flags still win — e.g. --preset flagship-scratch",
+    )
+    p.add_argument("--resume", action="store_true", help="resume from latest checkpoint")
+    p.add_argument("--max-updates", type=int, default=0, help="stop after N updates (0 = by timesteps)")
+    p.add_argument(
+        "--init-params", default=None, metavar="NPZ",
+        help="warm-start: initialize policy params from a saved agent .npz "
+        "with a FRESH optimizer, env batch, and global_step. Unlike --resume, "
+        "nothing else is restored.",
+    )
+    p.add_argument(
+        "--device", default=None, choices=("cuda", "cpu"),
+        help="where to train; the default is the CUDA card, and the run "
+        "fails without one ('cpu' runs on the host)",
+    )
+    return p
+
+
+def parse_args(argv=None):
+    """argv -> (args, train_cfg, env_cfg, ppo_cfg), with `--preset`
+    overlaid on the defaults and every flag typed explicitly winning."""
+    args = build_parser().parse_args(argv)
+    train_cfg = _collect(args, "", TrainConfig)
+    env_cfg = _collect(args, "env_", EnvConfig)
+    ppo_cfg = _collect(args, "ppo_", PPOConfig)
+    if args.preset:
+        # keys the user typed explicitly (suppressed-defaults twin parse)
+        provided = set(vars(build_parser(suppress=True).parse_known_args(argv)[0]))
+        env_cfg, ppo_cfg, train_cfg = apply_preset(
+            args.preset, env_cfg, ppo_cfg, train_cfg, provided
+        )
+    return args, train_cfg, env_cfg, ppo_cfg
+
+
+def load_agent(path: str, ppo_cfg: PPOConfig, device):
+    """Params of an agent `.npz` (the flat naming of either package)."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path!r} is a directory: orbax checkpoints are the JAX package's; "
+            "pass an agent .npz"
+        )
+    params = flat_dict_to_params(dict(np.load(path)), device=device)
+    hidden = tuple(layer.w.shape[1] for layer in params.pi)
+    if hidden != tuple(ppo_cfg.hidden_sizes):
+        raise ValueError(f"{path!r} has hidden sizes {hidden}, the run {ppo_cfg.hidden_sizes}")
+    return params
+
+
+def train(
+    train_cfg: TrainConfig,
+    env_cfg: EnvConfig,
+    ppo_cfg: PPOConfig,
+    *,
+    resume: bool = False,
+    max_updates: int = 0,
+    init_params: str | None = None,
+    device=None,
+) -> TrainState:
+    """Train until `total_timesteps` (or `max_updates`), then save a
+    checkpoint and `new_agent.npz` under `checkpoint_dir`.  Returns the
+    final state."""
+    learner = PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs, device=device)
+
+    start_step = 0
+    if resume:
+        state, start_step = restore_checkpoint(train_cfg.checkpoint_dir, learner)
+        print(f"resumed from step {start_step}")
+    else:
+        # a warm start takes the policy only; optimizer, envs and
+        # global_step start fresh (a fine-tune, not a resume)
+        params = load_agent(init_params, ppo_cfg, learner.device) if init_params else None
+        state = learner.init(train_cfg.seed, params=params)
+        if init_params:
+            print(f"warm-started params from {init_params}")
+
+    writer = MetricsWriter(
+        train_cfg.metrics_path,
+        tensorboard_dir=f"{train_cfg.checkpoint_dir}/tb",
+        resume=resume,
+    )
+    writer.write_config_snapshot(
+        train_cfg.checkpoint_dir,
+        env_train_config=env_cfg, rl_config=ppo_cfg, train_config=train_cfg,
+    )
+
+    steps_per_update = ppo_cfg.n_steps * train_cfg.num_envs
+    next_ckpt = (start_step // train_cfg.checkpoint_every_steps + 1) * train_cfg.checkpoint_every_steps
+    n_updates = 0
+    gs = start_step
+    t0 = time.perf_counter()
+    try:
+        while True:
+            state, metrics = learner.update(state)
+            n_updates += 1
+            # host-side step bookkeeping: nothing is copied from the device
+            # between logged updates
+            gs += steps_per_update
+            if n_updates == 1:
+                # the first update also builds the kernel and warms the
+                # caches: restart the throughput clock after it
+                float(metrics["loss"])
+                t0 = time.perf_counter()
+            if n_updates % train_cfg.log_every_updates == 0:
+                # one copy of every metric to the host
+                values = torch.stack(list(metrics.values())).tolist()
+                m = dict(zip(metrics, values))
+                # cumulative episodes accumulated on the device (exact across
+                # skipped updates and across resume)
+                writer.set_episodes_total(int(m.pop("episodes/total")))
+                rate = ""
+                if n_updates > 1:  # the clock restarted after the first update
+                    m["throughput/env_steps_per_s"] = steps_per_update * (n_updates - 1) / (
+                        time.perf_counter() - t0)
+                    rate = f"  {m['throughput/env_steps_per_s']:,.0f} steps/s"
+                writer.write(gs, m)
+                print(
+                    f"step {gs:>9d}  loss {m['loss']:8.3f}  "
+                    f"ep_ret {m['episodes/avg_total_reward']:8.2f}  "
+                    f"sr {m['episodes/success_rate']:.2f}{rate}"
+                )
+            if gs >= next_ckpt:
+                save_checkpoint(train_cfg.checkpoint_dir, state)
+                next_ckpt += train_cfg.checkpoint_every_steps
+            if gs >= train_cfg.total_timesteps:
+                break
+            if max_updates and n_updates >= max_updates:
+                break
+    finally:
+        # final save (reference model.save('new_agent'), main.py:209)
+        step = save_checkpoint(train_cfg.checkpoint_dir, state)
+        np.savez(f"{train_cfg.checkpoint_dir}/new_agent.npz", **params_to_flat_dict(state.params))
+        writer.close()
+        print(f"saved final checkpoint at step {step}")
+    return state
+
+
+def main(argv=None) -> None:
+    from drone2d_tpu_torch.utils.runtime import wait_for_accelerator
+
+    args, train_cfg, env_cfg, ppo_cfg = parse_args(argv)
+    if args.preset:
+        print(f"preset {args.preset!r}: {PRESETS[args.preset]['doc']}")
+    if args.device != "cpu":
+        print(f"device: {wait_for_accelerator()}")
+    train(
+        train_cfg,
+        env_cfg,
+        ppo_cfg,
+        resume=args.resume,
+        max_updates=args.max_updates,
+        init_params=args.init_params,
+        device=args.device,
+    )
+
+
+if __name__ == "__main__":
+    main()

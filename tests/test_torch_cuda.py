@@ -1,7 +1,9 @@
 """The port's CUDA kernel on the card: built from source, held against its
 plain PyTorch version at every padded width and at ragged batches, on the
 flagship agent's weights, counted, refused on mixed devices, and refused
-(NotImplementedError) for an architecture it does not take.
+(NotImplementedError) for an architecture it does not take; it reads the
+weights an optimizer step has just updated.  The PPO update on the card
+against the same update on the CPU.
 
 These need an NVIDIA GPU and nvcc, and skip without one.  This file imports
 no JAX, so on a machine with the card and without JAX it runs alone:
@@ -9,6 +11,7 @@ no JAX, so on a machine with the card and without JAX it runs alone:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from drone2d_tpu_torch.config import EnvConfig, PPOConfig
+from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.ppo import PPOLearner
 from drone2d_tpu_torch.models.policy import ActorCritic, flat_dict_to_params
 from drone2d_tpu_torch.ops.fused_policy import fused_sample_action, fused_sample_action_ref
@@ -116,3 +120,59 @@ def test_rollout_on_card_launches_kernel_each_step(dev):
     assert batch.obs.device.type == "cuda"
     assert np.isfinite(batch.obs.cpu().numpy()).all()
     assert np.isfinite(last_values.cpu().numpy()).all()
+
+
+def _update_on(dev, shuffle, start, batch, last_values, perms):
+    """learn_from on `dev` from the CPU state's weights and batch."""
+    ppo = PPOConfig(n_steps=8, num_minibatches=4, n_epochs=2, shuffle=shuffle,
+                    hidden_sizes=(128, 128))
+    learner = PPOLearner(EnvConfig(), ppo, 64, device=dev)
+    params = flat_dict_to_params(dict(np.load(AGENT)), device=dev)
+    state = dataclasses.replace(start, params=params,
+                                optimizer=optim.adam(params.parameters(), ppo.learning_rate))
+    move = {f.name: getattr(batch, f.name).to(dev) for f in dataclasses.fields(batch)}
+    metrics = learner.learn_from(state, type(batch)(**move), last_values.to(dev), perms.to(dev))
+    return params, {k: float(v) for k, v in metrics.items()}, ppo
+
+
+@pytest.mark.parametrize("shuffle", ["exact", "affine", "timeperm"])
+def test_learn_from_on_card_matches_cpu(dev, shuffle):
+    """One update of the flagship on a CPU-made stage-5 batch, on the card and
+    on the CPU with the same shuffles: loss and aux to 1e-5 of max(|v|, 1),
+    each weight to 1e-3 of the lr x SGD-steps budget plus 4 float32 ulps of
+    the weight (the bounds of tests/test_torch_ppo.py and chip_smoke.py)."""
+    cpu = PPOLearner(EnvConfig(), PPOConfig(n_steps=8, hidden_sizes=(128, 128)), 64,
+                     device="cpu")
+    start = cpu.init(0, params=flat_dict_to_params(dict(np.load(AGENT)), device="cpu"),
+                     global_step=3e6)
+    _, batch, last_values, _ = cpu.rollout(start)
+    n = 8 if shuffle == "timeperm" else 8 * 64
+    perms = torch.stack([torch.randperm(n, generator=torch.Generator().manual_seed(e))
+                         for e in range(2)])
+    pc, mc, ppo = _update_on("cpu", shuffle, start, batch, last_values, perms)
+    pg, mg, _ = _update_on(dev, shuffle, start, batch, last_values, perms)
+    for k in mc:
+        assert abs(mg[k] - mc[k]) <= 1e-5 * max(abs(mc[k]), 1.0), k
+    budget = 1e-3 * ppo.learning_rate * ppo.n_epochs * ppo.num_minibatches
+    for g, c in zip(pg.parameters(), pc.parameters()):
+        g, c = g.detach().cpu().double(), c.detach().double()
+        assert bool(((g - c).abs() <= budget + 4 * 2.0**-23 * c.abs()).all())
+
+
+def test_kernel_reads_weights_after_optimizer_step(dev):
+    """The kernel reads the live weights at every launch: after an Adam step
+    its outputs move and match the plain version on the updated weights."""
+    params = flat_dict_to_params(dict(np.load(AGENT)), device=dev)
+    opt = optim.adam(params.parameters(), 1e-2)
+    gen = torch.Generator().manual_seed(9)
+    obs = torch.randn(1024, 27, generator=gen).to(dev)
+    noise = torch.randn(1024, 2, generator=gen).to(dev)
+    before = fused_sample_action(params, obs, noise)
+    mean, log_std, value = params.policy_value(obs)
+    (mean.square().mean() + value.mean() + log_std.sum()).backward()
+    optim.clip_by_global_norm_([p.grad for p in params.parameters()], 0.5)
+    opt.step()
+    _check(params, obs, noise)
+    after = fused_sample_action(params, obs, noise)
+    for a, b in zip(after, before):
+        assert float((a - b).abs().max()) > 0.0

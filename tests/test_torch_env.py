@@ -312,7 +312,8 @@ def test_random_corner_waypoints():
 
 
 def test_unported_settings_raise():
-    for kw in (dict(mode="test"), dict(stage_mix_prob=0.2), dict(corridor_mix_prob=0.1),
+    # the static stage mix is ported (tests/test_torch_ppo.py holds it)
+    for kw in (dict(mode="test"), dict(corridor_mix_prob=0.1), dict(cross_mix_prob=0.1),
                dict(adaptive_rehearsal=True), dict(initial_motion_enabled=True)):
         with pytest.raises(NotImplementedError):
             Drone2DEnv(CFG.replace(**kw), device="cpu")

@@ -28,6 +28,7 @@ from drone2d_tpu.models.policy import (
 from drone2d_tpu_torch.compat.from_jax import env_state_from_numpy, params_from_flat
 from drone2d_tpu_torch.config import EnvConfig, PPOConfig
 from drone2d_tpu_torch.learn.gae import compute_gae
+from drone2d_tpu_torch.learn.optim import adam
 from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState
 
 torch.set_num_threads(1)
@@ -93,11 +94,12 @@ def _port_rollout(run):
     learner = PPOLearner(EnvConfig(), PPOConfig(n_steps=T, hidden_sizes=HIDDEN), N,
                          device="cpu")
     js = run["state"]
+    params = params_from_flat(run["flat"], device="cpu")
     state = TrainState(
-        params=params_from_flat(run["flat"], device="cpu"),
+        params=params, optimizer=adam(params.parameters(), 3e-4),
         env_state=env_state_from_numpy(js.env_state, device="cpu"),
         obs=torch.tensor(js.obs), generator=torch.Generator(),
-        global_step=torch.tensor(js.global_step),
+        global_step=torch.tensor(js.global_step), episodes_total=torch.tensor(0.0),
     )
     return learner.rollout_from(
         state, env_state_from_numpy(run["reset_state"], device="cpu"),
@@ -180,23 +182,27 @@ def test_rollout_draws_from_generator_and_advances(hidden):
 
 
 def test_package_imports_no_jax():
-    """Importing every module of the port loads neither JAX nor any module
-    of the JAX package."""
+    """Importing every module of the port, and chip_smoke.py, loads neither
+    JAX, optax nor any module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import drone2d_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'drone2d_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'drone2d_tpu' or m.startswith('drone2d_tpu.')]\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'drone2d_tpu')]\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules if m.startswith('drone2d_tpu_torch')]))\n"
+        "print(' '.join(m for m in sys.modules if m.startswith('drone2d_tpu_torch')))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.strip()) >= 15
+    loaded = set(proc.stdout.split())
+    assert len(loaded) >= 20
+    for name in ("train", "learn.ppo", "learn.optim", "utils.checkpoint", "utils.metrics",
+                 "utils.runtime"):
+        assert f"drone2d_tpu_torch.{name}" in loaded, name
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu():
@@ -206,10 +212,17 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
         pytest.skip("a CUDA device is present; the refusal needs its absence")
     from drone2d_tpu_torch.env.env import Drone2DEnv
     from drone2d_tpu_torch.models.policy import ActorCritic, flat_dict_to_params
+    from drone2d_tpu_torch.train import main as train_main
+    from drone2d_tpu_torch.utils.runtime import wait_for_accelerator
 
+    argv = ["--num-envs", "4", "--ppo-n-steps", "8", "--max-updates", "1",
+            "--checkpoint-dir", os.devnull, "--metrics-path", os.devnull]
     for make in (lambda: PPOLearner(EnvConfig(), PPOConfig(), 4),
                  lambda: Drone2DEnv(EnvConfig()),
                  lambda: ActorCritic(),
-                 lambda: flat_dict_to_params(dict(np.load(AGENT)))):
+                 lambda: flat_dict_to_params(dict(np.load(AGENT))),
+                 lambda: train_main(argv),
+                 lambda: train_main([*argv, "--device", "cuda"]),
+                 wait_for_accelerator):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
