@@ -3,19 +3,26 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `drone2d_tpu_torch/csrc/`, holds each
-against its plain PyTorch version on the card, and drives the port's two
-main paths, each with the kernel counts set to 0 just before it and read
-just after: the PPO rollout of the flagship 27-128-128 actor-critic over
-4096 curriculum envs x 128 steps (twice, then GAE), and training through
+against its plain PyTorch version on the card, and drives the port's main
+paths, each with the kernel counts set to 0 just before it and read just
+after: the PPO rollout of the flagship 27-128-128 actor-critic over 4096
+curriculum envs x 128 steps (twice, then GAE); training through
 `drone2d_tpu_torch.train` at the published flagship-scratch recipe
 (128-128 actor-critic, 1024 envs x 128 steps, 64 minibatches x 10 epochs,
-3 updates from scratch, then 1 after a resume).  It checks that the paths
-launched the kernels and that their outputs are right (an update on the card
-against the same update on the CPU, finite losses, moved weights, finished
-episodes, files on disk), times the update by layer, and prints one JSON
-line of kernel measurements and, last, one JSON status line.  Any failure
-raises, so the exit code is 0 only when every phase passed.  Needs CUDA;
-imports no JAX.
+3 updates from scratch, then 1 after a resume); the flagship-finetune
+recipe (adaptive rehearsal) warm-started from agent_s6006, 2 updates as
+published, then 6 with the corridor and crossing-wall mixes at 0.04 and the
+PLR controller on, then 1 after a resume; and the 12-scenario eval campaign
+of agent_s8004, 1000 stochastic episodes a scenario, through
+`drone2d_tpu_torch.eval.run.evaluate`.  It checks that the paths launched
+the kernels and that their outputs are right (an update and an eval batch
+on the card against the same on the CPU, finite losses, moved weights,
+finished episodes, the rehearsal families' frequencies and walls, the
+controller's budget, each scenario's success rate against the committed
+campaign by a two-proportion z-test, files on disk), times each phase, the
+update by layer and a campaign step, and prints one JSON line of kernel
+measurements and, last, one JSON status line.  Any failure raises, so the
+exit code is 0 only when every phase passed.  Needs CUDA; imports no JAX.
 """
 
 from __future__ import annotations
@@ -33,9 +40,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from drone2d_tpu_torch.config import EnvConfig, PPOConfig
+from drone2d_tpu_torch.config import ALL_SCENARIOS, EnvConfig, PPOConfig
 from drone2d_tpu_torch.env.env import Drone2DEnv, _observe, _rewards_and_done
-from drone2d_tpu_torch.env.types import select_state
+from drone2d_tpu_torch.env.types import FAMILY_NAMES, select_state
+from drone2d_tpu_torch.eval.episode import run_episodes_from
+from drone2d_tpu_torch.eval.run import evaluate, scenario_config
 from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.gae import compute_gae
 from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState
@@ -43,9 +52,13 @@ from drone2d_tpu_torch.models.policy import ActorCritic, flat_dict_to_params
 from drone2d_tpu_torch.ops import cuda_build, geometry, physics
 from drone2d_tpu_torch.ops.fused_policy import fused_sample_action, fused_sample_action_ref
 from drone2d_tpu_torch.train import parse_args, train
+from drone2d_tpu_torch.utils.checkpoint import restore_checkpoint
 
 ROOT = Path(__file__).resolve().parent
 AGENT = ROOT / "artifacts" / "agent_s8004" / "new_agent.npz"
+# the parent of agent_s8004, which the flagship-finetune recipe started from
+FINETUNE_AGENT = ROOT / "artifacts" / "agent_s6006" / "new_agent.npz"
+CAMPAIGN = ROOT / "artifacts" / "agent_s8004" / "campaign_n1000_summary.json"
 NUM_ENVS, N_STEPS, HIDDEN = 4096, 128, (128, 128)
 START_STEP = 3e6  # curriculum stage 5
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 on the CUDA cores,
@@ -59,6 +72,17 @@ TOL = 1e-5
 # of the weight (the same step added to a weight rounds to its ulp)
 UPDATE_TOL, PARAM_TOL, PARAM_ULPS = 1e-5, 1e-3, 4
 TRAIN_UPDATES = 3  # from scratch, then 1 more after a resume
+# flagship-finetune: 2 updates as published, then PLR_UPDATES with both
+# wall mixes at WALL_MIX and the controller on, then 1 more after a resume.
+# Stage-1 and scheduled episodes of this agent last ~500 steps, so every
+# family finishes episodes, and several reach the controller's 8 a tick,
+# only from the 4th-5th update of 128 steps on
+FINETUNE_UPDATES = 2
+PLR_UPDATES = 6
+WALL_MIX = 0.04
+EVAL_EPISODES = 1000
+# a scenario's success rate against the committed campaign's: |z| <= Z_MAX
+Z_MAX = 3.0
 
 
 def log(*args):
@@ -91,6 +115,21 @@ def device_ms(fn, reps: int = 25, inner: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def profile_device(fn):
+    """Run fn() once under torch.profiler, synchronized -> (the device
+    events, their summed device µs, the wall µs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return events, sum(e.time_range.elapsed_us() for e in events), wall_us
 
 
 def phase_device():
@@ -297,19 +336,13 @@ def phase_breakdown(learner, state):
         + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
 
     # device busy share over three steps, from the profiler's kernel times
-    from torch.profiler import ProfilerActivity, profile
+    def three_steps():
+        with torch.no_grad():
+            for _ in range(3):
+                a = state.params.sample_action(obs, noise=noise)[0]
+                env.step_batch_template(es, a.clamp(-1, 1), es, obs)
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            a = state.params.sample_action(obs, noise=noise)[0]
-            env.step_batch_template(es, a.clamp(-1, 1), es, obs)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    device_events = [e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.time_range.elapsed_us() for e in device_events)
+    device_events, dev_us, wall_us = profile_device(three_steps)
     kernels = len(device_events)
     if dev_us > 0:
         log(f"profiler, 3 steps: device busy {dev_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
@@ -583,17 +616,14 @@ def phase_train_timing(cfgs, state):
             raise AssertionError(f"shuffle {shuffle}: loss {loss}, "
                                  f"{fused_sample_action.launches} launches")
 
-    from torch.profiler import ProfilerActivity, profile
+    out = {}
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = learner.update(state)
+    def one_update():
+        out["state"], metrics = learner.update(state)
         float(metrics["loss"])
-        wall_us = (time.perf_counter() - t0) * 1e6
-    device_events = [e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.time_range.elapsed_us() for e in device_events)
+
+    device_events, dev_us, wall_us = profile_device(one_update)
+    state = out["state"]
     if dev_us > 0:
         log(f"  profiler, one update: device busy {dev_us / 1e3:.1f} ms of "
             f"{wall_us / 1e3:.1f} ms wall ({100 * dev_us / wall_us:.1f}%), "
@@ -632,17 +662,317 @@ def phase_weights_live(learner, state):
         raise AssertionError(f"the kernel did not read the updated weights: {errs}, {moved}")
 
 
+def _finetune_args(d: str, *extra: str):
+    """(train_cfg, env_cfg, ppo_cfg) of the flagship-finetune recipe writing
+    under `d`, with `extra` flags."""
+    return parse_args(["--preset", "flagship-finetune", "--checkpoint-dir", d,
+                       "--metrics-path", f"{d}/metrics.jsonl", *extra])[1:]
+
+
+PLR_FLAGS = ("--env-corridor-mix-prob", str(WALL_MIX), "--env-cross-mix-prob", str(WALL_MIX),
+             "--env-rehearsal-adapt", "true")
+
+
+def phase_rehearsal_reset():
+    """The adaptive reset on the card: 4096 envs at the flagship-finetune
+    recipe with both wall mixes at WALL_MIX.  Each family's share within 5
+    sigma of its probability; 62 corridor circles, 6 crossing-wall circles,
+    and every wall episode at its path start."""
+    _, _, env_cfg, ppo_cfg = parse_args(["--preset", "flagship-finetune", *PLR_FLAGS])
+    learner = PPOLearner(env_cfg, ppo_cfg, NUM_ENVS)
+    probs = learner.initial_rehearsal_probs()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, obs = learner.env.reset_batch(gen, NUM_ENVS, 0.0, probs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fam = state.family.cpu().numpy()
+    p = np.concatenate([[1.0 - float(probs.sum())], probs.cpu().numpy()])
+    shares = np.bincount(fam, minlength=8) / NUM_ENVS
+    sigma = np.sqrt(p * (1 - p) / NUM_ENVS)
+    log(f"adaptive reset on the card, {NUM_ENVS} envs at flagship-finetune + walls {WALL_MIX}: "
+        f"{dt:.3f} s; family share (probability, |d|/sigma): "
+        + ", ".join(f"{n} {s:.4f} ({q:.4f}, {abs(s - q) / max(g, 1e-12):.2f})"
+                    for n, s, q, g in zip(FAMILY_NAMES, shares, p, sigma)))
+    if (np.abs(shares - p) > 5 * sigma).any():
+        raise AssertionError(f"family shares {shares} off the probabilities {p}")
+    count = state.obstacles.mask.sum(1).cpu().numpy()
+    at_start = (state.body.pos == state.path.wps[:, 0]).all(1).cpu().numpy()
+    if not ((count[fam == 6] == 62).all() and (count[fam == 7] == 6).all()
+            and at_start[np.isin(fam, (6, 7))].all()):
+        raise AssertionError("corridor/cross episodes lack their walls or their start")
+    if not bool(torch.isfinite(obs).all()):
+        raise AssertionError("non-finite observation after the adaptive reset")
+    log(f"  walls: {int((fam == 6).sum())} corridor episodes with 62 circles, "
+        f"{int((fam == 7).sum())} cross episodes with 6, all at their path start")
+
+
+def phase_finetune(kernel_row: dict):
+    """The fine-tune path: `train` at the flagship-finetune recipe from
+    agent_s6006 for FINETUNE_UPDATES updates; PLR_UPDATES with both wall
+    mixes at WALL_MIX and the PLR controller on; then 1 update resumed from that,
+    each run with the kernel count set to 0 just before it and read just
+    after."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_finetune_") as d:
+        return _finetune_in(d, kernel_row)
+
+
+def _finetune_in(d: str, kernel_row: dict):
+    start = flat_dict_to_params(dict(np.load(FINETUNE_AGENT)), device="cuda")
+    warm = dict(init_params=str(FINETUNE_AGENT))
+    runs = (("finetune", f"{d}/recipe", (), warm, FINETUNE_UPDATES),
+            ("finetune_plr", f"{d}/plr", PLR_FLAGS, warm, PLR_UPDATES),
+            ("finetune_plr_resume", f"{d}/plr", PLR_FLAGS, dict(resume=True), 1))
+    launches, states = {}, {}
+    for name, out, flags, kw, updates in runs:
+        train_cfg, env_cfg, ppo_cfg = _finetune_args(out, *flags)
+        if name == "finetune":
+            log(f"fine-tune (flagship-finetune from {FINETUNE_AGENT.parent.name}: hidden "
+                f"{ppo_cfg.hidden_sizes}, {train_cfg.num_envs} envs x {ppo_cfg.n_steps} steps, "
+                f"{ppo_cfg.num_minibatches} x {ppo_cfg.n_epochs} SGD, {ppo_cfg.shuffle}, "
+                f"curriculum_scale {env_cfg.curriculum_scale}, stage_mix_prob "
+                f"{env_cfg.stage_mix_prob} weighted {env_cfg.stage_mix_weights}):")
+        if name == "finetune_plr_resume":
+            saved, _ = restore_checkpoint(out, PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs))
+        torch.cuda.synchronize()
+        fused_sample_action.launches = 0
+        t0 = time.perf_counter()
+        states[name] = train(train_cfg, env_cfg, ppo_cfg, max_updates=updates, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[name] = fused_sample_action.launches
+        log(f"  {name}: {updates} update(s) in {dt:.2f} s ({dt / updates:.2f} s an update, "
+            f"setup included), kernel launches {launches[name]}")
+        if launches[name] != updates * (ppo_cfg.n_steps + 1):
+            raise AssertionError(f"{name}: fused_sample_action launched {launches[name]} "
+                                 f"times, want {updates} x {ppo_cfg.n_steps + 1}")
+
+    for name, out in (("finetune", f"{d}/recipe"), ("finetune_plr", f"{d}/plr")):
+        with open(f"{out}/metrics.jsonl") as f:
+            rows = [json.loads(line) for line in f]
+        for r in rows:
+            # train's rate after the first update: one update's seconds
+            rate = r.get("throughput/env_steps_per_s")
+            log(f"  {name} step {r['global_step']}: loss {r['loss']:.4f}, value_loss "
+                f"{r['value_loss']:.4f}, approx_kl {r['approx_kl']:.5f}, episodes "
+                f"{r['episodes/episodes']:.0f}, success_rate {r['episodes/success_rate']:.3f}"
+                + (f", {rows[0]['global_step'] / rate:.3f} s an update ({rate:.1f} "
+                   "train_steps_per_s)" if rate else "")
+                + "".join(f", p_{n} {r[f'rehearsal/p_{n}']:.5f}" for n in FAMILY_NAMES[1:]
+                          if f"rehearsal/p_{n}" in r))
+        if not all(math.isfinite(r[k]) for r in rows for k in ("loss", "value_loss", "entropy")):
+            raise AssertionError(f"{name}: non-finite loss")
+        with torch.no_grad():
+            moved = min(float((a - b).abs().max()) for a, b in zip(
+                states[name].params.parameters(), start.parameters()))
+        if moved <= 0.0:
+            raise AssertionError(f"{name}: a weight did not move")
+        if name == "finetune_plr":
+            plr_rows = rows
+        elif any(k.startswith("rehearsal/") for r in rows for k in r):
+            raise AssertionError("the recipe's run (rehearsal_adapt off) logged a tick")
+
+    # the controller: every family with p > 0 finished episodes; the tick
+    # reweighted the measured families and kept the budget; unmeasured ones
+    # kept their probability exactly
+    _, env_cfg, ppo_cfg = _finetune_args(d, *PLR_FLAGS)
+    first = PPOLearner(env_cfg, ppo_cfg, 8).initial_rehearsal_probs().cpu().numpy()
+    plr = states["finetune_plr"]
+    counts, wins = plr.family_counts.cpu().numpy(), plr.family_wins.cpu().numpy()
+    probs = plr.rehearsal_probs.cpu().numpy()
+    log(f"  finetune_plr: family episodes {dict(zip(FAMILY_NAMES, counts.tolist()))}, wins "
+        f"{dict(zip(FAMILY_NAMES, wins.tolist()))}; probabilities {first.tolist()} -> "
+        f"{probs.tolist()} (sum {float(probs.sum()):.7f})")
+    if not (counts[1:][first > 0] > 0).all():
+        raise AssertionError(f"a rehearsal family with p > 0 finished no episode: {counts}")
+    if abs(float(probs.sum()) - float(first.sum())) > 1e-6:
+        raise AssertionError(f"the controller changed the budget: {probs.sum()} vs {first.sum()}")
+    unmeasured = counts[1:] < 8
+    if (probs[unmeasured] != first[unmeasured]).any() or (probs == first).all():
+        raise AssertionError(f"the tick did not reweight (only) the measured families: {probs}")
+    # the resumed update appended the last row
+    last = np.array([plr_rows[PLR_UPDATES - 1][f"rehearsal/p_{n}"]
+                     for n in FAMILY_NAMES[1:]], np.float32)
+    if len(plr_rows) != PLR_UPDATES + 1 or (last != probs).any():
+        raise AssertionError("the rehearsal/p_* rows do not hold the controller's probabilities")
+
+    # the resume restored the PLR fields and counted on
+    res = states["finetune_plr_resume"]
+    if (saved.rehearsal_probs.cpu().numpy() != probs).any() or (
+            saved.family_counts.cpu().numpy() != counts).any():
+        raise AssertionError("the checkpoint did not carry the PLR fields")
+    if not (res.family_counts.cpu().numpy() >= counts).all():
+        raise AssertionError("the resumed run lost family counts")
+    log(f"  finetune_plr_resume: restored probabilities and counts equal the saved ones; "
+        f"family episodes now {res.family_counts.cpu().numpy().tolist()}")
+    kernel_row["launches_by_path"]["finetune"] = sum(launches.values())
+    return launches
+
+
+def _episode_errors(got, want) -> dict:
+    """Scaled differences of two EpisodeResults' float fields."""
+    errs = {}
+    for k, scale in (("ape", None), ("total_reward", None), ("traj", 1300.0),
+                     ("angles", math.pi)):
+        g, w = np.asarray(getattr(got, k), np.float64), np.asarray(getattr(want, k), np.float64)
+        errs[k] = float(np.abs(g - w).max() / (scale or max(1.0, np.abs(w).max())))
+    return errs
+
+
+def phase_eval_reference():
+    """The eval runner on the card against the CPU from identical inputs
+    (CPU-made reset states and noise, agent_s8004, stochastic policy, a
+    64-step cap), in one spatial and one stage scenario: latched flags and
+    lengths equal, APE, return, trajectory and angles to 1e-4 of scale, as
+    tests/test_torch_eval.py holds the port against the JAX package.  A
+    quarter of the episodes start 5 px from their target (a reach-end on
+    the first step) and a quarter, where they have one, on their first
+    obstacle's center (a collision), so that the latch sees every end."""
+    n, cap = 512, 64
+    for scen in ("S_corridor", "stage_5"):
+        cfg = scenario_config(scen).replace(n_steps=cap)
+        gen = torch.Generator().manual_seed(7)
+        state, obs = Drone2DEnv(cfg, device="cpu").reset_batch(gen, n)
+        i = torch.arange(n)
+        near, hit = i % 4 == 0, (i % 4 == 1) & state.obstacles.mask[:, 0]
+        pos = torch.where(near[:, None], state.target + 5.0, state.body.pos)
+        pos = torch.where(hit[:, None], state.obstacles.xy[:, 0], pos)
+        state = dataclasses.replace(state, body=dataclasses.replace(state.body, pos=pos))
+        noise = torch.randn((cap, n, 2), generator=gen)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            out[dev] = run_episodes_from(Drone2DEnv(cfg, device=dev), load_agent(dev),
+                                         _to(state, dev), obs.to(dev), noise.to(dev))
+        got, want = out["cuda"], out["cpu"]
+        for k in ("success", "fail", "collision", "time_steps", "traj_len"):
+            if not np.array_equal(getattr(got, k), getattr(want, k)):
+                raise AssertionError(f"eval {scen}: {k} differs between the card and the CPU")
+        errs = _episode_errors(got, want)
+        log(f"eval on the card vs the CPU, {scen}, {n} episodes x {cap} steps: latched flags and "
+            f"lengths equal ({int(want.success.sum())} successes, {int(want.collision.sum())} "
+            f"collisions, {int(want.fail.sum())} fails); "
+            f"scaled errors " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        if max(errs.values()) > 1e-4 or not (want.success.any() and want.collision.any()):
+            raise AssertionError(f"eval {scen}: the card and the CPU disagree, or an end is "
+                                 f"missing: {errs}")
+
+
+def phase_eval_breakdown():
+    """Where a campaign step's time goes, in the corridor scenario at
+    B=EVAL_EPISODES: host ms a step over 64 steps of the stochastic runner
+    (synchronized, the results' copy to the host included), and the
+    device's busy share and ops a step under the profiler over 8 steps."""
+    params = load_agent("cuda")
+    for cap in (64, 8):
+        cfg = scenario_config("corridor").replace(n_steps=cap)
+        env = Drone2DEnv(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        state, obs = env.reset_batch(gen, EVAL_EPISODES)
+        noise = torch.randn((cap, EVAL_EPISODES, 2), generator=gen, device="cuda")
+        if cap == 64:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_episodes_from(env, params, state, obs, noise)
+            step_ms = (time.perf_counter() - t0) * 1e3 / cap
+        else:
+            events, dev_us, wall_us = profile_device(
+                lambda: run_episodes_from(env, params, state, obs, noise))
+    busy = (f"device busy {dev_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+            f"({100 * dev_us / wall_us:.1f}%), {len(events) / 8:.0f} device ops a step"
+            if events else "device time not measured (no device events)")
+    log(f"eval step at B={EVAL_EPISODES} (corridor): {step_ms:.3f} ms a step (host clock, "
+        f"64 steps, synchronized); profiler, 8 steps: {busy}")
+
+
+def _z(p1: float, p2: float, n1: int, n2: int) -> float:
+    """Two-proportion z of success rates p1, p2 over n1, n2 episodes, with
+    the pooled rate; 0 where both rates are 0 or both 1."""
+    pool = (p1 * n1 + p2 * n2) / (n1 + n2)
+    se = math.sqrt(pool * (1 - pool) * (1 / n1 + 1 / n2))
+    return 0.0 if se == 0.0 else (p1 - p2) / se
+
+
+def phase_campaign(kernel_row: dict):
+    """The eval path: `evaluate` for agent_s8004 over the 12 scenarios,
+    EVAL_EPISODES stochastic episodes each, writing the Tests/ schema into a
+    temporary directory; each scenario's success rate against the committed
+    campaign by |z| <= Z_MAX."""
+    with open(CAMPAIGN) as f:
+        ref = {s["scenario"]: s for s in json.load(f)["scenarios"]}
+    log(f"eval campaign: agent_s8004, {len(ALL_SCENARIOS)} scenarios x {EVAL_EPISODES} "
+        f"stochastic episodes, against {CAMPAIGN.relative_to(ROOT)} (|z| <= {Z_MAX}):")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as d:
+        torch.cuda.synchronize()
+        fused_sample_action.launches = 0
+        t_all = time.perf_counter()
+        rows, bad = [], []
+        for scen in ALL_SCENARIOS:
+            before = fused_sample_action.launches
+            t0 = time.perf_counter()
+            s = evaluate(str(AGENT), scen, EVAL_EPISODES, out_root=d)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            r = ref[scen]
+            z = _z(s["success_rate"], r["success_rate"], EVAL_EPISODES, r["episodes"])
+            n = fused_sample_action.launches - before
+            rows.append(dict(scenario=scen, sr=s["success_rate"], ref_sr=r["success_rate"], z=z,
+                             cr=s["collision_rate"], ape=s["avg_ape"],
+                             flight_time=s["avg_flight_time"], seconds=dt, launches=n))
+            log(f"  campaign {scen}: SR {s['success_rate']:.3f} (committed "
+                f"{r['success_rate']:.3f}, z {z:+.2f}), CR {s['collision_rate']:.3f}, APE "
+                f"{s['avg_ape']:.2f} ({r['avg_ape']:.2f}), flight time "
+                f"{s['avg_flight_time']:.1f} ({r['avg_flight_time']:.1f}), {dt:.2f} s, "
+                f"kernel launches {n}")
+            if abs(z) > Z_MAX:
+                bad.append(scen)
+            files = ["flight_paths", "collisions.npy", "rewards.npy", "apes.npy",
+                     "time_spent.npy", f"{scen}_new_agent_results.txt"]
+            missing = [f for f in files if not Path(s["out_dir"], f).exists()]
+            if missing:
+                raise AssertionError(f"campaign {scen}: no {missing} in {s['out_dir']}")
+        total = time.perf_counter() - t_all
+        launches = fused_sample_action.launches
+    mean_sr = statistics.mean(r["sr"] for r in rows)
+    log(f"  campaign: {len(rows) * EVAL_EPISODES} episodes in {total:.2f} s, "
+        f"{len(rows) * EVAL_EPISODES / total:.1f} episodes_per_s; mean SR {mean_sr:.4f} "
+        f"(committed {statistics.mean(r['ref_sr'] for r in rows):.4f}); kernel launches "
+        f"{launches}; the Tests/ schema files on disk for every scenario")
+    if bad:
+        raise AssertionError(f"campaign success rates off the committed ones: {bad}")
+    if launches <= 0 or launches != sum(r["launches"] for r in rows):
+        raise AssertionError(f"the campaign launched the kernel {launches} times")
+    kernel_row["launches_by_path"]["eval"] = launches
+    return rows
+
+
 def main():
-    phase_device()
-    phase_build()
-    row = phase_kernel_vs_plain()
-    phase_reference()
-    phase_update_reference()
-    learner, state = phase_slice(row)
-    phase_breakdown(learner, state)
-    cfgs, state = phase_train(row)
-    learner, state = phase_train_timing(cfgs, state)
-    phase_weights_live(learner, state)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        log(f"[phase {name}: {seconds[name]:.1f} s]")
+        return out
+
+    timed("device", phase_device)
+    timed("build", phase_build)
+    row = timed("kernel_vs_plain", phase_kernel_vs_plain)
+    timed("reference", phase_reference)
+    timed("update_reference", phase_update_reference)
+    learner, state = timed("rollout", phase_slice, row)
+    timed("breakdown", phase_breakdown, learner, state)
+    cfgs, state = timed("train", phase_train, row)
+    learner, state = timed("train_timing", phase_train_timing, cfgs, state)
+    timed("weights_live", phase_weights_live, learner, state)
+    timed("rehearsal_reset", phase_rehearsal_reset)
+    timed("finetune", phase_finetune, row)
+    timed("eval_reference", phase_eval_reference)
+    timed("eval_breakdown", phase_eval_breakdown)
+    timed("campaign", phase_campaign, row)
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; total {sum(seconds.values()):.1f}")
     row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": [row]}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,10 @@ Agents load from the `.npz` naming of `drone2d_tpu/models/policy.py`
 package's batched state, with each leaf turned into a numpy array, becomes
 the port's state with the same padded shapes (`max_wps`, `max_obs`, the
 path table) and int32 `t` and `family`.  optax's Adam state maps into the
-port's `torch.optim.Adam` (`opt_state_from_numpy`).  Nothing here imports
-JAX: every direction goes through numpy.
+port's `torch.optim.Adam` (`opt_state_from_numpy`), and a whole learner
+state, PLR fields included, into the port's `TrainState`
+(`train_state_from_numpy`).  Nothing here imports JAX: every direction goes
+through numpy.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import torch
 
 from drone2d_tpu_torch.device import resolve_device
 from drone2d_tpu_torch.env.types import EnvState, ObstacleSet
+from drone2d_tpu_torch.learn import optim
+from drone2d_tpu_torch.learn.ppo import TrainState
 from drone2d_tpu_torch.models.policy import (
     ActorCritic,
     flat_dict_to_params,
@@ -112,3 +116,27 @@ def opt_state_from_numpy(optimizer: torch.optim.Adam, params: ActorCritic, adam_
     sd = optimizer.state_dict()
     sd["state"] = state
     optimizer.load_state_dict(sd)
+
+
+def train_state_from_numpy(tree, learning_rate: float, device=None) -> TrainState:
+    """The JAX package's `TrainState`, with numpy leaves, -> the port's:
+    params, Adam state (optax's clip + Adam chain; a fresh Adam when
+    `opt_state` is None), envs, obs, the counters and the PLR fields
+    (`rehearsal_probs`, `family_counts`, `family_wins`).  The JAX key has no
+    counterpart: the state gets a fresh generator on `device`."""
+    dev = resolve_device(device)
+    params = flat_dict_to_params(params_to_flat_dict(tree.params), device=dev)
+    opt = optim.adam(params.parameters(), learning_rate)
+    if tree.opt_state is not None:
+        opt_state_from_numpy(opt, params, tree.opt_state[1][0])
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    return TrainState(
+        params=params, optimizer=opt, env_state=env_state_from_numpy(tree.env_state, dev),
+        obs=f32(tree.obs), generator=torch.Generator(device=dev),
+        global_step=f32(tree.global_step), episodes_total=f32(tree.episodes_total),
+        rehearsal_probs=tree.rehearsal_probs, family_counts=tree.family_counts,
+        family_wins=tree.family_wins,
+    )

@@ -1,8 +1,9 @@
 """Environment, learner and training-run configuration.
 
-The port's own copy of the `EnvConfig`, `PPOConfig` and `TrainConfig`
-dataclasses, the published `PRESETS` and `apply_preset` of the JAX package
-(`drone2d_tpu/config.py`), field for field with the same defaults, so that
+The port's own copy of the scenario names, the `EnvConfig`, `PPOConfig`
+and `TrainConfig` dataclasses, the published `PRESETS` and `apply_preset`
+of the JAX package (`drone2d_tpu/config.py`), field for field with the
+same defaults, so that
 one set of values configures both packages.  Defaults are the reference's
 committed values (`rl_config.py`, `drone_2d_env.py`).
 """
@@ -12,6 +13,29 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Tuple
+
+# Scenario name registry (reference `rl_config.py:45-58`).
+TEST_SCENARIOS: Tuple[str, ...] = (
+    "perpendicular",
+    "parallel",
+    "S_parallel",
+    "corridor",
+    "S_corridor",
+    "large",
+    "impossible",
+)
+STAGE_SCENARIOS: Tuple[str, ...] = (
+    "stage_1",
+    "stage_2",
+    "stage_3",
+    "stage_4",
+    "stage_5",
+)
+ALL_SCENARIOS: Tuple[str, ...] = TEST_SCENARIOS + STAGE_SCENARIOS
+# Framework-only extras, NOT part of the published 12-scenario suite:
+# 'parallel_boxes' exercises the box obstacles (reference obstacles.py:20-45),
+# whose rounded-box geometry the port does not have.
+EXTRA_SCENARIOS: Tuple[str, ...] = ("parallel_boxes",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,9 +215,8 @@ PRESETS: dict = {
         ),
         train=dict(total_timesteps=150_000_000, num_envs=1024),
     ),
-    # Hunt-8 pace fine-tune (adaptive rehearsal: the port's env raises
-    # NotImplementedError on it): 8 seeds x 30M from a trained winner
-    # (--init-params required) lifted every candidate to true stage_1
+    # Hunt-8 pace fine-tune (adaptive rehearsal): 8 seeds x 30M from a
+    # trained winner (--init-params required) lifted every candidate to true stage_1
     # 1000/1000 and produced the shipped flagship agent_s8004 (0.8822 true
     # mean, gen-2 of the s250 -> s6006 -> s8004 chain).
     "flagship-finetune": dict(

@@ -225,29 +225,41 @@ def _rewards_and_done(
     )
 
 
+def _where_env(pick: torch.Tensor, a: Tuple[torch.Tensor, ...], b: Tuple[torch.Tensor, ...]):
+    """Leaf by leaf, env n's entry of `a` where pick[n] (N,), else of `b`."""
+    return tuple(torch.where(pick.reshape(pick.shape + (1,) * (x.dim() - 1)), x, y)
+                 for x, y in zip(a, b))
+
+
 class Drone2DEnv:
     """Binds an EnvConfig and a device; every method works on the batch.
 
-    Only the curriculum mode is ported, with the static stage-rehearsal mix
-    (`stage_mix_prob`); the corridor, cross and adaptive mixes and the
-    initial throw raise.
+    Both modes of the JAX package: `curriculum` (random paths and the
+    stage schedule, with the static stage, corridor and crossing-wall
+    rehearsal mixes and the adaptive family draw) and `test` (one of the
+    spatial benchmark scenarios, its path and obstacles built once here).
+    The initial throw and the box obstacles of `parallel_boxes` raise
+    NotImplementedError.
     """
 
     def __init__(self, cfg: EnvConfig, device=None):
-        if cfg.mode != "curriculum":
-            raise NotImplementedError("only mode='curriculum' is ported")
-        if (cfg.corridor_mix_prob or cfg.cross_mix_prob or cfg.adaptive_rehearsal
-                or cfg.initial_motion_enabled):
-            raise NotImplementedError(
-                "the corridor, cross and adaptive rehearsal mixes and the initial "
-                "throw are not ported"
+        if cfg.mode not in ("curriculum", "test"):
+            raise ValueError(f"mode must be 'curriculum' or 'test', got {cfg.mode!r}")
+        if cfg.mode == "test" and cfg.scenario not in scenarios._SPAWN_RECTS:
+            raise ValueError(
+                f"test mode needs a spatial scenario, got {cfg.scenario!r} "
+                "(stage_k scenarios run under mode='curriculum', as in the "
+                "reference: drone_2d_env.py:76-77, 326-372)"
             )
-        if len(set(cfg.stage_mix_weights)) > 1:
+        if cfg.initial_motion_enabled:
+            raise NotImplementedError("the initial throw (initial_motion_enabled) is not ported")
+        if len(set(cfg.stage_mix_weights)) > 1 and not cfg.adaptive_rehearsal:
             # as the JAX learner checks (learn/ppo.py initial_rehearsal_probs):
             # the static mix draws its stage uniformly
             raise ValueError(
                 "non-uniform stage_mix_weights only take effect through the "
-                f"adaptive reset path, which is not ported; got {cfg.stage_mix_weights}"
+                "adaptive reset path (probabilities as data); set "
+                f"adaptive_rehearsal=True; got {cfg.stage_mix_weights}"
             )
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -257,49 +269,65 @@ class Drone2DEnv:
         if cfg.scenario.startswith("stage_"):
             self._stage_override = int(cfg.scenario.split("_")[1])
 
+        if cfg.mode == "test":
+            geo = scenarios.build_test_scenario(cfg)
+            dev = self.device
+            self._test_path = tpath.make_path(
+                torch.tensor(geo.wps, device=dev)[None],
+                torch.tensor([geo.n_wps], dtype=torch.int32, device=dev),
+                table_n=cfg.path_table_n, margin=cfg.closest_u_margin,
+            )
+            self._test_obstacles = ObstacleSet(
+                xy=torch.tensor(geo.obs_xy, device=dev)[None],
+                r=torch.tensor(geo.obs_r, device=dev)[None],
+                mask=torch.tensor(geo.obs_mask, device=dev)[None],
+            )
+            self._spawn_rect = tuple(float(v) for v in geo.spawn_rect)
+
     # -- reset ---------------------------------------------------------------
 
     def reset_batch(
-        self, gen: torch.Generator, num_envs: int, global_step=0.0
+        self, gen: torch.Generator, num_envs: int, global_step=0.0,
+        rehearsal_probs: torch.Tensor | None = None,
     ) -> Tuple[EnvState, torch.Tensor]:
-        """`num_envs` fresh curriculum episodes -> (state, obs (N, 27)).
+        """`num_envs` fresh episodes -> (state, obs (N, 27)).
 
-        With `stage_mix_prob` > 0 each env draws its own stage rehearsal
-        (`drone2d_tpu/env/env.py:363-370`): with that probability a uniform
-        stage in 1..5 replaces the scheduled one, is treated as forced (gs
-        -1) and is recorded as the env's `family`.  The mix never fires
-        under a forced `scenario="stage_k"`.  Its draws are made only when
-        the mix is on, so the generator's stream at 0 is unchanged.
+        In test mode every env flies the scenario's path and obstacles from
+        a spawn drawn uniformly in its rectangle.  In curriculum mode
+        (`drone2d_tpu/env/env.py:309-454`) each env draws a random path and
+        the stage the schedule gives `global_step`, and then, unless the
+        scenario forces a stage, the rehearsal mixes:
+        - `adaptive_rehearsal`: one family per env from `rehearsal_probs`
+          (7,) (stage_1..stage_5, corridor, cross; the rest of the mass is a
+          scheduled episode), by `scenarios.family_from_uniform`.  A stage
+          family is drawn as a forced stage (gs -1).
+        - else `stage_mix_prob`: a uniform forced stage 1..5 with that
+          probability; `corridor_mix_prob` and `cross_mix_prob`: that wall
+          with that probability (the crossing wall wins when both fire).
+        Corridor and crossing-wall episodes start at the path start.  The
+        env's `family` records what it drew (0 = scheduled, 1..5 a stage,
+        6 corridor, 7 cross).  Every mix draws only when it is on, so the
+        generator's stream with every mix off is unchanged.
         """
         cfg, dev, N = self.cfg, self.device, num_envs
+        if cfg.adaptive_rehearsal and rehearsal_probs is None and cfg.mode != "test":
+            raise ValueError("cfg.adaptive_rehearsal=True requires rehearsal_probs")
         angle = scenarios._uniform(gen, (N,), -math.pi / 4, math.pi / 4, dev)
-        wps = scenarios.random_corner_waypoints(gen, cfg, N, dev)
-        n_wps = torch.full((N,), cfg.n_wps, dtype=torch.int32, device=dev)
-        pd = tpath.make_path(wps, n_wps, table_n=cfg.path_table_n,
-                             margin=cfg.closest_u_margin)
         family = torch.zeros(N, dtype=torch.int32, device=dev)
-        if self._stage_override is not None:
-            stage = torch.full((N,), self._stage_override, dtype=torch.int32, device=dev)
-            gs = torch.full((N,), -1.0, device=dev)  # sim_num = -1 when forced
+        if cfg.mode == "test":
+            pd = tpath.PathData(**{k: v.expand(N, *v.shape[1:])
+                                   for k, v in vars(self._test_path).items()})
+            obstacles = ObstacleSet(**{k: v.expand(N, *v.shape[1:])
+                                       for k, v in vars(self._test_obstacles).items()})
+            xmin, ymin, xmax, ymax = self._spawn_rect
+            x = scenarios._uniform(gen, (N,), xmin, xmax, dev)
+            y = scenarios._uniform(gen, (N,), ymin, ymax, dev)
+            pos = torch.stack([x, y], 1)
         else:
-            scaled = torch.as_tensor(global_step, dtype=torch.float32, device=dev)
-            gs = (scaled / cfg.curriculum_scale).expand(N)
-            stage = scenarios.stage_from_step(gs)
-            if cfg.stage_mix_prob > 0.0:
-                mix = torch.rand(N, generator=gen, device=dev) < cfg.stage_mix_prob
-                rand_stage = torch.randint(1, 6, (N,), generator=gen, device=dev,
-                                           dtype=torch.int32)
-                stage = torch.where(mix, rand_stage, stage)
-                gs = torch.where(mix, -1.0, gs)
-                family = torch.where(mix, rand_stage, family)
-        xy, r, mask = scenarios.curriculum_obstacles(gen, cfg, pd, stage, gs)
-        obstacles = ObstacleSet(xy=xy, r=r, mask=mask)
-        # stage 2 spawns anywhere on screen (:329-333); others at path start
-        rx = scenarios._uniform(gen, (N,), 100.0, cfg.screensize_x - 100.0, dev)
-        ry = scenarios._uniform(gen, (N,), 100.0, cfg.screensize_y - 100.0, dev)
-        pos = torch.where((stage == 2)[:, None], torch.stack([rx, ry], 1), wps[:, 0])
+            pd, obstacles, pos, family = self._curriculum_reset(
+                gen, N, global_step, rehearsal_probs)
 
-        target = wps[torch.arange(N, device=dev), n_wps.long() - 1]
+        target = pd.wps[torch.arange(N, device=dev), pd.n_wps.long() - 1]
         zeros = torch.zeros(N, device=dev)
         body = physics.BodyState(pos=pos, vel=torch.zeros((N, 2), device=dev),
                                  angle=angle, omega=zeros)
@@ -313,9 +341,73 @@ class Drone2DEnv:
         )
         return state, obs
 
-    def reset(self, gen: torch.Generator, global_step=0.0):
+    def _curriculum_reset(self, gen, N, global_step, rehearsal_probs):
+        """Curriculum paths, obstacle fields and spawns -> (path, obstacles,
+        pos (N, 2), family (N,)); see `reset_batch`."""
+        cfg, dev = self.cfg, self.device
+        wps = scenarios.random_corner_waypoints(gen, cfg, N, dev)
+        n_wps = torch.full((N,), cfg.n_wps, dtype=torch.int32, device=dev)
+        pd = tpath.make_path(wps, n_wps, table_n=cfg.path_table_n,
+                             margin=cfg.closest_u_margin)
+        family = torch.zeros(N, dtype=torch.int32, device=dev)
+        forced = self._stage_override is not None
+        adaptive = cfg.adaptive_rehearsal and not forced
+        if forced:
+            stage = torch.full((N,), self._stage_override, dtype=torch.int32, device=dev)
+            gs = torch.full((N,), -1.0, device=dev)  # sim_num = -1 when forced
+        else:
+            scaled = torch.as_tensor(global_step, dtype=torch.float32, device=dev)
+            gs = (scaled / cfg.curriculum_scale).expand(N)
+            stage = scenarios.stage_from_step(gs)
+            if adaptive:
+                fam_idx = scenarios.family_from_uniform(
+                    torch.rand(N, generator=gen, device=dev), rehearsal_probs.to(dev))
+                is_stage = fam_idx <= 4
+                stage = torch.where(is_stage, fam_idx + 1, stage)
+                gs = torch.where(is_stage, -1.0, gs)
+                family = torch.where(is_stage, fam_idx + 1, family)
+            elif cfg.stage_mix_prob > 0.0:
+                mix = torch.rand(N, generator=gen, device=dev) < cfg.stage_mix_prob
+                rand_stage = torch.randint(1, 6, (N,), generator=gen, device=dev,
+                                           dtype=torch.int32)
+                stage = torch.where(mix, rand_stage, stage)
+                gs = torch.where(mix, -1.0, gs)
+                family = torch.where(mix, rand_stage, family)
+        xy, r, mask = scenarios.curriculum_obstacles(gen, cfg, pd, stage, gs)
+
+        # the rehearsal walls (training-time augmentation: never under a
+        # forced stage); both are built under adaptive rehearsal, where at
+        # most one of them fires per env
+        field = (xy, r, mask)
+        walls = torch.zeros(N, dtype=torch.bool, device=dev)
+        if adaptive or (cfg.corridor_mix_prob > 0.0 and not forced):
+            fires = (fam_idx == 5) if adaptive else (
+                torch.rand(N, generator=gen, device=dev) < cfg.corridor_mix_prob)
+            off = scenarios.corridor_offsets(gen, N, dev)
+            field = _where_env(fires, scenarios.corridor_walls(cfg, pd, off), field)
+            family = torch.where(fires, 6, family)
+            walls = walls | fires
+        if adaptive or (cfg.cross_mix_prob > 0.0 and not forced):
+            fires = (fam_idx == 6) if adaptive else (
+                torch.rand(N, generator=gen, device=dev) < cfg.cross_mix_prob)
+            drawn = scenarios.cross_draws(gen, N, dev)
+            field = _where_env(fires, scenarios.cross_walls(cfg, pd, *drawn), field)
+            family = torch.where(fires, 7, family)
+            walls = walls | fires
+        xy, r, mask = field
+        obstacles = ObstacleSet(xy=xy, r=r, mask=mask)
+
+        # stage 2 spawns anywhere on screen (:329-333); others at path start,
+        # and so do the wall episodes (inside the corridor, the wall ahead)
+        rx = scenarios._uniform(gen, (N,), 100.0, cfg.screensize_x - 100.0, dev)
+        ry = scenarios._uniform(gen, (N,), 100.0, cfg.screensize_y - 100.0, dev)
+        at_random = (stage == 2) & ~walls
+        pos = torch.where(at_random[:, None], torch.stack([rx, ry], 1), wps[:, 0])
+        return pd, obstacles, pos, family
+
+    def reset(self, gen: torch.Generator, global_step=0.0, rehearsal_probs=None):
         """One fresh episode, as a batch of one."""
-        return self.reset_batch(gen, 1, global_step)
+        return self.reset_batch(gen, 1, global_step, rehearsal_probs)
 
     # -- step ----------------------------------------------------------------
 

@@ -68,6 +68,10 @@ class StepOutput:
 
 # family-axis layout for rehearsal accounting (EnvState.family values)
 N_FAMILIES = 8
+FAMILY_NAMES = (
+    "schedule", "stage_1", "stage_2", "stage_3", "stage_4", "stage_5",
+    "corridor", "cross",
+)
 
 # Names of the info-dict metric bus (drone_2d_env.py:114-137, 575-613).
 INFO_FIELDS = (

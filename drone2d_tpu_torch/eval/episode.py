@@ -1,0 +1,173 @@
+"""Full-episode evaluation rollouts, all episodes as one batch.
+
+Counterpart of `drone2d_tpu/eval/episode.py`.  The reference evaluates one
+env at a time (`main.py:259-286`); here the N episodes of a campaign step in
+lockstep up to the episode cap, with a done latch: an episode's metrics are
+taken at its first done, after which its state and observation freeze
+(coast).  Trajectories are recorded as a fixed (N, T, 2) position array per
+episode plus the live length; the host converts them to the reference's
+screen-coordinate flight_path lists (drone_2d_env.py:984-986).
+
+Three policies: a random one (uniform actions), the deterministic one (the
+clipped action mean of `policy_value`) and the stochastic one, SB3's
+`model.predict` default: clip(mean + exp(log_std) * noise), which is what
+`ActorCritic.sample_action` computes, the fused kernel on the card.
+`run_episodes_from` is the deterministic core: it takes the reset states and
+the per-step draws, so a test can feed it the JAX package's.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from drone2d_tpu_torch.config import EnvConfig
+from drone2d_tpu_torch.env.env import ACT_DIM, Drone2DEnv
+from drone2d_tpu_torch.env.types import EnvState, select_state
+from drone2d_tpu_torch.models.policy import ActorCritic
+
+# how many steps run between the checks whether every episode has latched
+CHECK_EVERY = 64
+
+
+class EpisodeResults(NamedTuple):
+    """Per-episode campaign results (leading dim = episode), as numpy."""
+
+    success: np.ndarray       # (N,) bool
+    fail: np.ndarray          # (N,) bool
+    collision: np.ndarray     # (N,) int32 (1 if ended by collision)
+    ape: np.ndarray           # (N,) mean distance from path
+    time_steps: np.ndarray    # (N,) int32 episode length
+    total_reward: np.ndarray  # (N,) return
+    traj: np.ndarray          # (N, T, 2) world positions (frozen after done)
+    angles: np.ndarray        # (N, T) body angles (for drone replay)
+    traj_len: np.ndarray      # (N,) int32 live steps in traj
+
+    def flight_paths(self, screen_h: float):
+        """Reference flight_path format: [(x, screen_h - y), ...] per episode
+        (drone_2d_env.py:986)."""
+        out = []
+        for i in range(self.traj.shape[0]):
+            n = int(self.traj_len[i])
+            out.append(
+                [(float(x), float(screen_h - y)) for x, y in self.traj[i, :n]]
+            )
+        return out
+
+
+@torch.no_grad()
+def run_episodes_from(
+    env: Drone2DEnv,
+    params: Optional[ActorCritic],
+    state: EnvState,
+    obs: torch.Tensor,
+    draws: Optional[torch.Tensor],
+    *,
+    deterministic: bool = False,
+) -> EpisodeResults:
+    """Run the N episodes that start at (state, obs) to their end.
+
+    `draws` (T, N, 2), T = env.cfg.n_steps, is what each step draws: the
+    standard-normal noise of the stochastic policy, or the actions
+    themselves when `params` is None (the random policy); the deterministic
+    policy takes none (None).  The latch follows `_episode_runner`
+    (`drone2d_tpu/eval/episode.py:52-121`): an episode whose reach-end and
+    step cap fire on one step latches both success and fail.  Every
+    CHECK_EVERY steps the loop stops once every episode has latched; the
+    steps it skips would only repeat the frozen positions, so the results
+    equal a run to the cap.
+    """
+    T, N, dev = env.cfg.n_steps, obs.shape[0], obs.device
+    if (params is None or not deterministic) and (
+            draws is None or tuple(draws.shape) != (T, N, ACT_DIM)):
+        raise ValueError(f"this policy needs draws of shape {(T, N, ACT_DIM)}")
+    if draws is not None:
+        draws = draws.contiguous()  # each step's (N, 2) slice feeds the kernel
+    done = torch.zeros(N, dtype=torch.bool, device=dev)
+    success = torch.zeros(N, dtype=torch.bool, device=dev)
+    fail = torch.zeros(N, dtype=torch.bool, device=dev)
+    collision = torch.zeros(N, dtype=torch.int32, device=dev)
+    ape = torch.zeros(N, device=dev)
+    time_steps = torch.zeros(N, dtype=torch.int32, device=dev)
+    total_reward = torch.zeros(N, device=dev)
+    traj = torch.empty((T, N, 2), device=dev)
+    angles = torch.empty((T, N), device=dev)
+    traj_len = torch.zeros(N, dtype=torch.int32, device=dev)
+
+    t = 0
+    while t < T:
+        if params is None:
+            action = draws[t]
+        elif deterministic:
+            action = params.deterministic_action(obs)
+        else:
+            action = torch.clamp(params.sample_action(obs, noise=draws[t])[0], -1.0, 1.0)
+        out = env.step(state, action)
+        info = out.info
+        first = out.done & ~done
+        success = success | (first & (info["n_successful_runs"] == 1))
+        fail = fail | (first & (info["n_failed_runs"] == 1))
+        collision = collision + torch.where(first, info["n_collisions"], 0)
+        ape = torch.where(first, info["APE"], ape)
+        time_steps = torch.where(first, info["env_steps"], time_steps)
+        total_reward = torch.where(first, info["total_reward"], total_reward)
+        # freeze the state once done (coast); record the position after the
+        # freeze, and the step as live if the episode ran it
+        state = select_state(done, out.state, state)
+        obs = torch.where(done[:, None], obs, out.obs)
+        traj[t] = state.body.pos
+        angles[t] = state.body.angle
+        traj_len += (~done).to(torch.int32)
+        done = done | out.done
+        t += 1
+        if t % CHECK_EVERY == 0 and t < T and bool(done.all()):
+            traj[t:] = state.body.pos
+            angles[t:] = state.body.angle
+            break
+
+    # an episode that hit the cap without a terminal is a timeout fail
+    timeout = ~done
+    fail = fail | timeout
+    ape = torch.where(timeout, state.path_error / T, ape)
+    time_steps = torch.where(timeout, T, time_steps)
+    total_reward = torch.where(timeout, state.total_reward, total_reward)
+
+    def host(x):
+        return x.cpu().numpy()
+
+    return EpisodeResults(
+        success=host(success), fail=host(fail), collision=host(collision), ape=host(ape),
+        time_steps=host(time_steps), total_reward=host(total_reward),
+        traj=host(traj.transpose(0, 1)), angles=host(angles.transpose(0, 1)),
+        traj_len=host(traj_len),
+    )
+
+
+def run_episodes(
+    cfg: EnvConfig,
+    params: Optional[ActorCritic],
+    seed: int,
+    n_episodes: int,
+    *,
+    deterministic: bool = False,
+    global_step: float = 0.0,
+    device=None,
+) -> EpisodeResults:
+    """Run n_episodes complete episodes under the policy (or random actions
+    when params is None), drawn from a generator seeded with `seed` on
+    `device` (the card unless device="cpu").  `deterministic=False` matches
+    the reference's `model.predict(obs)` (SB3's default samples the
+    Gaussian, main.py:263)."""
+    env = Drone2DEnv(cfg, device)
+    gen = torch.Generator(device=env.device).manual_seed(seed)
+    state, obs = env.reset_batch(gen, n_episodes, global_step)
+    shape = (cfg.n_steps, n_episodes, ACT_DIM)
+    if params is None:
+        draws = 2.0 * torch.rand(shape, generator=gen, device=env.device) - 1.0
+    elif deterministic:
+        draws = None
+    else:
+        draws = torch.randn(shape, generator=gen, device=env.device)
+    return run_episodes_from(env, params, state, obs, draws, deterministic=deterministic)

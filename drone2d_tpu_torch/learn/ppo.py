@@ -8,6 +8,11 @@ GAE, then `n_epochs` x `num_minibatches` steps of the clipped-surrogate loss
 through plain `policy_value` with gradients, clipped by global norm and
 applied by Adam (`learn/optim.py`).
 
+Under `adaptive_rehearsal` the state carries the PLR fields: the family
+probabilities the reset templates are drawn with, and each family's
+finished episodes and wins, counted in the rollout (`learn/plr.py` reweights
+the probabilities between updates).
+
 The deterministic cores take what the JAX package draws from its key, so a
 test can feed them its draws: `rollout_from` takes the reset template and
 the (T, N, 2) standard-normal noise, `learn_from` the minibatch
@@ -26,7 +31,7 @@ import torch
 from drone2d_tpu_torch.config import EnvConfig, PPOConfig
 from drone2d_tpu_torch.device import resolve_device
 from drone2d_tpu_torch.env.env import ACT_DIM, OBS_DIM, Drone2DEnv
-from drone2d_tpu_torch.env.types import EnvState
+from drone2d_tpu_torch.env.types import N_FAMILIES, EnvState
 from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.gae import compute_gae
 from drone2d_tpu_torch.models.policy import ActorCritic
@@ -62,6 +67,10 @@ class EpisodeStats:
     n_fail: torch.Tensor
     n_collision: torch.Tensor
     sum_components: torch.Tensor    # (7,) final-step reward components
+    # per-rehearsal-family episodes and successes (env.types.FAMILY_NAMES
+    # axis); all zero unless EnvConfig.adaptive_rehearsal is on
+    family_counts: torch.Tensor     # (8,)
+    family_wins: torch.Tensor       # (8,)
 
     def summary(self) -> Dict[str, torch.Tensor]:
         """Per-episode means, as () tensors on the stats' device."""
@@ -93,6 +102,28 @@ class TrainState:
     # finished episodes over all updates, summed on the device so that the
     # train loop copies nothing to the host between logged updates
     episodes_total: torch.Tensor   # () float32
+    # Adaptive (PLR-lite) rehearsal state, float32 on the device:
+    # rehearsal_probs (7,) is each rehearsal family's per-episode
+    # probability (stage_1..stage_5, corridor, cross), the data the reset
+    # templates are drawn with under EnvConfig.adaptive_rehearsal;
+    # family_counts / family_wins (8,) sum finished episodes / successes per
+    # family over all updates (axis: env.types.FAMILY_NAMES).  They are
+    # kept as float32 on the state's device; left out, they are zeros.
+    rehearsal_probs: torch.Tensor | None = None
+    family_counts: torch.Tensor | None = None
+    family_wins: torch.Tensor | None = None
+
+    def __post_init__(self):
+        f32 = dict(dtype=torch.float32, device=self.global_step.device)
+        for name, n in (("rehearsal_probs", 7), ("family_counts", N_FAMILIES),
+                        ("family_wins", N_FAMILIES)):
+            v = getattr(self, name)
+            if v is None:
+                setattr(self, name, torch.zeros(n, **f32))
+            elif isinstance(v, torch.Tensor):
+                setattr(self, name, v.to(**f32))
+            else:  # a copy, never a view of the caller's array
+                setattr(self, name, torch.tensor(v, **f32))
 
 
 @dataclasses.dataclass
@@ -144,6 +175,33 @@ class PPOLearner:
 
     # -- construction --------------------------------------------------------
 
+    def initial_rehearsal_probs(self) -> torch.Tensor:
+        """Starting family probabilities (7,) on the device: stage_mix_prob
+        split across the 5 stages by cfg.stage_mix_weights, then
+        corridor_mix_prob and cross_mix_prob (`drone2d_tpu/learn/ppo.py:190-212`)."""
+        e = self.env.cfg
+        w = [float(x) for x in e.stage_mix_weights]
+        if len(w) != 5 or min(w) < 0.0 or sum(w) <= 0.0:
+            raise ValueError(
+                f"stage_mix_weights must be 5 nonnegative weights with a "
+                f"positive sum, got {e.stage_mix_weights}"
+            )
+        stage_probs = [e.stage_mix_prob * x / sum(w) for x in w]
+        if any(abs(x - w[0]) > 1e-9 for x in w) and not e.adaptive_rehearsal:
+            raise ValueError(
+                "non-uniform stage_mix_weights only take effect through the "
+                "adaptive reset path (probabilities as data); set "
+                "adaptive_rehearsal=True (with rehearsal_adapt=False for a "
+                "fixed weighted mix)"
+            )
+        return torch.tensor(stage_probs + [e.corridor_mix_prob, e.cross_mix_prob],
+                            dtype=torch.float32, device=self.device)
+
+    def _reset_probs(self, probs: torch.Tensor):
+        """What `reset_batch` takes as rehearsal_probs: `probs` under
+        adaptive rehearsal, else None."""
+        return probs if self.env.cfg.adaptive_rehearsal else None
+
     def init(self, seed: int, params: ActorCritic | None = None,
              global_step: float = 0.0) -> TrainState:
         """Fresh envs, a fresh optimizer and, unless given, fresh weights,
@@ -160,16 +218,22 @@ class PPOLearner:
         return self.start(gen, params, global_step)
 
     def start(self, generator: torch.Generator, params: ActorCritic,
-              global_step: float = 0.0, episodes_total: float = 0.0) -> TrainState:
+              global_step: float = 0.0, episodes_total: float = 0.0,
+              rehearsal_probs=None, family_counts=None, family_wins=None) -> TrainState:
         """A state over `params` with a fresh optimizer and envs reset from
-        `generator` at `global_step`."""
+        `generator` at `global_step`.  The PLR fields default to the initial
+        probabilities and zero counts."""
         f32 = dict(dtype=torch.float32, device=self.device)
         step = torch.tensor(global_step, **f32)
-        env_state, obs = self.env.reset_batch(generator, self.num_envs, step)
+        probs = (self.initial_rehearsal_probs() if rehearsal_probs is None
+                 else torch.as_tensor(rehearsal_probs, **f32))
+        env_state, obs = self.env.reset_batch(generator, self.num_envs, step,
+                                              self._reset_probs(probs))
         return TrainState(
             params=params, optimizer=optim.adam(params.parameters(), self.cfg.learning_rate),
             env_state=env_state, obs=obs, generator=generator, global_step=step,
-            episodes_total=torch.tensor(episodes_total, **f32),
+            episodes_total=torch.tensor(episodes_total, **f32), rehearsal_probs=probs,
+            family_counts=family_counts, family_wins=family_wins,
         )
 
     # -- rollout -------------------------------------------------------------
@@ -180,11 +244,14 @@ class PPOLearner:
         """Collect n_steps across all envs under the current policy.
 
         Returns (state', batch, last_values, episode_stats)."""
-        return self.rollout_from(state, *self._rollout_draws(state.generator, state.global_step))
+        return self.rollout_from(state, *self._rollout_draws(state))
 
-    def _rollout_draws(self, gen: torch.Generator, global_step: torch.Tensor):
-        """A rollout's reset template, then its (T, N, 2) action noise."""
-        reset_state, reset_obs = self.env.reset_batch(gen, self.num_envs, global_step)
+    def _rollout_draws(self, state: TrainState):
+        """A rollout's reset template, then its (T, N, 2) action noise, from
+        the state's generator."""
+        gen = state.generator
+        reset_state, reset_obs = self.env.reset_batch(
+            gen, self.num_envs, state.global_step, self._reset_probs(state.rehearsal_probs))
         noise = torch.randn(
             (self.cfg.n_steps, self.num_envs, ACT_DIM), generator=gen, device=self.device,
         )
@@ -198,7 +265,10 @@ class PPOLearner:
         reset_obs: torch.Tensor,
         noise: torch.Tensor,
     ) -> Tuple[TrainState, RolloutBatch, torch.Tensor, EpisodeStats]:
-        """The rollout with its reset template and noise (T, N, 2) given."""
+        """The rollout with its reset template and noise (T, N, 2) given.
+        Under adaptive rehearsal it counts finished episodes and wins per
+        family, reading each env's family before its step, so that an
+        auto-reset does not replace it."""
         T, N, dev = self.cfg.n_steps, self.num_envs, self.device
         if tuple(noise.shape) != (T, N, ACT_DIM):
             raise ValueError(f"noise has shape {tuple(noise.shape)}, want {(T, N, ACT_DIM)}")
@@ -212,6 +282,9 @@ class PPOLearner:
             dones=torch.empty((T, N), dtype=torch.bool, device=dev),
         )
         infos = {k: torch.empty((T, N), **f32) for k in _STAT_KEYS + _COMPONENT_KEYS}
+        adaptive = self.env.cfg.adaptive_rehearsal
+        if adaptive:
+            families = torch.empty((T, N), dtype=torch.int64, device=dev)
 
         env_state, obs = state.env_state, state.obs
         for t in range(T):
@@ -227,9 +300,18 @@ class PPOLearner:
             batch.dones[t] = out.done
             for k in infos:
                 infos[k][t] = out.info[k]
+            if adaptive:
+                families[t] = env_state.family
             env_state, obs = out.state, out.obs
 
         d = batch.dones.to(torch.float32)
+        family_counts = torch.zeros(N_FAMILIES, **f32)
+        family_wins = torch.zeros(N_FAMILIES, **f32)
+        if adaptive:
+            # whole-number sums below 2^24: exact in float32 in any order
+            fam = families.flatten()
+            family_counts.index_add_(0, fam, d.flatten())
+            family_wins.index_add_(0, fam, (infos["n_successful_runs"] * d).flatten())
         stats = EpisodeStats(
             n_episodes=d.sum(),
             sum_length=(infos["env_steps"] * d).sum(),
@@ -239,6 +321,8 @@ class PPOLearner:
             n_fail=(infos["n_failed_runs"] * d).sum(),
             n_collision=(infos["n_collisions"] * d).sum(),
             sum_components=torch.stack([(infos[k] * d).sum() for k in _COMPONENT_KEYS]),
+            family_counts=family_counts,
+            family_wins=family_wins,
         )
         # the kernel's value output with zero noise, so that nothing plain
         # runs on the card's path
@@ -377,7 +461,7 @@ class PPOLearner:
     def update(self, state: TrainState) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One PPO iteration with the draws made from the state's generator:
         the rollout's reset template and noise, then the shuffles."""
-        draws = self._rollout_draws(state.generator, state.global_step)
+        draws = self._rollout_draws(state)
         return self.update_from(state, *draws, self.draw_perms(state.generator))
 
     def update_from(
@@ -397,7 +481,11 @@ class PPOLearner:
         metrics.update({f"episodes/{k}": v for k, v in stats.summary().items()})
         metrics["episodes/total"] = episodes_total
         metrics["global_step"] = state.global_step
-        return dataclasses.replace(state, episodes_total=episodes_total), metrics
+        return dataclasses.replace(
+            state, episodes_total=episodes_total,
+            family_counts=state.family_counts + stats.family_counts,
+            family_wins=state.family_wins + stats.family_wins,
+        ), metrics
 
 
 def affine_perm(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:

@@ -12,6 +12,10 @@ package does:
   curriculum via checkpoint glob      -> global_step carried in TrainState
   model.save('new_agent')             -> final checkpoint + new_agent.npz
 The `.npz` keeps the JAX package's flat naming, so either package loads it.
+Under `--env-adaptive-rehearsal true --env-rehearsal-adapt true` the PLR
+controller (`learn/plr.py`) reweights the rehearsal families on the logging
+cadence, e.g. `--preset flagship-finetune --init-params AGENT.npz
+--env-rehearsal-adapt true`.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from drone2d_tpu_torch.config import (
     TrainConfig,
     apply_preset,
 )
+from drone2d_tpu_torch.env.types import FAMILY_NAMES
+from drone2d_tpu_torch.learn.plr import family_report, reweight_rehearsal
 from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState
 from drone2d_tpu_torch.models.policy import flat_dict_to_params, params_to_flat_dict
 from drone2d_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
@@ -131,6 +137,14 @@ def train(
     checkpoint and `new_agent.npz` under `checkpoint_dir`.  Returns the
     final state."""
     learner = PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs, device=device)
+    if env_cfg.adaptive_rehearsal and float(learner.initial_rehearsal_probs().sum()) <= 0.0:
+        raise ValueError(
+            "adaptive_rehearsal=True with a zero rehearsal budget is a "
+            "silent no-op: the mix knobs define the total budget the "
+            "controller redistributes — set stage_mix_prob (and/or "
+            "corridor_mix_prob, cross_mix_prob) > 0"
+        )
+    plr_tick = env_cfg.adaptive_rehearsal and env_cfg.rehearsal_adapt
 
     start_step = 0
     if resume:
@@ -158,6 +172,7 @@ def train(
     next_ckpt = (start_step // train_cfg.checkpoint_every_steps + 1) * train_cfg.checkpoint_every_steps
     n_updates = 0
     gs = start_step
+    plr_last = (state.family_counts.cpu().numpy(), state.family_wins.cpu().numpy())
     t0 = time.perf_counter()
     try:
         while True:
@@ -178,6 +193,18 @@ def train(
                 # cumulative episodes accumulated on the device (exact across
                 # skipped updates and across resume)
                 writer.set_episodes_total(int(m.pop("episodes/total")))
+                if plr_tick:
+                    # PLR-lite controller tick: reweight the rehearsal
+                    # families by their failure rates since the last tick
+                    counts, wins, probs = (t.cpu().numpy() for t in (
+                        state.family_counts, state.family_wins, state.rehearsal_probs))
+                    dc, dw = counts - plr_last[0], wins - plr_last[1]
+                    plr_last = (counts, wins)
+                    new_probs = reweight_rehearsal(probs, dc, dw)
+                    state = dataclasses.replace(state, rehearsal_probs=new_probs)
+                    for f, name in enumerate(FAMILY_NAMES[1:]):
+                        m[f"rehearsal/p_{name}"] = float(new_probs[f])
+                    print("  rehearsal:", family_report(dc, dw), "->", np.round(new_probs, 3))
                 rate = ""
                 if n_updates > 1:  # the clock restarted after the first update
                     m["throughput/env_steps_per_s"] = steps_per_update * (n_updates - 1) / (

@@ -3,7 +3,8 @@
 
 A checkpoint is one file, `ckpt_<global_step>.pt`, holding the params'
 state_dict, the optimizer's state_dict, the generator's state,
-`global_step` and `episodes_total`.  The curriculum clock IS `global_step`,
+`global_step`, `episodes_total` and the PLR fields (`rehearsal_probs`,
+`family_counts`, `family_wins`).  The curriculum clock IS `global_step`,
 so resume is exact.  Env state is not saved, as in the JAX package: restore
 resets the envs at the restored step from the restored generator.  The
 last KEEP checkpoints are kept (orbax's `max_to_keep=5`).
@@ -23,6 +24,7 @@ from drone2d_tpu_torch.models.policy import ActorCritic
 
 _NAME = re.compile(r"ckpt_(\d+)\.pt")
 KEEP = 5
+_PLR_FIELDS = ("rehearsal_probs", "family_counts", "family_wins")
 
 
 def checkpoint_steps(directory: str) -> List[int]:
@@ -48,6 +50,7 @@ def save_checkpoint(directory: str, state: TrainState) -> int:
         generator=state.generator.get_state(),
         global_step=step,
         episodes_total=int(float(state.episodes_total)),
+        **{k: getattr(state, k).detach().cpu() for k in _PLR_FIELDS},
     )
     os.makedirs(directory, exist_ok=True)
     path = _path(directory, step)
@@ -60,7 +63,9 @@ def save_checkpoint(directory: str, state: TrainState) -> int:
 
 def restore_checkpoint(directory: str, learner: PPOLearner) -> Tuple[TrainState, int]:
     """A runnable TrainState from the latest checkpoint, with its envs reset
-    at the restored global_step."""
+    at the restored global_step (from the restored rehearsal probabilities
+    under adaptive rehearsal).  A checkpoint without the PLR fields restores
+    the initial probabilities and zero counts."""
     steps = checkpoint_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {directory!r}")
@@ -70,6 +75,7 @@ def restore_checkpoint(directory: str, learner: PPOLearner) -> Tuple[TrainState,
     gen = torch.Generator(device=learner.device)
     gen.set_state(payload["generator"])
     state = learner.start(gen, params, float(payload["global_step"]),
-                          float(payload["episodes_total"]))
+                          float(payload["episodes_total"]),
+                          **{k: payload.get(k) for k in _PLR_FIELDS})
     state.optimizer.load_state_dict(payload["optimizer"])
     return state, int(payload["global_step"])

@@ -2,8 +2,9 @@
 plain PyTorch version at every padded width and at ragged batches, on the
 flagship agent's weights, counted, refused on mixed devices, and refused
 (NotImplementedError) for an architecture it does not take; it reads the
-weights an optimizer step has just updated.  The PPO update on the card
-against the same update on the CPU.
+weights an optimizer step has just updated.  The PPO update and the eval
+runner on the card against the same on the CPU; the adaptive rehearsal reset
+and its rollout's family accounting on the card.
 
 These need an NVIDIA GPU and nvcc, and skip without one.  This file imports
 no JAX, so on a machine with the card and without JAX it runs alone:
@@ -18,7 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from drone2d_tpu_torch.config import EnvConfig, PPOConfig
+from drone2d_tpu_torch.config import EnvConfig, PPOConfig, TrainConfig, apply_preset
+from drone2d_tpu_torch.env.env import Drone2DEnv
+from drone2d_tpu_torch.eval.episode import run_episodes_from
+from drone2d_tpu_torch.eval.run import scenario_config
 from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.ppo import PPOLearner
 from drone2d_tpu_torch.models.policy import ActorCritic, flat_dict_to_params
@@ -176,3 +180,62 @@ def test_kernel_reads_weights_after_optimizer_step(dev):
     after = fused_sample_action(params, obs, noise)
     for a, b in zip(after, before):
         assert float((a - b).abs().max()) > 0.0
+
+
+def _to(x, dev):
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: _to(getattr(x, f.name), dev) for f in dataclasses.fields(x)})
+    return x.to(dev)
+
+
+@pytest.mark.parametrize("scen", ["S_corridor", "stage_5"])
+def test_eval_runner_on_card_matches_cpu(dev, scen):
+    """The stochastic eval runner (the kernel a step) on the card against the
+    CPU from the same CPU-made states and noise, a 32-step cap, every third
+    episode started 5 px from its target: latched flags and lengths equal,
+    APE, return and trajectories to 1e-4 of scale (chip_smoke.py's bounds)."""
+    n, cap = 96, 32
+    cfg = scenario_config(scen).replace(n_steps=cap)
+    gen = torch.Generator().manual_seed(3)
+    state, obs = Drone2DEnv(cfg, device="cpu").reset_batch(gen, n)
+    near = (torch.arange(n) % 3 == 0)[:, None]
+    state = dataclasses.replace(state, body=dataclasses.replace(
+        state.body, pos=torch.where(near, state.target + 5.0, state.body.pos)))
+    noise = torch.randn((cap, n, 2), generator=gen)
+    before = fused_sample_action.launches
+    out = {d: run_episodes_from(Drone2DEnv(cfg, device=d),
+                                flat_dict_to_params(dict(np.load(AGENT)), device=d),
+                                _to(state, d), obs.to(d), noise.to(d))
+           for d in ("cpu", dev)}
+    assert fused_sample_action.launches - before == cap
+    got, want = out[dev], out["cpu"]
+    for k in ("success", "fail", "collision", "time_steps", "traj_len"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k), err_msg=k)
+    assert want.success.sum() >= n // 3
+    for k, scale in (("ape", None), ("total_reward", None), ("traj", 1300.0)):
+        g, w = getattr(got, k).astype(np.float64), getattr(want, k).astype(np.float64)
+        assert np.abs(g - w).max() <= 1e-4 * (scale or max(1.0, np.abs(w).max())), k
+
+
+def test_adaptive_reset_and_family_counts_on_card(dev):
+    """The flagship-finetune reset with both wall mixes at 0.04 on the card:
+    family shares within 5 sigma at 4096 envs, the walls' circle counts; an
+    adaptive rollout's family counts add up to its finished episodes."""
+    env_cfg = apply_preset("flagship-finetune", EnvConfig(), PPOConfig(), TrainConfig())[0]
+    env_cfg = env_cfg.replace(corridor_mix_prob=0.04, cross_mix_prob=0.04)
+    learner = PPOLearner(env_cfg, PPOConfig(n_steps=8, hidden_sizes=(128, 128)), 4096)
+    probs = learner.initial_rehearsal_probs()
+    state, _ = learner.env.reset_batch(torch.Generator(device=dev).manual_seed(1), 4096, 0.0,
+                                       probs)
+    fam = state.family.cpu().numpy()
+    p = np.concatenate([[1.0 - float(probs.sum())], probs.cpu().numpy()])
+    shares = np.bincount(fam, minlength=8) / 4096
+    assert (np.abs(shares - p) <= 5 * np.sqrt(p * (1 - p) / 4096)).all(), shares
+    count = state.obstacles.mask.sum(1).cpu().numpy()
+    assert (count[fam == 6] == 62).all() and (count[fam == 7] == 6).all()
+
+    small = PPOLearner(env_cfg.replace(n_steps=6), PPOConfig(n_steps=8, hidden_sizes=(128, 128)),
+                       256)
+    _, _, _, stats = small.rollout(small.init(0))
+    assert float(stats.family_counts.sum()) == float(stats.n_episodes) > 0
+    assert float(stats.family_wins.sum()) == float(stats.n_success)

@@ -312,9 +312,10 @@ def test_random_corner_waypoints():
 
 
 def test_unported_settings_raise():
-    # the static stage mix is ported (tests/test_torch_ppo.py holds it)
-    for kw in (dict(mode="test"), dict(corridor_mix_prob=0.1), dict(cross_mix_prob=0.1),
-               dict(adaptive_rehearsal=True), dict(initial_motion_enabled=True)):
+    # the rehearsal mixes and the test mode are ported (tests/test_torch_rehearsal.py,
+    # tests/test_torch_eval.py); the initial throw and the box obstacles are not
+    for kw in (dict(initial_motion_enabled=True),
+               dict(mode="test", scenario="parallel_boxes")):
         with pytest.raises(NotImplementedError):
             Drone2DEnv(CFG.replace(**kw), device="cpu")
 

@@ -200,8 +200,9 @@ def test_package_imports_no_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
     loaded = set(proc.stdout.split())
     assert len(loaded) >= 20
-    for name in ("train", "learn.ppo", "learn.optim", "utils.checkpoint", "utils.metrics",
-                 "utils.runtime"):
+    for name in ("train", "learn.ppo", "learn.optim", "learn.plr", "utils.checkpoint",
+                 "utils.metrics", "utils.runtime", "utils.host_path", "eval.episode",
+                 "eval.artifacts", "eval.run"):
         assert f"drone2d_tpu_torch.{name}" in loaded, name
 
 
@@ -212,6 +213,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
         pytest.skip("a CUDA device is present; the refusal needs its absence")
     from drone2d_tpu_torch.env.env import Drone2DEnv
     from drone2d_tpu_torch.models.policy import ActorCritic, flat_dict_to_params
+    from drone2d_tpu_torch.eval.run import main as eval_main
     from drone2d_tpu_torch.train import main as train_main
     from drone2d_tpu_torch.utils.runtime import wait_for_accelerator
 
@@ -223,6 +225,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
                  lambda: flat_dict_to_params(dict(np.load(AGENT))),
                  lambda: train_main(argv),
                  lambda: train_main([*argv, "--device", "cuda"]),
+                 lambda: eval_main(["--agent", AGENT, "--episodes", "2", "--no-gif",
+                                    "--out-root", os.devnull]),
                  wait_for_accelerator):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()

@@ -30,6 +30,8 @@ from drone2d_tpu_torch.utils.metrics import MetricsWriter
 torch.set_num_threads(1)
 
 SMALL_ENV = dict(path_table_n=128, n_steps=64)
+AGENT_S6006 = os.path.join(os.path.dirname(__file__), "..", "artifacts", "agent_s6006",
+                           "new_agent.npz")
 SMALL_PPO = dict(n_steps=8, num_minibatches=4, n_epochs=2)
 
 
@@ -43,6 +45,10 @@ def _argv(ckpt, *extra):
 def _rows(path):
     with open(path) as f:
         return [json.loads(line) for line in f]
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
 
 
 def _small_learner():
@@ -182,10 +188,24 @@ def test_flagship_scratch_trains_on_cpu(tmp_path):
     assert dict(np.load(f"{ckpt}/new_agent.npz"))["pi0/w"].shape == (27, 128)
 
 
-def test_flagship_finetune_is_not_ported():
-    _, train_cfg, env_cfg, ppo_cfg = parse_args(["--preset", "flagship-finetune"])
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        train(train_cfg.replace(num_envs=8), env_cfg, ppo_cfg, device="cpu")
+def test_flagship_finetune_is_not_ported(tmp_path):
+    """The flagship-finetune preset (adaptive rehearsal, non-uniform stage
+    weights) warm-starts and trains on the CPU at 8 envs, with the
+    rehearsal probabilities of the recipe (to float32 rounding) in its
+    state and no controller ticks (rehearsal_adapt is off in the recipe)."""
+    ckpt = str(tmp_path / "ft")
+    _, train_cfg, env_cfg, ppo_cfg = parse_args(
+        ["--preset", "flagship-finetune", "--num-envs", "8", "--ppo-n-steps", "8",
+         "--ppo-num-minibatches", "4", "--ppo-n-epochs", "1", "--env-path-table-n", "128",
+         "--checkpoint-dir", ckpt, "--metrics-path", f"{ckpt}/m.jsonl"])
+    assert env_cfg.adaptive_rehearsal and not env_cfg.rehearsal_adapt
+    state = train(train_cfg, env_cfg, ppo_cfg, max_updates=1, device="cpu",
+                  init_params=AGENT_S6006)
+    np.testing.assert_allclose(_np(state.rehearsal_probs),
+                               [0.3 * 3 / 7] + [0.3 / 7] * 4 + [0.0, 0.0], rtol=1e-6)
+    row = _rows(f"{ckpt}/m.jsonl")[-1]
+    assert row["global_step"] == 64 and np.isfinite(row["loss"])
+    assert not any(k.startswith("rehearsal/") for k in row)
 
 
 def test_port_agent_loads_in_jax(tmp_path):
