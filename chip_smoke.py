@@ -203,6 +203,10 @@ def phase_kernel_vs_plain() -> dict:
     log(f"kernel vs plain (tolerance: |d| <= {TOL} * max(1, max |plain|)):")
     obs, noise, abs_err = check(params, NUM_ENVS, f"B={NUM_ENVS} H=128 agent_s8004")
     check(params, 4093, "B=4093 H=128 agent_s8004 (ragged)")
+    # the eval and fine-tune paths' batches, with their weights as shipped
+    check(load_agent(dev), EVAL_EPISODES, f"B={EVAL_EPISODES} H=128 agent_s8004 (eval path)")
+    check(flat_dict_to_params(dict(np.load(FINETUNE_AGENT)), device=dev), 1024,
+          "B=1024 H=128 agent_s6006 (fine-tune path)")
     widths = {h: ActorCritic(27, 2, (h, h), generator=torch.Generator().manual_seed(h),
                              device=dev) for h in (32, 64, 96, 256)}
     for h, p in widths.items():
@@ -540,39 +544,67 @@ def _train_in(d: str, kernel_row: dict):
     return (train_cfg, env_cfg, ppo_cfg), state
 
 
+def _update_split(runs: dict) -> dict:
+    """For each label -> (learner, state): seconds per update split into the
+    reset template's draws, the rollout's steps, GAE and SGD (host clock,
+    each part synchronized), the median of 3 updates, the labels' updates
+    taken in turn so that the host's drift falls on each alike; then one
+    rollout's steps under the profiler: the device ops a step and the
+    device's busy share.  Returns label -> (state, batch, adv, ret)."""
+    parts, out = {k: [] for k in runs}, {}
+    for _ in range(3):
+        for label, (learner, state) in runs.items():
+            cfg = learner.cfg
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            draws = learner._rollout_draws(state)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, batch, last_values, _ = learner.rollout_from(state, *draws)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            adv, ret = compute_gae(batch.rewards, batch.values, batch.dones, last_values,
+                                   gamma=cfg.gamma, gae_lambda=cfg.gae_lambda)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            metrics = learner.sgd(state, batch, adv, ret, learner.draw_perms(state.generator))
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            parts[label].append((t1 - t0, t2 - t1, t3 - t2, t4 - t3, t4 - t0))
+            if not math.isfinite(float(metrics["loss"])):
+                raise AssertionError(f"{label}: non-finite loss")
+            runs[label] = (learner, state)
+            out[label] = (state, batch, adv, ret)
+    for label, (learner, state) in runs.items():
+        cfg = learner.cfg
+        draws_s, steps_s, gae_s, sgd_s, total_s = (
+            statistics.median(p[i] for p in parts[label]) for i in range(5))
+        sgd_steps = cfg.n_epochs * cfg.num_minibatches
+        log(f"{label} update (host clock, synchronized, median of 3): reset draws "
+            f"{draws_s:.4f} s, rollout steps {steps_s:.4f} s ({1e3 * steps_s / cfg.n_steps:.3f} "
+            f"ms a step), GAE {gae_s:.4f} s, SGD {sgd_s:.4f} s ({1e3 * sgd_s / sgd_steps:.3f} ms "
+            f"a minibatch step), total {total_s:.4f} s; "
+            f"all: {[tuple(round(x, 4) for x in p) for p in parts[label]]}")
+        log(f"  train_steps_per_s {cfg.n_steps * learner.num_envs / total_s:.1f} "
+            f"({learner.num_envs} envs x {cfg.n_steps} steps / seconds per update)")
+        draws = learner._rollout_draws(state)
+        events, dev_us, wall_us = profile_device(lambda: learner.rollout_from(state, *draws))
+        log(f"  profiler, one rollout's steps: " + (
+            f"{len(events) / cfg.n_steps:.0f} device ops a step, device busy "
+            f"{dev_us / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms wall "
+            f"({100 * dev_us / wall_us:.1f}%)" if events
+            else "device time not measured (no device events)"))
+    return out
+
+
 def phase_train_timing(cfgs, state):
-    """Seconds per update at the recipe, split into rollout, GAE and SGD
-    (host clock, each part synchronized), the median of 3 updates; one
-    update each with the 'exact' and 'affine' shuffles; the device's busy
-    share over one update under the profiler."""
+    """Seconds per update at the recipe by layer (`_update_split`); one
+    minibatch step by layer; one update each with the 'exact' and 'affine'
+    shuffles; the device's busy share over one update under the profiler."""
     train_cfg, env_cfg, ppo_cfg = cfgs
     learner = PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs)
-    steps = ppo_cfg.n_steps * train_cfg.num_envs
-    parts = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, batch, last_values, _ = learner.rollout(state)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        adv, ret = compute_gae(batch.rewards, batch.values, batch.dones, last_values,
-                               gamma=ppo_cfg.gamma, gae_lambda=ppo_cfg.gae_lambda)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        metrics = learner.sgd(state, batch, adv, ret, learner.draw_perms(state.generator))
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        parts.append((t1 - t0, t2 - t1, t3 - t2, t3 - t0))
-        if not math.isfinite(float(metrics["loss"])):
-            raise AssertionError("non-finite loss")
-    rollout_s, gae_s, sgd_s, total_s = (statistics.median(p[i] for p in parts) for i in range(4))
-    sgd_steps = ppo_cfg.n_epochs * ppo_cfg.num_minibatches
-    log(f"training update at the recipe (host clock, synchronized, median of 3): "
-        f"rollout {rollout_s:.4f} s, GAE {gae_s:.4f} s, SGD {sgd_s:.4f} s "
-        f"({1e3 * sgd_s / sgd_steps:.3f} ms a minibatch step), total {total_s:.4f} s; "
-        f"all: {[tuple(round(x, 4) for x in p) for p in parts]}")
-    log(f"  train_steps_per_s {steps / total_s:.1f} ({train_cfg.num_envs} envs x "
-        f"{ppo_cfg.n_steps} steps / seconds per update)")
+    state, batch, adv, ret = _update_split(
+        {"flagship-scratch": (learner, state)})["flagship-scratch"]
 
     # one minibatch step by layer, each synchronized, median of 20
     mb = [x.reshape((-1,) + x.shape[2:])[: learner.minibatch_size]
@@ -810,6 +842,17 @@ def _finetune_in(d: str, kernel_row: dict):
     return launches
 
 
+def phase_finetune_timing(scratch: PPOLearner, scratch_state):
+    """The flagship-finetune update by layer, warm from agent_s6006 as
+    `train` starts it, in turn with flagship-scratch's (`_update_split`)."""
+    _, train_cfg, env_cfg, ppo_cfg = parse_args(["--preset", "flagship-finetune"])
+    learner = PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs)
+    state = learner.init(train_cfg.seed, params=flat_dict_to_params(
+        dict(np.load(FINETUNE_AGENT)), device="cuda"))
+    _update_split({"flagship-scratch": (scratch, scratch_state),
+                   "flagship-finetune": (learner, state)})
+
+
 def _episode_errors(got, want) -> dict:
     """Scaled differences of two EpisodeResults' float fields."""
     errs = {}
@@ -968,6 +1011,7 @@ def main():
     timed("weights_live", phase_weights_live, learner, state)
     timed("rehearsal_reset", phase_rehearsal_reset)
     timed("finetune", phase_finetune, row)
+    timed("finetune_timing", phase_finetune_timing, learner, state)
     timed("eval_reference", phase_eval_reference)
     timed("eval_breakdown", phase_eval_breakdown)
     timed("campaign", phase_campaign, row)

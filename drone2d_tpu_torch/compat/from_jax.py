@@ -137,6 +137,6 @@ def train_state_from_numpy(tree, learning_rate: float, device=None) -> TrainStat
         params=params, optimizer=opt, env_state=env_state_from_numpy(tree.env_state, dev),
         obs=f32(tree.obs), generator=torch.Generator(device=dev),
         global_step=f32(tree.global_step), episodes_total=f32(tree.episodes_total),
-        rehearsal_probs=tree.rehearsal_probs, family_counts=tree.family_counts,
-        family_wins=tree.family_wins,
+        rehearsal_probs=f32(tree.rehearsal_probs), family_counts=f32(tree.family_counts),
+        family_wins=f32(tree.family_wins),
     )

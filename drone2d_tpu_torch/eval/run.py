@@ -10,8 +10,8 @@ collisions/rewards/apes/time_spent .npy and the flight_paths JSON.  `--scenario
 all` sweeps the 12-scenario suite (7 spatial + 5 curriculum stages,
 rl_config.py:45-58).  The overlay PNG and the replay GIFs need the pygame
 renderer, which is not ported: no PNG is written, and a spatial scenario
-raises NotImplementedError unless `--no-gif` is given (`--gif-root` and
-`--gif-all` only choose where and how GIFs would go).
+raises NotImplementedError unless `--no-gif` is given (`--gif-root` only
+chooses where GIFs would go); `--gif-all` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -145,8 +145,8 @@ def main(argv=None) -> None:
     p.add_argument("--gif-root", default="Gifs")
     p.add_argument("--no-gif", action="store_true")
     p.add_argument("--gif-all", action="store_true",
-                   help="one GIF spanning ALL campaign episodes (GIFs are not "
-                   "ported: spatial scenarios need --no-gif)")
+                   help="one GIF spanning ALL campaign episodes (not ported: "
+                   "raises NotImplementedError)")
     p.add_argument("--agent-name", default=None)
     p.add_argument("--checkpoint-step", type=int, default=None,
                    help="checkpoint step to load (default: latest)")
@@ -156,6 +156,9 @@ def main(argv=None) -> None:
         "fails without one ('cpu' runs on the host)",
     )
     args = p.parse_args(argv)
+    if args.gif_all:
+        raise NotImplementedError(
+            "--gif-all needs the pygame renderer (eval/render.py), which is not ported")
     if args.device != "cpu":
         print(f"device: {wait_for_accelerator()}")
 

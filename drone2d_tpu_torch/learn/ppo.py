@@ -107,23 +107,18 @@ class TrainState:
     # probability (stage_1..stage_5, corridor, cross), the data the reset
     # templates are drawn with under EnvConfig.adaptive_rehearsal;
     # family_counts / family_wins (8,) sum finished episodes / successes per
-    # family over all updates (axis: env.types.FAMILY_NAMES).  They are
-    # kept as float32 on the state's device; left out, they are zeros.
+    # family over all updates (axis: env.types.FAMILY_NAMES).  Left out,
+    # they are zeros on the state's device.
     rehearsal_probs: torch.Tensor | None = None
     family_counts: torch.Tensor | None = None
     family_wins: torch.Tensor | None = None
 
     def __post_init__(self):
-        f32 = dict(dtype=torch.float32, device=self.global_step.device)
         for name, n in (("rehearsal_probs", 7), ("family_counts", N_FAMILIES),
                         ("family_wins", N_FAMILIES)):
-            v = getattr(self, name)
-            if v is None:
-                setattr(self, name, torch.zeros(n, **f32))
-            elif isinstance(v, torch.Tensor):
-                setattr(self, name, v.to(**f32))
-            else:  # a copy, never a view of the caller's array
-                setattr(self, name, torch.tensor(v, **f32))
+            if getattr(self, name) is None:
+                setattr(self, name, torch.zeros(n, dtype=torch.float32,
+                                                device=self.global_step.device))
 
 
 @dataclasses.dataclass
@@ -219,21 +214,20 @@ class PPOLearner:
 
     def start(self, generator: torch.Generator, params: ActorCritic,
               global_step: float = 0.0, episodes_total: float = 0.0,
-              rehearsal_probs=None, family_counts=None, family_wins=None) -> TrainState:
+              rehearsal_probs: torch.Tensor | None = None) -> TrainState:
         """A state over `params` with a fresh optimizer and envs reset from
-        `generator` at `global_step`.  The PLR fields default to the initial
-        probabilities and zero counts."""
+        `generator` at `global_step`, with zero family counts.  The rehearsal
+        probabilities default to the initial ones."""
         f32 = dict(dtype=torch.float32, device=self.device)
         step = torch.tensor(global_step, **f32)
         probs = (self.initial_rehearsal_probs() if rehearsal_probs is None
-                 else torch.as_tensor(rehearsal_probs, **f32))
+                 else rehearsal_probs.to(**f32))
         env_state, obs = self.env.reset_batch(generator, self.num_envs, step,
                                               self._reset_probs(probs))
         return TrainState(
             params=params, optimizer=optim.adam(params.parameters(), self.cfg.learning_rate),
             env_state=env_state, obs=obs, generator=generator, global_step=step,
             episodes_total=torch.tensor(episodes_total, **f32), rehearsal_probs=probs,
-            family_counts=family_counts, family_wins=family_wins,
         )
 
     # -- rollout -------------------------------------------------------------

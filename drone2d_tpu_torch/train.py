@@ -201,7 +201,8 @@ def train(
                     dc, dw = counts - plr_last[0], wins - plr_last[1]
                     plr_last = (counts, wins)
                     new_probs = reweight_rehearsal(probs, dc, dw)
-                    state = dataclasses.replace(state, rehearsal_probs=new_probs)
+                    state = dataclasses.replace(state, rehearsal_probs=torch.as_tensor(
+                        new_probs, device=learner.device))
                     for f, name in enumerate(FAMILY_NAMES[1:]):
                         m[f"rehearsal/p_{name}"] = float(new_probs[f])
                     print("  rehearsal:", family_report(dc, dw), "->", np.round(new_probs, 3))

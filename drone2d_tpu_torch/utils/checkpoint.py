@@ -12,6 +12,7 @@ last KEEP checkpoints are kept (orbax's `max_to_keep=5`).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 from typing import List, Tuple
@@ -75,7 +76,9 @@ def restore_checkpoint(directory: str, learner: PPOLearner) -> Tuple[TrainState,
     gen = torch.Generator(device=learner.device)
     gen.set_state(payload["generator"])
     state = learner.start(gen, params, float(payload["global_step"]),
-                          float(payload["episodes_total"]),
-                          **{k: payload.get(k) for k in _PLR_FIELDS})
+                          float(payload["episodes_total"]), payload.get("rehearsal_probs"))
+    if "family_counts" in payload:
+        state = dataclasses.replace(state, **{
+            k: payload[k].to(learner.device) for k in ("family_counts", "family_wins")})
     state.optimizer.load_state_dict(payload["optimizer"])
     return state, int(payload["global_step"])

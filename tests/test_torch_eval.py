@@ -378,7 +378,8 @@ def test_agent_names_and_scenario_configs_match_jax():
 def test_eval_cli_on_cpu(tmp_path, capsys):
     """4 episodes of a stage scenario and of a spatial one through the CLI;
     the random baseline; params from the port's checkpoint directory equal
-    the .npz's; a spatial scenario without --no-gif raises."""
+    the .npz's; a spatial scenario without --no-gif raises, and so does
+    --gif-all."""
     out = str(tmp_path / "Tests")
     base = ["--device", "cpu", "--episodes", "4", "--out-root", out]
     run.main([*base, "--agent", AGENT, "--scenario", "stage_4"])
@@ -398,6 +399,8 @@ def test_eval_cli_on_cpu(tmp_path, capsys):
     assert "rnd/test_0/stage_2/stage_2_rnd_results.txt" in files
     with pytest.raises(NotImplementedError, match="GIF"):
         run.main([*base, "--agent", AGENT, "--scenario", "corridor"])
+    with pytest.raises(NotImplementedError, match="gif-all"):
+        run.main([*base, "--agent", AGENT, "--scenario", "stage_4", "--no-gif", "--gif-all"])
 
     learner = PPOLearner(EnvConfig(path_table_n=128), PPOConfig(hidden_sizes=(128, 128)), 4,
                          device="cpu")

@@ -192,7 +192,8 @@ def test_flagship_finetune_is_not_ported(tmp_path):
     """The flagship-finetune preset (adaptive rehearsal, non-uniform stage
     weights) warm-starts and trains on the CPU at 8 envs, with the
     rehearsal probabilities of the recipe (to float32 rounding) in its
-    state and no controller ticks (rehearsal_adapt is off in the recipe)."""
+    state and no controller ticks (rehearsal_adapt is off in the recipe).
+    The name is historical: the test once held that the preset raised."""
     ckpt = str(tmp_path / "ft")
     _, train_cfg, env_cfg, ppo_cfg = parse_args(
         ["--preset", "flagship-finetune", "--num-envs", "8", "--ppo-n-steps", "8",
