@@ -3,33 +3,45 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `drone2d_tpu_torch/csrc/`, holds each
-against its plain PyTorch version on the card, and drives the port's main
+against its plain PyTorch version on the card (with the agent axis, each
+member's slice against its own launch too), and drives the port's main
 paths, each with the kernel counts set to 0 just before it and read just
 after: the PPO rollout of the flagship 27-128-128 actor-critic over 4096
 curriculum envs x 128 steps (twice, then GAE); training through
 `drone2d_tpu_torch.train` at the published flagship-scratch recipe
 (128-128 actor-critic, 1024 envs x 128 steps, 64 minibatches x 10 epochs,
-3 updates from scratch, then 1 after a resume); the flagship-finetune
-recipe (adaptive rehearsal) warm-started from agent_s6006, 2 updates as
+3 updates from scratch, then 1 after a resume); a population of 8 seeds of
+that recipe through `drone2d_tpu_torch.scripts.sweep --vmap 8` (2 updates)
+and the selection of its 16 candidates through
+`drone2d_tpu_torch.scripts.select_agents`; the flagship-finetune recipe
+(adaptive rehearsal) warm-started from agent_s6006, 2 updates as
 published, then 6 with the corridor and crossing-wall mixes at 0.04 and the
-PLR controller on, then 1 after a resume; and the 12-scenario eval campaign
-of agent_s8004, 1000 stochastic episodes a scenario, through
-`drone2d_tpu_torch.eval.run.evaluate`.  It checks that the paths launched
-the kernels and that their outputs are right (an update and an eval batch
-on the card against the same on the CPU, finite losses, moved weights,
-finished episodes, the rehearsal families' frequencies and walls, the
-controller's budget, each scenario's success rate against the committed
-campaign by a two-proportion z-test, files on disk), times each phase, the
-update by layer and a campaign step, and prints one JSON line of kernel
-measurements and, last, one JSON status line.  Any failure raises, so the
-exit code is 0 only when every phase passed.  Needs CUDA; imports no JAX.
+PLR controller on, then 1 after a resume; agent_s8004's eval campaign on 3
+scenarios through `drone2d_tpu_torch.eval.run.evaluate`; and two stacked
+12-scenario campaigns through `eval.episode.run_episodes_multi`: s8004 +
+s22307 at 1000 episodes each, the four imported reference agents at 200.
+It checks that the paths launched the kernels and that their outputs are
+right (an update and an eval batch on the card against the same on the
+CPU, 129 launches an update for one seed or for 8, finite losses, moved
+and distinct weights, finished episodes, the rehearsal families'
+frequencies and walls, the controller's budget, each success rate against
+the committed campaigns and the conformance report by a two-proportion
+z-test, files on disk), times each phase, the updates by layer (a
+population's in turn with one seed's) and a campaign step, and prints one
+JSON line of kernel measurements and, last, one JSON status line.  Any
+failure raises, so the exit code is 0 only when every phase passed.  Needs
+CUDA; imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
+import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import tempfile
@@ -43,14 +55,16 @@ import torch
 from drone2d_tpu_torch.config import ALL_SCENARIOS, EnvConfig, PPOConfig
 from drone2d_tpu_torch.env.env import Drone2DEnv, _observe, _rewards_and_done
 from drone2d_tpu_torch.env.types import FAMILY_NAMES, select_state
-from drone2d_tpu_torch.eval.episode import run_episodes_from
+from drone2d_tpu_torch.eval.episode import run_episodes_from, run_episodes_multi
 from drone2d_tpu_torch.eval.run import evaluate, scenario_config
 from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.gae import compute_gae
-from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState
-from drone2d_tpu_torch.models.policy import ActorCritic, flat_dict_to_params
+from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState, collect_steps
+from drone2d_tpu_torch.learn.zoo import ZooTrainer
+from drone2d_tpu_torch.models.policy import ActorCritic, flat_dict_to_params, stack_params
 from drone2d_tpu_torch.ops import cuda_build, geometry, physics
 from drone2d_tpu_torch.ops.fused_policy import fused_sample_action, fused_sample_action_ref
+from drone2d_tpu_torch.scripts import select_agents, sweep
 from drone2d_tpu_torch.train import parse_args, train
 from drone2d_tpu_torch.utils.checkpoint import restore_checkpoint
 
@@ -81,8 +95,26 @@ FINETUNE_UPDATES = 2
 PLR_UPDATES = 6
 WALL_MIX = 0.04
 EVAL_EPISODES = 1000
+# the one-agent campaign through eval.run.evaluate, cut to one scenario:
+# agent_s8004's whole 12-scenario parity comes from the stacked campaign
+CAMPAIGN_SCENARIOS = ("corridor",)
+# rollout steps under the profiler, for the device ops and busy share a step
+PROFILE_STEPS = 16
 # a scenario's success rate against the committed campaign's: |z| <= Z_MAX
 Z_MAX = 3.0
+# the population: flagship-scratch, 8 seeds (the JAX package's population
+# size), 2 updates with a snapshot after the first, then the selection of
+# its 16 candidates on 2 scenarios
+ZOO_SEEDS = tuple(range(1, 9))
+ZOO_UPDATES = 2
+SELECT_SCENARIOS, SELECT_EPISODES = ("corridor", "stage_3"), 64
+# the four 128-128 agents of artifacts/, and the stacked campaigns: s8004 and
+# s22307 against their committed campaigns, the four imported reference
+# agents (64-64) against the conformance report
+SHIPPED = ("s8004", "s22307", "s6006", "s5004")
+IMPORTED = tuple(f"agent_{k}_90" for k in (17, 19, 20, 21))
+IMPORTED_EPISODES = 200
+CONFORMANCE = ROOT / "artifacts" / "conformance" / "report.json"
 
 
 def log(*args):
@@ -97,17 +129,18 @@ def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / max(1.0, float(want.abs().max())))
 
 
-def device_ms(fn, reps: int = 25, inner: int = 20) -> float:
+def device_ms(fn, reps: int = 25, inner: int = 20, launches: int = 1) -> float:
     """Median device time of one call, from CUDA events around `inner`
     back-to-back calls.  A spin kernel keeps the card busy while the host
-    enqueues them, so host launch overhead does not show up as device time."""
+    enqueues them (longer for a call of several `launches`), so host launch
+    overhead does not show up as device time."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
+        torch.cuda._sleep(20_000_000 * launches)
         start.record()
         for _ in range(inner):
             fn()
@@ -161,16 +194,23 @@ def load_agent(device):
     return flat_dict_to_params(dict(np.load(AGENT)), device=device)
 
 
-def kernel_work(b: int, h: int, k: int = 27) -> dict:
-    """What one call of the fused policy must do at batch b, width h: its
-    float32 FLOPs (both trunks and the three head dot products), the FLOPs
-    of its matrix products as the kernel runs them on the tensor cores
-    (three fp16 MMAs a product), and the bytes it must move (obs, noise and
-    weights read once, outputs written once)."""
+def kernel_work(b: int, h: int, k: int = 27, members: int = 1) -> dict:
+    """What one call of the fused policy must do at batch b (all members'
+    rows), width h: its float32 FLOPs (both trunks and the three head dot
+    products), the FLOPs of its matrix products as the kernel runs them on
+    the tensor cores (three fp16 MMAs a product), and the bytes it must move
+    (obs, noise and each member's weights read once, outputs written once)."""
     n_params = 2 * (k * h + h + h * h + h) + h * 3 + 3 + 2
     products = b * 2 * 2 * (k * h + h * h)
     return {"flops": products + b * 2 * 3 * h, "tc_flops": 3 * products,
-            "bytes": 4 * (b * k + b * 2 + n_params + b * 2 + b + b)}
+            "bytes": 4 * (b * k + b * 2 + members * n_params + b * 2 + b + b)}
+
+
+def bounds(w: dict) -> tuple:
+    """(bound ms, bound by operations?, tensor-core bound ms) of kernel_work
+    `w` on the card's peaks."""
+    t_ops, t_bytes = w["flops"] / PEAK_F32_FLOPS * 1e3, w["bytes"] / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), t_ops >= t_bytes, w["tc_flops"] / PEAK_F16_FLOPS * 1e3
 
 
 def phase_kernel_vs_plain() -> dict:
@@ -217,14 +257,12 @@ def phase_kernel_vs_plain() -> dict:
             ms = device_ms(lambda: fused_sample_action(p, o, n))
             plain_ms = device_ms(lambda: fused_sample_action_ref(p, o, n))
         w = kernel_work(o.shape[0], h)
-        t_ops, t_bytes = w["flops"] / PEAK_F32_FLOPS * 1e3, w["bytes"] / PEAK_BYTES * 1e3
-        t_tc = w["tc_flops"] / PEAK_F16_FLOPS * 1e3
-        bound = max(t_ops, t_bytes)
+        bound, by_ops, t_tc = bounds(w)
         log(f"  time at B={o.shape[0]} H={h}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms; "
             f"{w['flops'] / 1e6:.1f} MFLOP, {w['bytes'] / 1e6:.3f} MB -> bound {bound:.5f} ms "
             f"({100 * bound / ms:.1f}% of it); fp16 pieces {w['tc_flops'] / 1e6:.1f} MFLOP "
             f"-> bound_tc {t_tc:.5f} ms ({100 * t_tc / ms:.1f}%)")
-        return ms, plain_ms, bound, t_ops >= t_bytes, t_tc
+        return ms, plain_ms, bound, by_ops, t_tc
 
     obs64 = torch.randn(NUM_ENVS, 27, generator=gen, device=dev)
     times(widths[64], obs64, noise, 64)  # PPOConfig's default width
@@ -252,6 +290,87 @@ def phase_kernel_vs_plain() -> dict:
                   "bound_by": "operations" if by_ops_1k else "bytes",
                   "bound_tc_ms": t_tc_1k, "library_ms": None},
     }
+
+
+def shipped_agent(name: str, device):
+    return flat_dict_to_params(dict(np.load(ROOT / "artifacts" / f"agent_{name}" /
+                                            "new_agent.npz")), device=device)
+
+
+def imported_agent(name: str, device):
+    return flat_dict_to_params(dict(np.load(ROOT / "artifacts" / "imported" / f"{name}.npz")),
+                               device=device)
+
+
+def phase_kernel_stacked(kernel_row: dict):
+    """The kernel with the agent axis, at the stacked shapes of the paths:
+    the zoo's rollout step (8 members x 1024 envs, H=128: the four shipped
+    128-128 agents and perturbed copies of them), the selection of the zoo's
+    16 candidates (16 x SELECT_EPISODES, H=128: the four shipped agents and
+    12 perturbed copies, so member offsets reach 15 weight sets), the
+    stacked eval of s8004 and s22307 (2 x 1000, H=128) and of the four
+    imported agents (4 x 200, H=64).  Each against its plain version (scaled errors <= TOL, log-prob
+    equal), each member's slice bit-equal to its own unstacked launch; then
+    device times of one stacked launch, of the S unstacked launches and of
+    the plain version, against the bounds."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shipped = [shipped_agent(a, dev) for a in SHIPPED]
+    perturbed = []  # three copies of each shipped agent, in rounds
+    for _ in range(3):
+        for p in shipped:
+            q = copy.deepcopy(p)
+            with torch.no_grad():
+                for leaf in q.parameters():
+                    leaf.add_(0.05 * leaf.abs().mean() * torch.randn(leaf.shape, generator=gen,
+                                                                     device=dev))
+            perturbed.append(q)
+    shapes = {
+        "s8_n1024": (shipped + perturbed[:4], 1024, "zoo rollout step, 8 seeds x 1024 envs"),
+        "s16_n64": (shipped + perturbed, SELECT_EPISODES,
+                    "selection, 16 candidates x SELECT_EPISODES episodes"),
+        "a2_n1000": (shipped[:2], EVAL_EPISODES, "stacked eval, s8004 + s22307"),
+        "a4_n200": ([imported_agent(a, dev) for a in IMPORTED], IMPORTED_EPISODES,
+                    "stacked eval, the 4 imported agents"),
+    }
+    log(f"kernel with the agent axis vs plain (|d| <= {TOL} * max(1, max |plain|); each "
+        "member's slice bit-equal to its own unstacked launch):")
+    out = {}
+    for key, (members, n, label) in shapes.items():
+        stack = stack_params(members)
+        S, h = len(members), members[0].pi[0].w.shape[1]
+        obs = torch.randn(S, n, 27, generator=gen, device=dev)
+        noise = torch.randn(S, n, 2, generator=gen, device=dev)
+        got = fused_sample_action(stack, obs, noise)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            want = fused_sample_action_ref(stack, obs, noise)
+        errs = {k: scaled_err(g, w) for k, g, w in zip(("action", "logp", "value"), got, want)}
+        abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        views = [stack.member(i) for i in range(S)]
+        alone = [fused_sample_action(v, obs[i], noise[i]) for i, v in enumerate(views)]
+        sliced = all(torch.equal(g[i], a[j]) for i, a in enumerate(alone)
+                     for j, g in enumerate(got))
+        with torch.no_grad():
+            ms = device_ms(lambda: fused_sample_action(stack, obs, noise))
+            unstacked_ms = device_ms(lambda: [fused_sample_action(v, obs[i], noise[i])
+                                              for i, v in enumerate(views)], launches=S)
+            plain_ms = device_ms(lambda: fused_sample_action_ref(stack, obs, noise), reps=5)
+        w = kernel_work(S * n, h, members=S)
+        bound, by_ops, t_tc = bounds(w)
+        log(f"  S={S} x N={n} H={h} ({label}): max_abs_err {abs_err:.3e}, scaled "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f"; slices bit-equal to unstacked launches: {sliced}; one stacked launch "
+            f"{ms:.5f} ms, {S} unstacked launches {unstacked_ms:.5f} ms, plain {plain_ms:.5f} ms; "
+            f"{w['flops'] / 1e6:.1f} MFLOP, {w['bytes'] / 1e6:.3f} MB -> bound {bound:.5f} ms "
+            f"({100 * bound / ms:.1f}% of it), bound_tc {t_tc:.5f} ms ({100 * t_tc / ms:.1f}%)")
+        if max(errs.values()) > TOL or not torch.equal(got[1], want[1]) or not sliced:
+            raise AssertionError(f"stacked kernel ({key}): errors {errs}, slices equal {sliced}")
+        out[key] = {"members": S, "rows_a_member": n, "hidden": h, "max_abs_err": abs_err,
+                    "ms": ms, "unstacked_ms": unstacked_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": "operations" if by_ops else "bytes",
+                    "bound_tc_ms": t_tc, "library_ms": None}
+    kernel_row["stacked"] = out
 
 
 def phase_reference():
@@ -544,20 +663,21 @@ def _train_in(d: str, kernel_row: dict):
     return (train_cfg, env_cfg, ppo_cfg), state
 
 
-def _update_split(runs: dict) -> dict:
-    """For each label -> (learner, state): seconds per update split into the
-    reset template's draws, the rollout's steps, GAE and SGD (host clock,
-    each part synchronized), the median of 3 updates, the labels' updates
-    taken in turn so that the host's drift falls on each alike; then one
-    rollout's steps under the profiler: the device ops a step and the
-    device's busy share.  Returns label -> (state, batch, adv, ret)."""
+def _update_split(runs: dict, reps: int = 3) -> dict:
+    """For each label -> (learner or population trainer, state): seconds per
+    update split into the reset templates' draws, the rollout's steps, GAE
+    and SGD (host clock, each part synchronized), the median of `reps`
+    updates, the labels' updates taken in turn so that the host's drift
+    falls on each alike; the env steps trained a second; then one rollout's
+    steps under the profiler: the device ops a step and the device's busy
+    share.  Returns label -> (state, batch, adv, ret, env steps a second)."""
     parts, out = {k: [] for k in runs}, {}
-    for _ in range(3):
+    for _ in range(reps):
         for label, (learner, state) in runs.items():
             cfg = learner.cfg
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            draws = learner._rollout_draws(state)
+            *draws, perms = learner.draws(state)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             state, batch, last_values, _ = learner.rollout_from(state, *draws)
@@ -567,33 +687,38 @@ def _update_split(runs: dict) -> dict:
                                    gamma=cfg.gamma, gae_lambda=cfg.gae_lambda)
             torch.cuda.synchronize()
             t3 = time.perf_counter()
-            metrics = learner.sgd(state, batch, adv, ret, learner.draw_perms(state.generator))
+            metrics = learner.sgd(state, batch, adv, ret, perms)
             torch.cuda.synchronize()
             t4 = time.perf_counter()
             parts[label].append((t1 - t0, t2 - t1, t3 - t2, t4 - t3, t4 - t0))
-            if not math.isfinite(float(metrics["loss"])):
+            if not bool(torch.isfinite(metrics["loss"]).all()):
                 raise AssertionError(f"{label}: non-finite loss")
             runs[label] = (learner, state)
             out[label] = (state, batch, adv, ret)
     for label, (learner, state) in runs.items():
-        cfg = learner.cfg
+        cfg, members = learner.cfg, state.params.members or 1
         draws_s, steps_s, gae_s, sgd_s, total_s = (
             statistics.median(p[i] for p in parts[label]) for i in range(5))
         sgd_steps = cfg.n_epochs * cfg.num_minibatches
-        log(f"{label} update (host clock, synchronized, median of 3): reset draws "
+        rate = members * cfg.n_steps * learner.num_envs / total_s
+        log(f"{label} update (host clock, synchronized, median of {reps}): reset draws "
             f"{draws_s:.4f} s, rollout steps {steps_s:.4f} s ({1e3 * steps_s / cfg.n_steps:.3f} "
             f"ms a step), GAE {gae_s:.4f} s, SGD {sgd_s:.4f} s ({1e3 * sgd_s / sgd_steps:.3f} ms "
             f"a minibatch step), total {total_s:.4f} s; "
             f"all: {[tuple(round(x, 4) for x in p) for p in parts[label]]}")
-        log(f"  train_steps_per_s {cfg.n_steps * learner.num_envs / total_s:.1f} "
-            f"({learner.num_envs} envs x {cfg.n_steps} steps / seconds per update)")
-        draws = learner._rollout_draws(state)
-        events, dev_us, wall_us = profile_device(lambda: learner.rollout_from(state, *draws))
-        log(f"  profiler, one rollout's steps: " + (
-            f"{len(events) / cfg.n_steps:.0f} device ops a step, device busy "
+        log(f"  train_steps_per_s {rate:.1f} ({members} x {learner.num_envs} envs x "
+            f"{cfg.n_steps} steps / seconds per update)")
+        reset_state, reset_obs, noise, _ = learner.draws(state)
+        noise = noise[:PROFILE_STEPS]
+        events, dev_us, wall_us = profile_device(lambda: collect_steps(
+            state.params, learner.env, state.env_state, state.obs, reset_state, reset_obs,
+            noise))
+        log(f"  profiler, {PROFILE_STEPS} rollout steps: " + (
+            f"{len(events) / PROFILE_STEPS:.0f} device ops a step, device busy "
             f"{dev_us / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms wall "
             f"({100 * dev_us / wall_us:.1f}%)" if events
             else "device time not measured (no device events)"))
+        out[label] = out[label] + (rate,)
     return out
 
 
@@ -603,8 +728,8 @@ def phase_train_timing(cfgs, state):
     shuffles; the device's busy share over one update under the profiler."""
     train_cfg, env_cfg, ppo_cfg = cfgs
     learner = PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs)
-    state, batch, adv, ret = _update_split(
-        {"flagship-scratch": (learner, state)})["flagship-scratch"]
+    state, batch, adv, ret, _ = _update_split(
+        {"flagship-scratch": (learner, state)}, reps=1)["flagship-scratch"]
 
     # one minibatch step by layer, each synchronized, median of 20
     mb = [x.reshape((-1,) + x.shape[2:])[: learner.minibatch_size]
@@ -648,20 +773,19 @@ def phase_train_timing(cfgs, state):
             raise AssertionError(f"shuffle {shuffle}: loss {loss}, "
                                  f"{fused_sample_action.launches} launches")
 
-    out = {}
-
-    def one_update():
-        out["state"], metrics = learner.update(state)
-        float(metrics["loss"])
-
-    device_events, dev_us, wall_us = profile_device(one_update)
-    state = out["state"]
+    # the device's busy share over one epoch of SGD (64 minibatch steps);
+    # the rollout's is in the update split above
+    epoch = PPOLearner(env_cfg, ppo_cfg.replace(n_epochs=1), train_cfg.num_envs)
+    perms = epoch.draw_perms(state.generator)
+    device_events, dev_us, wall_us = profile_device(
+        lambda: float(epoch.sgd(state, batch, adv, ret, perms)["loss"]))
     if dev_us > 0:
-        log(f"  profiler, one update: device busy {dev_us / 1e3:.1f} ms of "
-            f"{wall_us / 1e3:.1f} ms wall ({100 * dev_us / wall_us:.1f}%), "
-            f"{len(device_events)} device ops")
+        log(f"  profiler, one SGD epoch ({ppo_cfg.num_minibatches} minibatch steps): device "
+            f"busy {dev_us / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms wall "
+            f"({100 * dev_us / wall_us:.1f}%), "
+            f"{len(device_events) / ppo_cfg.num_minibatches:.0f} device ops a step")
     else:
-        log("  profiler, one update: device time not measured (no device events)")
+        log("  profiler, one SGD epoch: device time not measured (no device events)")
     return learner, state
 
 
@@ -850,7 +974,7 @@ def phase_finetune_timing(scratch: PPOLearner, scratch_state):
     state = learner.init(train_cfg.seed, params=flat_dict_to_params(
         dict(np.load(FINETUNE_AGENT)), device="cuda"))
     _update_split({"flagship-scratch": (scratch, scratch_state),
-                   "flagship-finetune": (learner, state)})
+                   "flagship-finetune": (learner, state)}, reps=1)
 
 
 def _episode_errors(got, want) -> dict:
@@ -937,20 +1061,21 @@ def _z(p1: float, p2: float, n1: int, n2: int) -> float:
 
 
 def phase_campaign(kernel_row: dict):
-    """The eval path: `evaluate` for agent_s8004 over the 12 scenarios,
+    """The eval path: `evaluate` for agent_s8004 over CAMPAIGN_SCENARIOS,
     EVAL_EPISODES stochastic episodes each, writing the Tests/ schema into a
     temporary directory; each scenario's success rate against the committed
-    campaign by |z| <= Z_MAX."""
+    campaign by |z| <= Z_MAX.  (All 12 scenarios fly in the stacked
+    campaign.)"""
     with open(CAMPAIGN) as f:
         ref = {s["scenario"]: s for s in json.load(f)["scenarios"]}
-    log(f"eval campaign: agent_s8004, {len(ALL_SCENARIOS)} scenarios x {EVAL_EPISODES} "
+    log(f"eval campaign: agent_s8004, {len(CAMPAIGN_SCENARIOS)} scenarios x {EVAL_EPISODES} "
         f"stochastic episodes, against {CAMPAIGN.relative_to(ROOT)} (|z| <= {Z_MAX}):")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as d:
         torch.cuda.synchronize()
         fused_sample_action.launches = 0
         t_all = time.perf_counter()
         rows, bad = [], []
-        for scen in ALL_SCENARIOS:
+        for scen in CAMPAIGN_SCENARIOS:
             before = fused_sample_action.launches
             t0 = time.perf_counter()
             s = evaluate(str(AGENT), scen, EVAL_EPISODES, out_root=d)
@@ -989,6 +1114,218 @@ def phase_campaign(kernel_row: dict):
     return rows
 
 
+def phase_zoo(kernel_row: dict):
+    """The population path: `python -m drone2d_tpu_torch.scripts.sweep
+    --preset flagship-scratch --vmap 8`, ZOO_UPDATES updates with a snapshot
+    after the first, in a temporary directory: one kernel launch a rollout
+    step for all 8 seeds (n_steps + 1 an update, not 8 times that), finite
+    losses, members whose weights differ, the seed_<s>/ files; then
+    `select_agents` over the 16 candidates, each path with the kernel count
+    set to 0 just before it and read just after."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as d:
+        return _zoo_in(d, kernel_row)
+
+
+def _run_cli(main_fn, argv) -> str:
+    """Run a CLI's main in this process; echo and return what it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main_fn(argv)
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    return buf.getvalue()
+
+
+def _zoo_in(d: str, kernel_row: dict):
+    _, train_cfg, _, ppo_cfg = parse_args(["--preset", "flagship-scratch"])
+    spu = ppo_cfg.n_steps * train_cfg.num_envs
+    argv = ["--preset", "flagship-scratch", "--vmap", str(len(ZOO_SEEDS)),
+            "--seeds", *map(str, ZOO_SEEDS), "--total-timesteps", str(ZOO_UPDATES * spu),
+            "--snapshot-steps", str(spu), "--no-eval", "--out", d]
+    log(f"zoo: python -m drone2d_tpu_torch.scripts.sweep {' '.join(argv)}")
+    torch.cuda.synchronize()
+    fused_sample_action.launches = 0
+    t0 = time.perf_counter()
+    text = _run_cli(sweep.main, argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = fused_sample_action.launches
+    log(f"  zoo: {len(ZOO_SEEDS)} seeds x {ZOO_UPDATES} updates in {dt:.2f} s (setup and "
+        f"snapshots included), kernel launches {launches} "
+        f"({launches / ZOO_UPDATES:.0f} a population update)")
+    if launches != ZOO_UPDATES * (ppo_cfg.n_steps + 1):
+        raise AssertionError(f"zoo: fused_sample_action launched {launches} times, want "
+                             f"{ZOO_UPDATES} x {ppo_cfg.n_steps + 1}")
+    m = re.search(rf"update {ZOO_UPDATES}/{ZOO_UPDATES} .*loss\s+(\S+)", text)
+    if not m or not math.isfinite(float(m.group(1))):
+        raise AssertionError("zoo: no finite loss in the last update's line")
+    finals = []
+    for s in ZOO_SEEDS:
+        files = sorted(p.name for p in Path(d, f"seed_{s}").iterdir())
+        if files != [f"ckpt_{spu}.npz", "new_agent.npz"]:
+            raise AssertionError(f"zoo: seed_{s} holds {files}")
+        finals.append(dict(np.load(Path(d, f"seed_{s}", "new_agent.npz"))))
+    if not all(np.isfinite(v).all() for f in finals for v in f.values()):
+        raise AssertionError("zoo: non-finite weights")
+    same = [(i, j) for i in range(len(finals)) for j in range(i)
+            if np.array_equal(finals[i]["pi0/w"], finals[j]["pi0/w"])]
+    if same:
+        raise AssertionError(f"zoo: members with equal weights {same}")
+    log(f"  seed_<s>/ckpt_{spu}.npz and new_agent.npz for all {len(ZOO_SEEDS)} seeds; the "
+        "members' weights are finite and pairwise different")
+    kernel_row["launches_by_path"]["zoo"] = launches
+
+    sel = [str(Path(d, f"seed_{s}")) for s in ZOO_SEEDS] + [
+        "--episodes", str(SELECT_EPISODES), "--scenarios", *SELECT_SCENARIOS,
+        "--out", f"{d}/select.json"]
+    log(f"selection: python -m drone2d_tpu_torch.scripts.select_agents {' '.join(sel)}")
+    torch.cuda.synchronize()
+    fused_sample_action.launches = 0
+    t0 = time.perf_counter()
+    _run_cli(select_agents.main, sel)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    with open(f"{d}/select.json") as f:
+        table = json.load(f)
+    if len(table) != 2 * len(ZOO_SEEDS) or any(
+            set(per) != set(SELECT_SCENARIOS) for per in table.values()):
+        raise AssertionError(f"selection: {len(table)} candidates in the summary")
+    log(f"  selection: {len(table)} candidates x {len(SELECT_SCENARIOS)} scenarios x "
+        f"{SELECT_EPISODES} episodes in {dt:.2f} s, kernel launches "
+        f"{fused_sample_action.launches}")
+    if fused_sample_action.launches <= 0:
+        raise AssertionError("selection launched no kernel")
+    kernel_row["launches_by_path"]["select"] = fused_sample_action.launches
+
+
+def phase_zoo_timing(scratch: PPOLearner, scratch_state):
+    """A population update of 8 seeds by layer, in turn with a single-seed
+    flagship-scratch update (`_update_split`), and the population's env
+    steps a second against the single seed's."""
+    _, train_cfg, env_cfg, ppo_cfg = parse_args(["--preset", "flagship-scratch"])
+    trainer = ZooTrainer(env_cfg, ppo_cfg, train_cfg.num_envs)
+    out = _update_split({"flagship-scratch": (scratch, scratch_state),
+                         "flagship-scratch population of 8": (trainer,
+                                                               trainer.init(ZOO_SEEDS))},
+                        reps=1)
+    single, pop = out["flagship-scratch"][-1], out["flagship-scratch population of 8"][-1]
+    log(f"population of {len(ZOO_SEEDS)}: {pop:.1f} env steps a second against a single "
+        f"seed's {single:.1f}, taken in turn: {pop / single:.2f}x")
+
+
+def phase_stacked_campaign(kernel_row: dict):
+    """Stacked eval parity: s8004 and s22307 as one stacked campaign of the
+    12 scenarios x EVAL_EPISODES episodes each (run_episodes_multi, one
+    kernel launch a step for both), each scenario's success rate against its
+    committed campaign (each file's own episodes) by |z| <= Z_MAX."""
+    names = ("s8004", "s22307")
+    refs = {}
+    for a in names:
+        with open(ROOT / "artifacts" / f"agent_{a}" / "campaign_n1000_summary.json") as f:
+            refs[a] = {r["scenario"]: r for r in json.load(f)["scenarios"]}
+    stack = stack_params([shipped_agent(a, "cuda") for a in names])
+    log(f"stacked eval campaign: {' + '.join(names)}, {len(ALL_SCENARIOS)} scenarios x "
+        f"{EVAL_EPISODES} stochastic episodes each, one batch of {len(names) * EVAL_EPISODES}, "
+        f"against the committed campaigns (|z| <= {Z_MAX}):")
+    torch.cuda.synchronize()
+    fused_sample_action.launches = 0
+    t_all = time.perf_counter()
+    rows, bad = [], []
+    for scen in ALL_SCENARIOS:
+        before = fused_sample_action.launches
+        t0 = time.perf_counter()
+        res = run_episodes_multi(scenario_config(scen), stack, 0, EVAL_EPISODES)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = np.maximum(res.success.sum(1) + res.fail.sum(1), 1)
+        sr = res.success.sum(1) / n
+        parts = []
+        for i, a in enumerate(names):
+            r = refs[a][scen]
+            z = _z(float(sr[i]), r["success_rate"], EVAL_EPISODES, r["episodes"])
+            rows.append(dict(agent=a, scenario=scen, sr=float(sr[i]), ref_sr=r["success_rate"],
+                             ref_n=r["episodes"], z=z, ape=float(res.ape[i].mean()),
+                             ref_ape=r["avg_ape"]))
+            parts.append(f"{a} SR {sr[i]:.4f} (committed {r['success_rate']:.4f}, n "
+                         f"{r['episodes']}, z {z:+.2f}), APE {res.ape[i].mean():.2f} "
+                         f"({r['avg_ape']:.2f})")
+            if abs(z) > Z_MAX:
+                bad.append((a, scen))
+        log(f"  stacked {scen}: " + "; ".join(parts)
+            + f"; {dt:.2f} s, kernel launches {fused_sample_action.launches - before}")
+    total = time.perf_counter() - t_all
+    launches = fused_sample_action.launches
+    for a in names:
+        mine = [r for r in rows if r["agent"] == a]
+        log(f"  {a}: mean SR {statistics.mean(r['sr'] for r in mine):.4f} (committed "
+            f"{statistics.mean(r['ref_sr'] for r in mine):.4f}), largest |z| "
+            f"{max(abs(r['z']) for r in mine):.2f}")
+    log(f"  stacked campaign: {len(names) * len(ALL_SCENARIOS) * EVAL_EPISODES} episodes in "
+        f"{total:.2f} s, {len(names) * len(ALL_SCENARIOS) * EVAL_EPISODES / total:.1f} "
+        f"episodes_per_s; kernel launches {launches}")
+    if bad:
+        raise AssertionError(f"stacked campaign success rates off the committed ones: {bad}")
+    kernel_row["launches_by_path"]["stacked_eval"] = launches
+
+
+def phase_imported_campaign(kernel_row: dict):
+    """The four imported reference agents (64-64, so the kernel runs at
+    H=64) as one stacked campaign of the 12 scenarios x IMPORTED_EPISODES
+    episodes each, held by |z| <= Z_MAX against the reference's own row of
+    `artifacts/conformance/report.json` (n = 100) wherever it has one, and
+    against the JAX package's pooled rows (seeds 0 and 777, n = 200) on
+    every row."""
+    with open(CONFORMANCE) as f:
+        report = json.load(f)["agents"]
+    stack = stack_params([imported_agent(a, "cuda") for a in IMPORTED])
+    log(f"imported agents' stacked campaign: {', '.join(IMPORTED)}, {len(ALL_SCENARIOS)} "
+        f"scenarios x {IMPORTED_EPISODES} episodes each, one batch of "
+        f"{len(IMPORTED) * IMPORTED_EPISODES}, against {CONFORMANCE.relative_to(ROOT)} "
+        f"(|z| <= {Z_MAX}):")
+    torch.cuda.synchronize()
+    fused_sample_action.launches = 0
+    t_all = time.perf_counter()
+    bad, compared = [], {"ref": 0, "ours": 0}
+    for scen in ALL_SCENARIOS:
+        before = fused_sample_action.launches
+        t0 = time.perf_counter()
+        res = run_episodes_multi(scenario_config(scen), stack, 0, IMPORTED_EPISODES)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = np.maximum(res.success.sum(1) + res.fail.sum(1), 1)
+        sr = res.success.sum(1) / n
+        parts = []
+        for i, a in enumerate(IMPORTED):
+            for row in (r for r in report[a]["rows"] if r["scenario"] == scen):
+                # the JAX package's seeds 0 and 777, 100 episodes each
+                ours = statistics.mean(o["success_rate"] for o in row["ours"])
+                n_ours = 100 * len(row["ours"])
+                z_ours = _z(float(sr[i]), ours, IMPORTED_EPISODES, n_ours)
+                text = f"{row['label']} {a}: SR {sr[i]:.3f} (JAX {ours:.3f}, z {z_ours:+.2f}"
+                compared["ours"] += 1
+                if abs(z_ours) > Z_MAX:
+                    bad.append((a, row["label"], "JAX"))
+                if row["ref"]:
+                    ref = row["ref"]
+                    ref_n = ref["successes"] + ref["fails"]
+                    z_ref = _z(float(sr[i]), ref["success_rate"], IMPORTED_EPISODES, ref_n)
+                    text += f"; reference {ref['success_rate']:.3f}, n {ref_n}, z {z_ref:+.2f}"
+                    compared["ref"] += 1
+                    if abs(z_ref) > Z_MAX:
+                        bad.append((a, row["label"], "reference"))
+                parts.append(text + ")")
+        log(f"  imported {scen} ({dt:.2f} s, kernel launches "
+            f"{fused_sample_action.launches - before}): " + "; ".join(parts))
+    total = time.perf_counter() - t_all
+    launches = fused_sample_action.launches
+    log(f"  imported campaign: {len(IMPORTED) * len(ALL_SCENARIOS) * IMPORTED_EPISODES} "
+        f"episodes in {total:.2f} s; {compared['ref']} rows against the reference, "
+        f"{compared['ours']} against the JAX package; kernel launches {launches}")
+    if bad:
+        raise AssertionError(f"imported agents off the conformance rows: {bad}")
+    kernel_row["launches_by_path"]["imported_eval"] = launches
+
+
 def main():
     seconds = {}
 
@@ -1002,6 +1339,7 @@ def main():
     timed("device", phase_device)
     timed("build", phase_build)
     row = timed("kernel_vs_plain", phase_kernel_vs_plain)
+    timed("kernel_stacked", phase_kernel_stacked, row)
     timed("reference", phase_reference)
     timed("update_reference", phase_update_reference)
     learner, state = timed("rollout", phase_slice, row)
@@ -1009,12 +1347,16 @@ def main():
     cfgs, state = timed("train", phase_train, row)
     learner, state = timed("train_timing", phase_train_timing, cfgs, state)
     timed("weights_live", phase_weights_live, learner, state)
+    timed("zoo", phase_zoo, row)
+    timed("zoo_timing", phase_zoo_timing, learner, state)
     timed("rehearsal_reset", phase_rehearsal_reset)
     timed("finetune", phase_finetune, row)
     timed("finetune_timing", phase_finetune_timing, learner, state)
     timed("eval_reference", phase_eval_reference)
     timed("eval_breakdown", phase_eval_breakdown)
     timed("campaign", phase_campaign, row)
+    timed("stacked_campaign", phase_stacked_campaign, row)
+    timed("imported_campaign", phase_imported_campaign, row)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {sum(seconds.values()):.1f}")
     row["launches"] = sum(row["launches_by_path"].values())

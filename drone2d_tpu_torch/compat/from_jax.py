@@ -8,8 +8,9 @@ the port's state with the same padded shapes (`max_wps`, `max_obs`, the
 path table) and int32 `t` and `family`.  optax's Adam state maps into the
 port's `torch.optim.Adam` (`opt_state_from_numpy`), and a whole learner
 state, PLR fields included, into the port's `TrainState`
-(`train_state_from_numpy`).  Nothing here imports JAX: every direction goes
-through numpy.
+(`train_state_from_numpy`), and a whole population of the JAX package's
+zoo into the port's `ZooState` (`zoo_state_from_numpy`).  Nothing here
+imports JAX: every direction goes through numpy.
 """
 
 from __future__ import annotations
@@ -24,10 +25,12 @@ from drone2d_tpu_torch.device import resolve_device
 from drone2d_tpu_torch.env.types import EnvState, ObstacleSet
 from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.ppo import TrainState
+from drone2d_tpu_torch.learn.zoo import ZooState
 from drone2d_tpu_torch.models.policy import (
     ActorCritic,
     flat_dict_to_params,
     params_to_flat_dict,
+    stack_params,
     state_dict_key,
 )
 from drone2d_tpu_torch.ops.path import PathData
@@ -97,8 +100,12 @@ def opt_state_from_numpy(optimizer: torch.optim.Adam, params: ActorCritic, adam_
     second moments), with numpy leaves; `mu` and `nu` are trees of the
     `ActorCriticParams` layout or flat dicts in the agent-file naming.  The
     next step then applies the bias correction of step `count + 1`, as
-    optax does.
+    optax does.  For a population (stacked `params`) the moments are
+    stacked alike and `count` has one entry a member, all equal.
     """
+    counts = np.unique(np.asarray(adam_state.count))
+    if counts.size != 1:
+        raise ValueError(f"members at different Adam steps {counts}: one Adam steps them all")
     moments = {k: v if isinstance(v, Mapping) else params_to_flat_dict(v)
                for k, v in (("exp_avg", adam_state.mu), ("exp_avg_sq", adam_state.nu))}
     by_key = dict(params.named_parameters())
@@ -107,7 +114,7 @@ def opt_state_from_numpy(optimizer: torch.optim.Adam, params: ActorCritic, adam_
     for name in moments["exp_avg"]:
         p = by_key[state_dict_key(name)]
         state[index[id(p)]] = {
-            "step": torch.tensor(float(np.asarray(adam_state.count)), dtype=torch.float32),
+            "step": torch.tensor(float(counts[0]), dtype=torch.float32),
             **{k: torch.tensor(np.asarray(m[name], np.float32)).reshape(p.shape)
                for k, m in moments.items()},
         }
@@ -139,4 +146,32 @@ def train_state_from_numpy(tree, learning_rate: float, device=None) -> TrainStat
         global_step=f32(tree.global_step), episodes_total=f32(tree.episodes_total),
         rehearsal_probs=f32(tree.rehearsal_probs), family_counts=f32(tree.family_counts),
         family_wins=f32(tree.family_wins),
+    )
+
+
+def zoo_state_from_numpy(tree, learning_rate: float, device=None) -> ZooState:
+    """The JAX package's zoo state (its `TrainState` stacked over S members
+    by `ZooTrainer.init`, numpy leaves) -> the port's ZooState: the params
+    stacked, the Adam state, member m's N envs as rows [m N, (m + 1) N) of
+    one batch, the counters and PLR fields (S, ...).  The members get fresh
+    generators on `device`."""
+    dev = resolve_device(device)
+    flat = params_to_flat_dict(tree.params)
+    S = np.shape(flat["log_std"])[0]
+    params = stack_params([flat_dict_to_params({k: v[m] for k, v in flat.items()}, device=dev)
+                           for m in range(S)])
+    opt = optim.adam(params.parameters(), learning_rate)
+    opt_state_from_numpy(opt, params, tree.opt_state[1][0])
+    env = {k: v.reshape((-1,) + v.shape[2:]) for k, v in flatten_fields(tree.env_state).items()}
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    return ZooState(
+        params=params, optimizer=opt, env_state=env_state_from_numpy(env, dev),
+        obs=f32(np.asarray(tree.obs).reshape(-1, np.shape(tree.obs)[-1])),
+        generators=[torch.Generator(device=dev) for _ in range(S)],
+        **{k: f32(getattr(tree, k)) for k in ("global_step", "episodes_total",
+                                               "rehearsal_probs", "family_counts",
+                                               "family_wins")},
     )

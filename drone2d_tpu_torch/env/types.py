@@ -7,7 +7,7 @@ batch dimension N written out in front of each.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 
@@ -55,6 +55,15 @@ def _select(mask: torch.Tensor, a, b):
 def select_state(mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
     """Per env, the state `b` where mask (N,) is True, else `a`."""
     return _select(mask, a, b)
+
+
+def cat_states(states: Sequence[EnvState]) -> EnvState:
+    """The envs of `states`, in order, as one batch (a copy of each leaf)."""
+    first = states[0]
+    if dataclasses.is_dataclass(first):
+        return type(first)(**{f.name: cat_states([getattr(s, f.name) for s in states])
+                              for f in dataclasses.fields(first)})
+    return torch.cat(list(states))
 
 
 @dataclasses.dataclass

@@ -14,18 +14,24 @@ clipped action mean of `policy_value`) and the stochastic one, SB3's
 `ActorCritic.sample_action` computes, the fused kernel on the card.
 `run_episodes_from` is the deterministic core: it takes the reset states and
 the per-step draws, so a test can feed it the JAX package's.
+
+`run_episodes_multi` flies a stack of A agents (an `ActorCritic` with a
+leading member axis) over A x n episodes as one batch, one kernel launch a
+step for all of them; results have shape (A, n).  `campaign_keys` gives the
+generator seeds of a chunked campaign.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import zlib
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from drone2d_tpu_torch.config import EnvConfig
-from drone2d_tpu_torch.env.env import ACT_DIM, Drone2DEnv
-from drone2d_tpu_torch.env.types import EnvState, select_state
+from drone2d_tpu_torch.env.env import ACT_DIM, OBS_DIM, Drone2DEnv
+from drone2d_tpu_torch.env.types import EnvState, cat_states, select_state
 from drone2d_tpu_torch.models.policy import ActorCritic
 
 # how many steps run between the checks whether every episode has latched
@@ -78,8 +84,13 @@ def run_episodes_from(
     CHECK_EVERY steps the loop stops once every episode has latched; the
     steps it skips would only repeat the frozen positions, so the results
     equal a run to the cap.
+
+    A stack of A agents (`params.members`) flies N = A x n episodes, agent
+    a the n of rows [a n, (a + 1) n), and the results come back shaped
+    (A, n, ...).
     """
     T, N, dev = env.cfg.n_steps, obs.shape[0], obs.device
+    lead = (N,) if params is None or params.members is None else (params.members, -1)
     if (params is None or not deterministic) and (
             draws is None or tuple(draws.shape) != (T, N, ACT_DIM)):
         raise ValueError(f"this policy needs draws of shape {(T, N, ACT_DIM)}")
@@ -101,9 +112,11 @@ def run_episodes_from(
         if params is None:
             action = draws[t]
         elif deterministic:
-            action = params.deterministic_action(obs)
+            action = params.deterministic_action(obs.view(*lead, OBS_DIM)).reshape(N, ACT_DIM)
         else:
-            action = torch.clamp(params.sample_action(obs, noise=draws[t])[0], -1.0, 1.0)
+            action = params.sample_action(obs.view(*lead, OBS_DIM),
+                                          noise=draws[t].view(*lead, ACT_DIM))[0]
+            action = torch.clamp(action.reshape(N, ACT_DIM), -1.0, 1.0)
         out = env.step(state, action)
         info = out.info
         first = out.done & ~done
@@ -134,8 +147,8 @@ def run_episodes_from(
     time_steps = torch.where(timeout, T, time_steps)
     total_reward = torch.where(timeout, state.total_reward, total_reward)
 
-    def host(x):
-        return x.cpu().numpy()
+    def host(x):  # (A, n, ...) for a stack of agents
+        return x.cpu().numpy().reshape(*lead, *x.shape[1:])
 
     return EpisodeResults(
         success=host(success), fail=host(fail), collision=host(collision), ape=host(ape),
@@ -171,3 +184,54 @@ def run_episodes(
     else:
         draws = torch.randn(shape, generator=gen, device=env.device)
     return run_episodes_from(env, params, state, obs, draws, deterministic=deterministic)
+
+
+def run_episodes_multi(
+    cfg: EnvConfig,
+    params_stack: ActorCritic,
+    seed: int,
+    n_episodes: int,
+    *,
+    deterministic: bool = False,
+    global_step: float = 0.0,
+    same_episodes: bool = True,
+    device=None,
+) -> EpisodeResults:
+    """Evaluate a stack of A agents (`params_stack`, an ActorCritic whose
+    leaves carry a leading agent axis, `models/policy.stack_params`) on
+    n_episodes each, as one batch of A x n episodes: one env step and one
+    kernel launch a step for all of them.  Results have shape (A, n, ...).
+
+    With `same_episodes` every agent flies the same n episodes with the same
+    noise (a paired comparison): a generator seeded with `seed` on `device`
+    draws them as `run_episodes` does, and they are repeated A times, so
+    agent a's results are `run_episodes(cfg, agent a, seed, n)`'s.  Else the
+    generator draws A x n independent episodes and their noise.  The JAX
+    package's counterpart (`drone2d_tpu/eval/episode.py:164-204`) splits
+    threefry keys, whose streams differ: only the statistics compare."""
+    env = Drone2DEnv(cfg, device)
+    gen = torch.Generator(device=env.device).manual_seed(seed)
+    A, T = params_stack.members, cfg.n_steps
+    n = n_episodes if same_episodes else A * n_episodes
+    state, obs = env.reset_batch(gen, n, global_step)
+    draws = None if deterministic else torch.randn((T, n, ACT_DIM), generator=gen,
+                                                    device=env.device)
+    if same_episodes:
+        state, obs = cat_states([state] * A), obs.repeat(A, 1)
+        draws = None if draws is None else draws.repeat(1, A, 1)
+    return run_episodes_from(env, params_stack, state, obs, draws, deterministic=deterministic)
+
+
+def campaign_keys(seed: int, scenario: str, n_chunks: int) -> List[int]:
+    """The generator seeds of a chunked campaign: chunk c of `scenario`'s
+    campaign at `seed` runs from a generator seeded with the c-th of these.
+
+    Each is a deterministic function of (seed, crc32(scenario) % 2**30, c),
+    as the JAX package's keys are (`drone2d_tpu/eval/episode.py:207-220`):
+    the crc32 tag keeps scenarios' streams apart at one seed and is stable
+    across processes (unlike hash()), and more chunks extend a campaign
+    without reusing a seed.  Torch's generator is not threefry, so only the
+    statistics compare with the JAX package's campaigns."""
+    tag = zlib.crc32(scenario.encode()) % (1 << 30)
+    words = np.random.SeedSequence([seed, tag]).spawn(n_chunks)
+    return [int(w.generate_state(1, np.uint64)[0] >> np.uint64(1)) for w in words]

@@ -8,6 +8,11 @@ incremented before the bias correction, eps is added outside the square
 root, and optax's `eps_root` is 0.  Only the rounding order differs.  The
 clip is written out because `torch.nn.utils.clip_grad_norm_` scales by
 `max_norm / (norm + 1e-6)`, which optax does not.
+
+For a population (leaves with a leading member axis, `learn/zoo.py`) Adam is
+elementwise, so one Adam over the stacked leaves is S independent Adams with
+one shared step count, as `vmap(optax.adam)` is; the clip is taken per
+member (`clip_by_global_norm_(..., members=S)`).
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ def adam(params: Iterable[torch.nn.Parameter], lr: float) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=ADAM_EPS)
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         members: int | None = None) -> torch.Tensor:
     """`optax.clip_by_global_norm(max_norm)` in place on `grads`.
 
     With the global norm n = sqrt(sum of every leaf's squares), each leaf t
@@ -35,9 +41,24 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
     otherwise, with no epsilon.  The choice is made on the device, with no
     copy to the host: every leaf is divided by 1 or n and multiplied by 1
     or max_norm, and dividing or multiplying by 1 is exact.  Returns n.
+
+    With `members` S every leaf carries a leading member axis, and this is
+    `vmap(optax.clip_by_global_norm(max_norm))`: member m's norm is taken
+    over its slice of every leaf and clips that slice alone; returns the
+    (S,) norms.
     """
-    norm = torch.nn.utils.get_total_norm(grads, 2.0)
+    if members is None:
+        norm = torch.nn.utils.get_total_norm(grads, 2.0)
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.reshape(members, -1), dim=1) for g in grads]), dim=0)
     keep = norm < max_norm
-    torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
-    torch._foreach_mul_(grads, torch.where(keep, 1.0, max_norm))
+    div, mul = torch.where(keep, 1.0, norm), torch.where(keep, 1.0, max_norm)
+    if members is None:
+        torch._foreach_div_(grads, div)
+        torch._foreach_mul_(grads, mul)
+    else:
+        for g in grads:
+            shape = (members,) + (1,) * (g.dim() - 1)
+            g.div_(div.view(shape)).mul_(mul.view(shape))
     return norm

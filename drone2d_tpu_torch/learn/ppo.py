@@ -19,6 +19,12 @@ the (T, N, 2) standard-normal noise, `learn_from` the minibatch
 permutations, and `update_from` all three.  `rollout` and `update` draw them
 from the state's generator.  The parameters and the optimizer are updated
 in place.
+
+Every step past the draws also takes a population (`learn/zoo.py`): weights
+with a leading member axis S (`state.params.members`) over S blocks of
+`num_envs` envs, one kernel launch a rollout step for all of them, each
+member's minibatches cut from its own rows, its loss, clip and metrics its
+own.  A single learner is the case with no member axis.
 """
 
 from __future__ import annotations
@@ -57,7 +63,8 @@ _AUX_KEYS = ("policy_loss", "value_loss", "entropy", "clip_fraction", "approx_kl
 
 @dataclasses.dataclass
 class EpisodeStats:
-    """Sums over the episodes that finished during one rollout."""
+    """Sums over the episodes that finished during one rollout.  For a
+    population (`learn/zoo.py`) every field has a leading member axis S."""
 
     n_episodes: torch.Tensor        # () finished episodes
     sum_length: torch.Tensor        # () sum of final env_steps
@@ -85,8 +92,46 @@ class EpisodeStats:
             "collision_rate": self.n_collision / n,
         }
         for i, k in enumerate(_COMPONENT_KEYS):
-            out[f"avg_{k}"] = self.sum_components[i] / n
+            out[f"avg_{k}"] = self.sum_components[..., i] / n
         return out
+
+
+def episode_stats(dones: torch.Tensor, infos: Dict[str, torch.Tensor],
+                  families: torch.Tensor | None, members: int | None = None) -> EpisodeStats:
+    """The EpisodeStats of a rollout's (T, N) dones and final-step infos;
+    with `families` (T, N), each env's rehearsal family before its step,
+    the per-family counts.  With `members` S the N envs are S members' blocks
+    of N / S and every sum is taken per member."""
+    T = dones.shape[0]
+    d = dones.to(torch.float32)
+    f32 = dict(dtype=torch.float32, device=dones.device)
+    if members is None:
+        total = torch.sum
+    else:
+        def total(x):  # over the steps and the envs of each member
+            return x.reshape(T, members, -1).sum((0, 2))
+    S = 1 if members is None else members
+    family_counts = torch.zeros(S * N_FAMILIES, **f32)
+    family_wins = torch.zeros(S * N_FAMILIES, **f32)
+    if families is not None:
+        # whole-number sums below 2^24: exact in float32 in any order
+        owner = torch.arange(dones.shape[1], device=dones.device) // (dones.shape[1] // S)
+        fam = (families.long() + N_FAMILIES * owner).flatten()
+        family_counts.index_add_(0, fam, d.flatten())
+        family_wins.index_add_(0, fam, (infos["n_successful_runs"] * d).flatten())
+    shape = (N_FAMILIES,) if members is None else (members, N_FAMILIES)
+    return EpisodeStats(
+        n_episodes=total(d),
+        sum_length=total(infos["env_steps"] * d),
+        sum_total_reward=total(infos["total_reward"] * d),
+        sum_ape=total(infos["APE"] * d),
+        n_success=total(infos["n_successful_runs"] * d),
+        n_fail=total(infos["n_failed_runs"] * d),
+        n_collision=total(infos["n_collisions"] * d),
+        sum_components=torch.stack([total(infos[k] * d) for k in _COMPONENT_KEYS], dim=-1),
+        family_counts=family_counts.view(shape),
+        family_wins=family_wins.view(shape),
+    )
 
 
 @dataclasses.dataclass
@@ -129,6 +174,55 @@ class RolloutBatch:
     values: torch.Tensor     # (T, N)
     rewards: torch.Tensor    # (T, N)
     dones: torch.Tensor      # (T, N) bool
+
+
+@torch.no_grad()
+def collect_steps(params: ActorCritic, env: Drone2DEnv, env_state: EnvState,
+                  obs: torch.Tensor, reset_state: EnvState, reset_obs: torch.Tensor,
+                  noise: torch.Tensor):
+    """The T steps of a rollout over N envs: the policy sample (one kernel
+    launch a step on the card), the clipped action into the auto-resetting
+    env step against the template.  `noise` is (T, N, 2), or (T, S, N / S,
+    2) for a population `params` of S, whose member m drives envs
+    [m N / S, (m + 1) N / S).  Returns (env_state, obs, batch, infos,
+    families): the final-step infos of `_STAT_KEYS` and `_COMPONENT_KEYS`
+    (T, N), and each env's family before its step (T, N) under adaptive
+    rehearsal, else None."""
+    T, N = noise.shape[0], obs.shape[0]
+    dev = obs.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    batch = RolloutBatch(
+        obs=torch.empty((T, N, OBS_DIM), **f32),
+        actions=torch.empty((T, N, ACT_DIM), **f32),
+        log_probs=torch.empty((T, N), **f32),
+        values=torch.empty((T, N), **f32),
+        rewards=torch.empty((T, N), **f32),
+        dones=torch.empty((T, N), dtype=torch.bool, device=dev),
+    )
+    infos = {k: torch.empty((T, N), **f32) for k in _STAT_KEYS + _COMPONENT_KEYS}
+    families = (torch.empty((T, N), dtype=torch.int64, device=dev)
+                if env.cfg.adaptive_rehearsal else None)
+    lead = noise.shape[1:-1]  # (N,), or (S, N / S) for a population
+    for t in range(T):
+        # one launch for every member of a population
+        action, log_prob, value = params.sample_action(obs.reshape(*lead, OBS_DIM),
+                                                       noise=noise[t])
+        action, log_prob, value = action.reshape(N, ACT_DIM), log_prob.reshape(N), value.reshape(N)
+        out = env.step_batch_template(
+            env_state, torch.clamp(action, -1.0, 1.0), reset_state, reset_obs
+        )
+        batch.obs[t] = obs
+        batch.actions[t] = action
+        batch.log_probs[t] = log_prob
+        batch.values[t] = value
+        batch.rewards[t] = out.reward
+        batch.dones[t] = out.done
+        for k in infos:
+            infos[k][t] = out.info[k]
+        if families is not None:
+            families[t] = env_state.family
+        env_state, obs = out.state, out.obs
+    return env_state, obs, batch, infos, families
 
 
 class PPOLearner:
@@ -259,75 +353,30 @@ class PPOLearner:
         reset_obs: torch.Tensor,
         noise: torch.Tensor,
     ) -> Tuple[TrainState, RolloutBatch, torch.Tensor, EpisodeStats]:
-        """The rollout with its reset template and noise (T, N, 2) given.
-        Under adaptive rehearsal it counts finished episodes and wins per
-        family, reading each env's family before its step, so that an
-        auto-reset does not replace it."""
-        T, N, dev = self.cfg.n_steps, self.num_envs, self.device
-        if tuple(noise.shape) != (T, N, ACT_DIM):
-            raise ValueError(f"noise has shape {tuple(noise.shape)}, want {(T, N, ACT_DIM)}")
-        f32 = dict(dtype=torch.float32, device=dev)
-        batch = RolloutBatch(
-            obs=torch.empty((T, N, OBS_DIM), **f32),
-            actions=torch.empty((T, N, ACT_DIM), **f32),
-            log_probs=torch.empty((T, N), **f32),
-            values=torch.empty((T, N), **f32),
-            rewards=torch.empty((T, N), **f32),
-            dones=torch.empty((T, N), dtype=torch.bool, device=dev),
-        )
-        infos = {k: torch.empty((T, N), **f32) for k in _STAT_KEYS + _COMPONENT_KEYS}
-        adaptive = self.env.cfg.adaptive_rehearsal
-        if adaptive:
-            families = torch.empty((T, N), dtype=torch.int64, device=dev)
-
-        env_state, obs = state.env_state, state.obs
-        for t in range(T):
-            action, log_prob, value = state.params.sample_action(obs, noise=noise[t])
-            out = self.env.step_batch_template(
-                env_state, torch.clamp(action, -1.0, 1.0), reset_state, reset_obs
-            )
-            batch.obs[t] = obs
-            batch.actions[t] = action
-            batch.log_probs[t] = log_prob
-            batch.values[t] = value
-            batch.rewards[t] = out.reward
-            batch.dones[t] = out.done
-            for k in infos:
-                infos[k][t] = out.info[k]
-            if adaptive:
-                families[t] = env_state.family
-            env_state, obs = out.state, out.obs
-
-        d = batch.dones.to(torch.float32)
-        family_counts = torch.zeros(N_FAMILIES, **f32)
-        family_wins = torch.zeros(N_FAMILIES, **f32)
-        if adaptive:
-            # whole-number sums below 2^24: exact in float32 in any order
-            fam = families.flatten()
-            family_counts.index_add_(0, fam, d.flatten())
-            family_wins.index_add_(0, fam, (infos["n_successful_runs"] * d).flatten())
-        stats = EpisodeStats(
-            n_episodes=d.sum(),
-            sum_length=(infos["env_steps"] * d).sum(),
-            sum_total_reward=(infos["total_reward"] * d).sum(),
-            sum_ape=(infos["APE"] * d).sum(),
-            n_success=(infos["n_successful_runs"] * d).sum(),
-            n_fail=(infos["n_failed_runs"] * d).sum(),
-            n_collision=(infos["n_collisions"] * d).sum(),
-            sum_components=torch.stack([(infos[k] * d).sum() for k in _COMPONENT_KEYS]),
-            family_counts=family_counts,
-            family_wins=family_wins,
-        )
+        """The rollout with its reset template and noise (T, N, 2) given; a
+        population of S takes a template of S * N envs, member-major, and
+        noise (T, S, N, 2), and counts its episodes per member.  Under
+        adaptive rehearsal it counts finished episodes and wins per family,
+        reading each env's family before its step, so that an auto-reset
+        does not replace it."""
+        T, N, S = self.cfg.n_steps, self.num_envs, state.params.members
+        lead = (N,) if S is None else (S, N)
+        if tuple(noise.shape) != (T, *lead, ACT_DIM):
+            raise ValueError(f"noise has shape {tuple(noise.shape)}, want {(T, *lead, ACT_DIM)}")
+        f32 = dict(dtype=torch.float32, device=self.device)
+        env_state, obs, batch, infos, families = collect_steps(
+            state.params, self.env, state.env_state, state.obs, reset_state, reset_obs, noise)
+        stats = episode_stats(batch.dones, infos, families, members=S)
         # the kernel's value output with zero noise, so that nothing plain
         # runs on the card's path
         _, _, last_values = state.params.sample_action(
-            obs, noise=torch.zeros((N, ACT_DIM), **f32)
+            obs.view(*lead, OBS_DIM), noise=torch.zeros((*lead, ACT_DIM), **f32)
         )
         global_step = state.global_step + torch.tensor(float(T * N), **f32)
         new_state = dataclasses.replace(
             state, env_state=env_state, obs=obs, global_step=global_step
         )
-        return new_state, batch, last_values, stats
+        return new_state, batch, last_values.reshape(-1), stats
 
     # -- loss ----------------------------------------------------------------
 
@@ -341,28 +390,33 @@ class PPOLearner:
         returns: torch.Tensor,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The clipped-surrogate loss of one minibatch and its aux values
-        (`drone2d_tpu/learn/ppo.py:323-371`, one device)."""
+        (`drone2d_tpu/learn/ppo.py:323-371`, one device).  The minibatch is
+        (B, ...); a population's is (S, B, ...), each member's loss and aux
+        taken over its own B, shaped (S,)."""
         cfg = self.cfg
         log_prob, entropy, value = params.action_log_prob_entropy(obs, actions)
+
+        def mean(x, **kw):  # over the batch axis
+            return torch.mean(x, dim=-1, **kw)
 
         # per-minibatch advantage normalization (SB3 normalize_advantage),
         # two-pass with the population variance, as the JAX package writes
         # it (torch.std would divide by n - 1)
-        m = torch.mean(advantages)
-        var = torch.mean(torch.square(advantages - m))
+        m = mean(advantages, keepdim=True)
+        var = mean(torch.square(advantages - m), keepdim=True)
         adv = (advantages - m) / (torch.sqrt(var) + 1e-8)
 
         ratio = torch.exp(log_prob - old_log_probs)
         pg1 = adv * ratio
         pg2 = adv * torch.clamp(ratio, 1.0 - cfg.clip_range, 1.0 + cfg.clip_range)
-        pg_loss = -torch.mean(torch.minimum(pg1, pg2))
+        pg_loss = -mean(torch.minimum(pg1, pg2))
 
-        v_loss = torch.mean((returns - value) ** 2)
-        ent = torch.mean(entropy)
+        v_loss = mean((returns - value) ** 2)
+        ent = mean(entropy)
         loss = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * ent
 
-        clip_frac = torch.mean(((ratio - 1.0).abs() > cfg.clip_range).to(torch.float32))
-        approx_kl = torch.mean(old_log_probs - log_prob)
+        clip_frac = mean(((ratio - 1.0).abs() > cfg.clip_range).to(torch.float32))
+        approx_kl = mean(old_log_probs - log_prob)
         aux = dict(
             policy_loss=pg_loss,
             value_loss=v_loss,
@@ -398,43 +452,70 @@ class PPOLearner:
     ) -> Dict[str, torch.Tensor]:
         """The epochs x minibatches of clipped-surrogate steps, in place on
         `state.params` and `state.optimizer`, with the shuffles `perms` (see
-        `draw_perms`).  Returns the loss and aux values averaged over every
-        minibatch, as () tensors on the device."""
-        cfg, M, mb = self.cfg, self.cfg.num_minibatches, self.minibatch_size
+        `draw_perms`; (S, ...) for a population, one row of shuffles a
+        member).  Returns the loss and aux values averaged over every
+        minibatch, as () tensors on the device, (S,) for a population."""
+        cfg, M = self.cfg, self.cfg.num_minibatches
+        S = state.params.members
+        lead = () if S is None else (S,)
         n = cfg.n_steps if cfg.shuffle == "timeperm" else self.batch_size
-        if tuple(perms.shape) != (cfg.n_epochs, n):
-            raise ValueError(f"perms has shape {tuple(perms.shape)}, want {(cfg.n_epochs, n)}")
+        if tuple(perms.shape) != (*lead, cfg.n_epochs, n):
+            raise ValueError(f"perms has shape {tuple(perms.shape)}, "
+                             f"want {(*lead, cfg.n_epochs, n)}")
         perms = perms.to(device=self.device, dtype=torch.int64)
-        data = (batch.obs, batch.actions, batch.log_probs, advantages, returns)
-        flat = [x.reshape((self.batch_size,) + x.shape[2:]) for x in data]
         params, opt = state.params, state.optimizer
         leaves = list(params.parameters())
         # one row of (loss, *aux) a minibatch, averaged at the end
-        rows = torch.empty((cfg.n_epochs * M, 1 + len(_AUX_KEYS)), dtype=torch.float32,
+        rows = torch.empty((cfg.n_epochs * M, 1 + len(_AUX_KEYS), *lead), dtype=torch.float32,
                            device=self.device)
+        data = (batch.obs, batch.actions, batch.log_probs, advantages, returns)
+        for i, mb_data in enumerate(self._minibatches(data, perms, S)):
+            loss, aux = self.loss_fn(params, *mb_data)
+            opt.zero_grad(set_to_none=True)
+            # a population's members share no weight: the sum's gradient is
+            # each member's own
+            loss.sum().backward()
+            optim.clip_by_global_norm_([p.grad for p in leaves], cfg.max_grad_norm, members=S)
+            opt.step()
+            rows[i] = torch.stack([v.detach() for v in (loss, *map(aux.get, _AUX_KEYS))])
+        means = rows.mean(dim=0)
+        return {key: means[i] for i, key in enumerate(("loss",) + _AUX_KEYS)}
+
+    def _minibatches(self, data, perms: torch.Tensor, members: int | None):
+        """The minibatches of `sgd`, epoch by epoch: each a tuple of `data`'s
+        (T, N, ...) tensors cut to (mb, ...) rows, or, for a population over
+        (T, S * N), to (S, mb, ...), member m's rows cut from its own (T, N)
+        block by its own shuffles."""
+        cfg, M, mb = self.cfg, self.cfg.num_minibatches, self.minibatch_size
+        lead = () if members is None else (members,)
+        if members is None:
+            def take(x, index):
+                return x.index_select(0, index)
+        else:
+            S, T, N = members, cfg.n_steps, self.num_envs
+            # each member's (T, N) block: (S, T, N, ...)
+            data = [x.reshape(T, S, N, *x.shape[2:]).transpose(0, 1) for x in data]
+            member = torch.arange(S, device=self.device)[:, None]
+
+            def take(x, index):
+                return x[member, index]
+        if cfg.shuffle != "timeperm":
+            # time-major rows (T * N, ...), a copy for a population
+            data = [x.flatten(len(lead), len(lead) + 1) for x in data]
         for e in range(cfg.n_epochs):
             if cfg.shuffle == "timeperm":
                 # permute whole timesteps, then slice: minibatch k holds
                 # n_steps/M permuted timesteps x all envs, time-major, as
                 # the JAX package's x[perm].reshape((M, mb, ...)) does
-                xs = [x.index_select(0, perms[e]).reshape((M, mb) + x.shape[2:])
-                      for x in data]
-                minibatches = (tuple(x[k] for x in xs) for k in range(M))
+                xs = [take(x, perms[..., e, :]).reshape(*lead, M, mb, *x.shape[len(lead) + 2:])
+                      .movedim(len(lead), 0) for x in data]
+                yield from (tuple(x[k] for x in xs) for k in range(M))
             else:
                 # gather each minibatch by its indices; a shuffled copy of
                 # the batch an epoch would move the same bytes and write more
-                idx = perms[e].view(M, mb)
-                minibatches = (tuple(x.index_select(0, idx[k]) for x in flat)
-                               for k in range(M))
-            for k, mb_data in enumerate(minibatches):
-                loss, aux = self.loss_fn(params, *mb_data)
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-                optim.clip_by_global_norm_([p.grad for p in leaves], cfg.max_grad_norm)
-                opt.step()
-                rows[e * M + k] = torch.stack([v.detach() for v in (loss, *map(aux.get, _AUX_KEYS))])
-        means = rows.mean(dim=0)
-        return {key: means[i] for i, key in enumerate(("loss",) + _AUX_KEYS)}
+                idx = perms[..., e, :].view(*lead, M, mb).movedim(len(lead), 0)
+                for k in range(M):
+                    yield tuple(take(x, idx[k]) for x in data)
 
     def learn_from(
         self,
@@ -452,11 +533,15 @@ class PPOLearner:
         )
         return self.sgd(state, batch, advantages, returns, perms)
 
+    def draws(self, state: TrainState):
+        """An update's draws from the state's generator, as `update_from`
+        takes them: the rollout's reset template (state, obs) and noise,
+        then the shuffles."""
+        return (*self._rollout_draws(state), self.draw_perms(state.generator))
+
     def update(self, state: TrainState) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One PPO iteration with the draws made from the state's generator:
-        the rollout's reset template and noise, then the shuffles."""
-        draws = self._rollout_draws(state)
-        return self.update_from(state, *draws, self.draw_perms(state.generator))
+        """One PPO iteration with the draws made from the state's generator."""
+        return self.update_from(state, *self.draws(state))
 
     def update_from(
         self,
@@ -468,7 +553,8 @@ class PPOLearner:
     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One PPO iteration with its draws given.  Returns (state',
         metrics): the keys of the JAX package's metrics
-        (`learn/ppo.py:468-478`), as () tensors on the device."""
+        (`learn/ppo.py:468-478`), as () tensors on the device, (S,) for a
+        population."""
         state, batch, last_values, stats = self.rollout_from(state, reset_state, reset_obs, noise)
         metrics = self.learn_from(state, batch, last_values, perms)
         episodes_total = state.episodes_total + stats.n_episodes

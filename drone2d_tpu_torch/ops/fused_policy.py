@@ -23,6 +23,12 @@ actor-critic, and a CUDA tensor through the kernel, which takes two hidden
 layers of one width H (a multiple of 8 from 8 to 256), obs_dim up to 32
 and two actions, and raises `NotImplementedError` on any other
 architecture.  There is no fallback between the two.
+
+A population (an `ActorCritic` whose leaves carry a leading member axis S,
+`models/policy.stack_params`) takes obs (S, N, obs_dim) and noise (S, N, 2)
+in one launch: the kernel runs member a on grid row a, and each member's
+outputs are bit-equal to its own unstacked launch.  The JAX package has no
+such kernel: its zoo vmaps plain `sample_action`.
 """
 
 from __future__ import annotations
@@ -40,7 +46,12 @@ MAX_HIDDEN, MAX_OBS_DIM = 256, 32  # the kernel's limits (H a multiple of 8)
 
 
 def fused_sample_action_ref(params, obs: torch.Tensor, noise: torch.Tensor):
-    """The plain PyTorch version: (action (B, act_dim), log_prob (B,), value (B,))."""
+    """The plain PyTorch version: (action (B, act_dim), log_prob (B,), value (B,)).
+    A population is sampled member by member, each exactly as unstacked."""
+    if params.members is not None:
+        outs = [fused_sample_action_ref(params.member(i), obs[i], noise[i])
+                for i in range(params.members)]
+        return tuple(torch.stack(o) for o in zip(*outs))
     mean, log_std, value = params.policy_value(obs)
     action = mean + torch.exp(log_std) * noise
     log_prob = torch.sum(-0.5 * (noise**2 + _LOG_2PI) - log_std, dim=-1)
@@ -54,20 +65,25 @@ def _library():
     lib = ctypes.CDLL(str(cuda_build.build("fused_policy")["path"]))
     fn = lib.fused_sample_action_launch
     fn.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_void_p] * 18
+        [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 18
     )
     fn.restype = ctypes.c_int
     return fn
 
 
+# the leaves the kernel reads with __ldg, a float at a time: 4-byte
+# alignment is enough (a member's slice of them is 4 or 8 bytes long); the
+# kernel copies every other leaf in bulk, from 16-byte aligned addresses
+_SCALAR_LEAVES = ("pi_out/b", "vf_out/b", "log_std")
+
+
 def _kernel_operands(params):
     """The kernel's weight operands, checked.  Raises NotImplementedError
     for an architecture the kernel does not take, ValueError for operands
-    it cannot read (dtype, layout, alignment of the bulk copies)."""
-    hidden = tuple(layer.w.shape[1] for layer in params.pi)
-    vf_hidden = tuple(layer.w.shape[1] for layer in params.vf)
-    obs_dim, act_dim = params.pi[0].w.shape[0], params.log_std.shape[0]
+    it cannot read (dtype, layout, alignment)."""
+    hidden = tuple(layer.w.shape[-1] for layer in params.pi)
+    vf_hidden = tuple(layer.w.shape[-1] for layer in params.vf)
+    obs_dim, act_dim = params.pi[0].w.shape[-2], params.log_std.shape[-1]
     h = hidden[0] if hidden else 0
     if not (len(hidden) == 2 and hidden[1] == h and vf_hidden == hidden
             and h % 8 == 0 and 8 <= h <= MAX_HIDDEN
@@ -88,8 +104,9 @@ def _kernel_operands(params):
     for name, t in weights.items():
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned for the kernel's bulk copies")
+        align = 4 if name in _SCALAR_LEAVES else 16
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned for the kernel")
     return obs_dim, h, [t.detach() for t in weights.values()]
 
 
@@ -97,19 +114,24 @@ def fused_sample_action(
     params, obs: torch.Tensor, noise: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(action (B, act_dim), log_prob (B,), value (B,)) for obs (B, obs_dim)
-    and standard-normal noise (B, act_dim); forward only (no gradient).
+    and standard-normal noise (B, act_dim); forward only (no gradient).  A
+    population of S takes obs (S, N, obs_dim) and noise (S, N, act_dim) and
+    returns ((S, N, act_dim), (S, N), (S, N)).
 
     A CPU `obs` goes through `fused_sample_action_ref`, for any actor-critic;
     a CUDA `obs` launches the kernel or raises (NotImplementedError for an
     architecture the kernel does not take).  `fused_sample_action.launches`
-    counts the kernel launches.
+    counts the kernel launches: one a call, whatever S.
     """
-    obs_dim, act_dim = params.pi[0].w.shape[0], params.log_std.shape[0]
-    if obs.dim() != 2 or obs.shape[1] != obs_dim:
-        raise ValueError(f"obs has shape {tuple(obs.shape)}, want (B, {obs_dim})")
-    B = obs.shape[0]
-    if tuple(noise.shape) != (B, act_dim):
-        raise ValueError(f"noise has shape {tuple(noise.shape)}, want ({B}, {act_dim})")
+    obs_dim, act_dim = params.pi[0].w.shape[-2], params.log_std.shape[-1]
+    lead = () if params.members is None else (params.members,)
+    if obs.dim() != 2 + len(lead) or tuple(obs.shape[:len(lead)]) != lead \
+            or obs.shape[-1] != obs_dim:
+        want = ", ".join(map(str, lead + ("B", obs_dim)))
+        raise ValueError(f"obs has shape {tuple(obs.shape)}, want ({want})")
+    B = obs.shape[-2]
+    if tuple(noise.shape) != lead + (B, act_dim):
+        raise ValueError(f"noise has shape {tuple(noise.shape)}, want {lead + (B, act_dim)}")
     for name, t in (("obs", obs), ("noise", noise)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
@@ -126,13 +148,14 @@ def fused_sample_action(
     obs_dim, h, weights = _kernel_operands(params)
     if noise.data_ptr() % 8:
         raise ValueError("noise must be 8-byte aligned: the kernel reads a row as a float2")
-    action = torch.empty((B, 2), dtype=torch.float32, device=obs.device)
-    logp = torch.empty((B,), dtype=torch.float32, device=obs.device)
-    value = torch.empty((B,), dtype=torch.float32, device=obs.device)
+    action = torch.empty(lead + (B, 2), dtype=torch.float32, device=obs.device)
+    logp = torch.empty(lead + (B,), dtype=torch.float32, device=obs.device)
+    value = torch.empty(lead + (B,), dtype=torch.float32, device=obs.device)
     with torch.cuda.device(obs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library()(
-            obs.data_ptr(), B, obs_dim, h, *(t.data_ptr() for t in weights),
+            obs.data_ptr(), B, lead[0] if lead else 1, obs_dim, h,
+            *(t.data_ptr() for t in weights),
             noise.data_ptr(), action.data_ptr(), logp.data_ptr(), value.data_ptr(), stream,
         )
     if err != 0:

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 import time
 
 import numpy as np
@@ -36,9 +35,10 @@ from drone2d_tpu_torch.config import (
     apply_preset,
 )
 from drone2d_tpu_torch.env.types import FAMILY_NAMES
+from drone2d_tpu_torch.eval.run import load_params
 from drone2d_tpu_torch.learn.plr import family_report, reweight_rehearsal
 from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState
-from drone2d_tpu_torch.models.policy import flat_dict_to_params, params_to_flat_dict
+from drone2d_tpu_torch.models.policy import params_to_flat_dict
 from drone2d_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from drone2d_tpu_torch.utils.metrics import MetricsWriter
 
@@ -80,10 +80,10 @@ def build_parser(*, suppress: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true", help="resume from latest checkpoint")
     p.add_argument("--max-updates", type=int, default=0, help="stop after N updates (0 = by timesteps)")
     p.add_argument(
-        "--init-params", default=None, metavar="NPZ",
-        help="warm-start: initialize policy params from a saved agent .npz "
-        "with a FRESH optimizer, env batch, and global_step. Unlike --resume, "
-        "nothing else is restored.",
+        "--init-params", default=None, metavar="NPZ_OR_CKPT_DIR",
+        help="warm-start: initialize policy params from a saved agent (.npz "
+        "or the port's checkpoint dir) with a FRESH optimizer, env batch, and "
+        "global_step. Unlike --resume, nothing else is restored.",
     )
     p.add_argument(
         "--device", default=None, choices=("cuda", "cpu"),
@@ -110,13 +110,12 @@ def parse_args(argv=None):
 
 
 def load_agent(path: str, ppo_cfg: PPOConfig, device):
-    """Params of an agent `.npz` (the flat naming of either package)."""
-    if os.path.isdir(path):
-        raise ValueError(
-            f"{path!r} is a directory: orbax checkpoints are the JAX package's; "
-            "pass an agent .npz"
-        )
-    params = flat_dict_to_params(dict(np.load(path)), device=device)
+    """Params of an agent `.npz` (the flat naming of either package) or of
+    the port's checkpoint directory (its latest `ckpt_<step>.pt`), through
+    `eval.run.load_params`, as the JAX package's train CLI loads its own."""
+    params = load_params(path, device=device)
+    if params is None:
+        raise ValueError("a warm start needs an agent, not 'random'")
     hidden = tuple(layer.w.shape[1] for layer in params.pi)
     if hidden != tuple(ppo_cfg.hidden_sizes):
         raise ValueError(f"{path!r} has hidden sizes {hidden}, the run {ppo_cfg.hidden_sizes}")

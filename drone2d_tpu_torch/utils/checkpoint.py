@@ -2,12 +2,20 @@
 `drone2d_tpu/utils/checkpoint.py`, which uses orbax).
 
 A checkpoint is one file, `ckpt_<global_step>.pt`, holding the params'
-state_dict, the optimizer's state_dict, the generator's state,
-`global_step`, `episodes_total` and the PLR fields (`rehearsal_probs`,
-`family_counts`, `family_wins`).  The curriculum clock IS `global_step`,
-so resume is exact.  Env state is not saved, as in the JAX package: restore
-resets the envs at the restored step from the restored generator.  The
-last KEEP checkpoints are kept (orbax's `max_to_keep=5`).
+state_dict, the optimizer's state_dict, the generator's state with its
+device type and a 64-bit seed drawn from it, `global_step`,
+`episodes_total` and the PLR fields (`rehearsal_probs`, `family_counts`,
+`family_wins`).  The curriculum clock IS `global_step`, so resume is exact.
+Env state is not saved, as in the JAX package: restore resets the envs at
+the restored step from the restored generator.  The last KEEP checkpoints
+are kept (orbax's `max_to_keep=5`).
+
+A generator's state has one format a device type (the CPU's is 5056 bytes,
+CUDA's 16), and neither takes the other's.  A resume on the device type
+that saved restores the state, so it continues the saved stream exactly.
+On the other type it seeds a fresh generator from the stored seed: a
+resumed run, but on another stream (the JAX package's raw key data restores
+on any backend, `drone2d_tpu/utils/checkpoint.py:43-45`).
 """
 
 from __future__ import annotations
@@ -45,10 +53,17 @@ def save_checkpoint(directory: str, state: TrainState) -> int:
     file, then renamed) and drop all but the newest KEEP.  Returns the
     step."""
     step = int(float(state.global_step))
+    gen = state.generator
+    # the seed comes from a copy: saving leaves the run's stream as it is
+    twin = torch.Generator(device=gen.device)
+    twin.set_state(gen.get_state())
+    seed = int(torch.randint(0, 2**63 - 1, (), generator=twin, device=gen.device))
     payload = dict(
         params=state.params.state_dict(),
         optimizer=state.optimizer.state_dict(),
-        generator=state.generator.get_state(),
+        generator=gen.get_state(),
+        generator_device=gen.device.type,
+        generator_seed=seed,
         global_step=step,
         episodes_total=int(float(state.episodes_total)),
         **{k: getattr(state, k).detach().cpu() for k in _PLR_FIELDS},
@@ -66,15 +81,31 @@ def restore_checkpoint(directory: str, learner: PPOLearner) -> Tuple[TrainState,
     """A runnable TrainState from the latest checkpoint, with its envs reset
     at the restored global_step (from the restored rehearsal probabilities
     under adaptive rehearsal).  A checkpoint without the PLR fields restores
-    the initial probabilities and zero counts."""
+    the initial probabilities and zero counts.  On another device type than
+    the one that saved it, the generator is seeded from the stored seed; a
+    checkpoint without one (written before the seed was stored) raises."""
     steps = checkpoint_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {directory!r}")
-    payload = torch.load(_path(directory, steps[-1]), map_location="cpu", weights_only=True)
+    path = _path(directory, steps[-1])
+    payload = torch.load(path, map_location="cpu", weights_only=True)
     params = ActorCritic(OBS_DIM, ACT_DIM, learner.cfg.hidden_sizes, device=learner.device)
     params.load_state_dict(payload["params"])
     gen = torch.Generator(device=learner.device)
-    gen.set_state(payload["generator"])
+    # checkpoints from before the device type was stored: a CUDA generator's
+    # state is its 8-byte seed and 8-byte offset
+    saved_on = payload.get("generator_device",
+                           "cuda" if payload["generator"].numel() == 16 else "cpu")
+    if saved_on == gen.device.type:
+        gen.set_state(payload["generator"])
+    elif "generator_seed" in payload:
+        gen.manual_seed(payload["generator_seed"])
+        print(f"resume on {gen.device.type} from a {saved_on} checkpoint: the generator is "
+              f"seeded from the stored seed, so the draws leave the saved stream")
+    else:
+        raise ValueError(
+            f"{path} holds a {saved_on} generator state and no seed (it predates "
+            f"cross-device resume): resume it on a {saved_on} device")
     state = learner.start(gen, params, float(payload["global_step"]),
                           float(payload["episodes_total"]), payload.get("rehearsal_probs"))
     if "family_counts" in payload:

@@ -2,9 +2,11 @@
 plain PyTorch version at every padded width and at ragged batches, on the
 flagship agent's weights, counted, refused on mixed devices, and refused
 (NotImplementedError) for an architecture it does not take; it reads the
-weights an optimizer step has just updated.  The PPO update and the eval
-runner on the card against the same on the CPU; the adaptive rehearsal reset
-and its rollout's family accounting on the card.
+weights an optimizer step has just updated; with the agent axis, each
+member's outputs are bit-equal to its own unstacked launch.  The PPO update,
+a population's update and the eval runner on the card against the same on
+the CPU; the adaptive rehearsal reset and its rollout's family accounting on
+the card; a checkpoint written on the card resumes on the CPU.
 
 These need an NVIDIA GPU and nvcc, and skip without one.  This file imports
 no JAX, so on a machine with the card and without JAX it runs alone:
@@ -25,13 +27,17 @@ from drone2d_tpu_torch.eval.episode import run_episodes_from
 from drone2d_tpu_torch.eval.run import scenario_config
 from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.ppo import PPOLearner
-from drone2d_tpu_torch.models.policy import ActorCritic, flat_dict_to_params
+from drone2d_tpu_torch.learn.zoo import ZooTrainer, assemble
+from drone2d_tpu_torch.models.policy import ActorCritic, flat_dict_to_params, stack_params
+from drone2d_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from drone2d_tpu_torch.ops.fused_policy import fused_sample_action, fused_sample_action_ref
 
 pytestmark = pytest.mark.cuda
 
 AGENT = os.path.join(os.path.dirname(__file__), "..", "artifacts", "agent_s8004",
                      "new_agent.npz")
+AGENTS = [os.path.join(os.path.dirname(__file__), "..", "artifacts", f"agent_s{s}",
+                       "new_agent.npz") for s in (8004, 22307, 6006)]
 
 
 @pytest.fixture
@@ -239,3 +245,105 @@ def test_adaptive_reset_and_family_counts_on_card(dev):
     _, _, _, stats = small.rollout(small.init(0))
     assert float(stats.family_counts.sum()) == float(stats.n_episodes) > 0
     assert float(stats.family_wins.sum()) == float(stats.n_success)
+
+
+@pytest.mark.parametrize("hidden, n", [(64, 200), (128, 1000), (128, 33)])
+def test_stacked_kernel_slices_equal_unstacked_launches(dev, hidden, n):
+    """One launch for 3 members: each member's outputs bit-equal to its own
+    unstacked launch on views of its weights (member 1's b_mean, b_value
+    and log_std views are not 16-byte aligned, and are accepted), and to
+    the plain version within the kernel's tolerance; one launch counted."""
+    gen = torch.Generator().manual_seed(hidden + n)
+    members = []
+    for _ in range(3):
+        p = ActorCritic(27, 2, (hidden, hidden), generator=gen, device=dev)
+        with torch.no_grad():
+            for leaf in p.parameters():
+                leaf.add_(0.1 * torch.randn(leaf.shape, generator=gen).to(dev))
+        members.append(p)
+    stack = stack_params(members)
+    obs = torch.randn(3, n, 27, generator=gen).to(dev)
+    noise = torch.randn(3, n, 2, generator=gen).to(dev)
+    before = fused_sample_action.launches
+    got = fused_sample_action(stack, obs, noise)
+    assert fused_sample_action.launches == before + 1
+    view = stack.member(1)
+    assert view.pi_out.b.data_ptr() % 16 and view.log_std.data_ptr() % 16
+    for i in range(3):
+        alone = fused_sample_action(stack.member(i), obs[i], noise[i])
+        for g, a in zip(got, alone):
+            assert torch.equal(g[i], a)
+    _check(stack, obs, noise)
+
+
+def _zoo_on(dev, start, draws):
+    """The population update on `dev` from the CPU-made state and draws."""
+    trainer = ZooTrainer(EnvConfig(), PPOConfig(n_steps=8, num_minibatches=4, n_epochs=2,
+                                                shuffle="timeperm", hidden_sizes=(128, 128)),
+                         64, device=dev)
+    params = stack_params([p.to(dev) for p in (start.params.member(i) for i in range(3))])
+    state = dataclasses.replace(
+        start, params=params, optimizer=optim.adam(params.parameters(), 3e-4),
+        env_state=_to(start.env_state, dev), obs=start.obs.to(dev),
+        **{k: getattr(start, k).to(dev) for k in ("global_step", "episodes_total",
+                                                  "rehearsal_probs", "family_counts",
+                                                  "family_wins")})
+    reset_state, reset_obs, noise, perms = draws
+    before = fused_sample_action.launches
+    new, metrics = trainer.update_from(state, _to(reset_state, dev), reset_obs.to(dev),
+                                       noise.to(dev), perms.to(dev))
+    return new, {k: v.cpu() for k, v in metrics.items()}, fused_sample_action.launches - before
+
+
+def test_population_update_on_card_matches_cpu(dev):
+    """Three 128-128 agents as one population at curriculum stage 5 (64 envs
+    each, 8 steps, 4 x 2 SGD, timeperm), the same CPU-made state and draws on
+    the card and on the CPU: the kernel launched n_steps + 1 times on the
+    card; loss and aux to 1e-5 of max(|v|, 1), the episode counts equal,
+    each weight to 1e-3 of the lr x SGD-steps budget plus 4 float32 ulps
+    (the bounds of test_learn_from_on_card_matches_cpu)."""
+    cpu = ZooTrainer(EnvConfig(), PPOConfig(n_steps=8, num_minibatches=4, n_epochs=2,
+                                            shuffle="timeperm", hidden_sizes=(128, 128)),
+                     64, device="cpu")
+    members = [PPOLearner.init(cpu, i, params=flat_dict_to_params(dict(np.load(a)), device="cpu"),
+                               global_step=3e6) for i, a in enumerate(AGENTS)]
+    # every other env 1..6 steps from the cap, so that episodes end inside
+    # the rollout (these agents fly ~500-step episodes)
+    cap, i = EnvConfig().n_steps, torch.arange(64)
+    t = torch.where(i % 2 == 0, cap - 1 - i % 6, 0).to(torch.int32)
+    start = assemble([dataclasses.replace(m, env_state=dataclasses.replace(m.env_state, t=t))
+                      for m in members], 3e-4)
+    draws = cpu.draws(start)
+    pc, mc, launches_cpu = _zoo_on("cpu", start, draws)
+    pg, mg, launches = _zoo_on(dev, start, draws)
+    assert launches_cpu == 0 and launches == 8 + 1
+    for k in ("loss", "policy_loss", "value_loss", "entropy", "clip_fraction", "approx_kl"):
+        assert bool(((mg[k] - mc[k]).abs() <= 1e-5 * mc[k].abs().clamp(min=1.0)).all()), k
+    assert torch.equal(mg["episodes/episodes"], mc["episodes/episodes"])
+    assert float(mc["episodes/episodes"].sum()) > 0
+    budget = 1e-3 * 3e-4 * 2 * 4
+    for g, c in zip(pg.params.parameters(), pc.params.parameters()):
+        g, c = g.detach().cpu().double(), c.detach().double()
+        assert bool(((g - c).abs() <= budget + 4 * 2.0**-23 * c.abs()).all())
+
+
+def test_checkpoint_from_card_resumes_on_cpu(dev, tmp_path, capsys):
+    """A checkpoint written on the card restores on the card with the saved
+    generator state (its envs reset from the saved stream, as `start` resets
+    them), and on the CPU from the stored seed."""
+    ppo = PPOConfig(n_steps=8, num_minibatches=4, n_epochs=2)
+    card = PPOLearner(EnvConfig(), ppo, 16, device=dev)
+    state = card.init(0)
+    saved = state.generator.get_state()
+    save_checkpoint(str(tmp_path), state)
+    again, _ = restore_checkpoint(str(tmp_path), card)
+    twin = torch.Generator(device=dev)
+    twin.set_state(saved)
+    want = card.start(twin, again.params)
+    assert torch.equal(again.generator.get_state(), twin.get_state())
+    assert torch.equal(again.obs, want.obs)
+    host, step = restore_checkpoint(str(tmp_path), PPOLearner(EnvConfig(), ppo, 16,
+                                                               device="cpu"))
+    assert step == 0 and "seeded from the stored seed" in capsys.readouterr().out
+    for a, b in zip(host.params.parameters(), state.params.parameters()):
+        assert torch.equal(a, b.cpu())

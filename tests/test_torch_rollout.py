@@ -200,9 +200,10 @@ def test_package_imports_no_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
     loaded = set(proc.stdout.split())
     assert len(loaded) >= 20
-    for name in ("train", "learn.ppo", "learn.optim", "learn.plr", "utils.checkpoint",
-                 "utils.metrics", "utils.runtime", "utils.host_path", "eval.episode",
-                 "eval.artifacts", "eval.run"):
+    for name in ("train", "learn.ppo", "learn.optim", "learn.plr", "learn.zoo",
+                 "utils.checkpoint", "utils.metrics", "utils.runtime", "utils.host_path",
+                 "eval.episode", "eval.artifacts", "eval.run", "eval.barplots",
+                 "scripts.sweep", "scripts.select_agents"):
         assert f"drone2d_tpu_torch.{name}" in loaded, name
 
 
@@ -214,6 +215,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     from drone2d_tpu_torch.env.env import Drone2DEnv
     from drone2d_tpu_torch.models.policy import ActorCritic, flat_dict_to_params
     from drone2d_tpu_torch.eval.run import main as eval_main
+    from drone2d_tpu_torch.learn.zoo import ZooTrainer
+    from drone2d_tpu_torch.scripts import select_agents, sweep
     from drone2d_tpu_torch.train import main as train_main
     from drone2d_tpu_torch.utils.runtime import wait_for_accelerator
 
@@ -227,6 +230,9 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
                  lambda: train_main([*argv, "--device", "cuda"]),
                  lambda: eval_main(["--agent", AGENT, "--episodes", "2", "--no-gif",
                                     "--out-root", os.devnull]),
+                 lambda: ZooTrainer(EnvConfig(), PPOConfig(), 4),
+                 lambda: sweep.main(["--out", os.devnull, "--vmap", "2", "--seeds", "1", "2"]),
+                 lambda: select_agents.main([os.path.dirname(AGENT), "--episodes", "2"]),
                  wait_for_accelerator):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()

@@ -19,7 +19,7 @@ from drone2d_tpu_torch.compat.from_jax import params_to_flat
 from drone2d_tpu_torch.config import EnvConfig, PPOConfig, TrainConfig
 from drone2d_tpu_torch.learn.ppo import PPOLearner
 from drone2d_tpu_torch.models.policy import flat_dict_to_params
-from drone2d_tpu_torch.train import main, parse_args, train
+from drone2d_tpu_torch.train import load_agent, main, parse_args, train
 from drone2d_tpu_torch.utils.checkpoint import (
     checkpoint_steps,
     restore_checkpoint,
@@ -87,12 +87,95 @@ def test_train_warm_start_from_npz(tmp_path):
     for k in a:
         diff = float(np.abs(a[k] - b[k]).max())
         assert 0.0 < diff < 0.1 or k.endswith("/b"), (k, diff)
-    with pytest.raises(ValueError, match="orbax"):
-        main(_argv(ft, "--init-params", base))  # a directory: JAX's format
+    # the port's checkpoint directory: its latest checkpoint, the final agent
+    main(_argv(str(tmp_path / "ft_dir"), "--total-timesteps", "64", "--init-params", base))
+    assert _rows(f"{tmp_path}/ft_dir/metrics.jsonl")[-1]["global_step"] == 64
     with pytest.raises(ValueError, match="hidden sizes"):
         train(TrainConfig(num_envs=8, checkpoint_dir=ft), EnvConfig(**SMALL_ENV),
               PPOConfig(**SMALL_PPO, hidden_sizes=(32, 32)),
               init_params=f"{base}/new_agent.npz", device="cpu")
+
+
+def test_init_params_takes_a_checkpoint_directory(tmp_path, capsys):
+    """--init-params <the port's checkpoint dir> warm-starts from its latest
+    checkpoint (as the JAX package's takes its orbax directory), with a
+    fresh optimizer, envs and global_step; 'random' is refused."""
+    base, ft = str(tmp_path / "base"), str(tmp_path / "ft")
+    main(_argv(base, "--total-timesteps", "128"))
+    assert checkpoint_steps(base) == [64, 128]
+    capsys.readouterr()
+    state = train(TrainConfig(num_envs=8, checkpoint_dir=ft, metrics_path=f"{ft}/m.jsonl",
+                              checkpoint_every_steps=64),
+                  EnvConfig(**SMALL_ENV), PPOConfig(**SMALL_PPO), max_updates=1,
+                  init_params=base, device="cpu")
+    assert f"warm-started params from {base}" in capsys.readouterr().out
+    start = load_agent(base, PPOConfig(**SMALL_PPO), "cpu")
+    final = dict(np.load(f"{base}/new_agent.npz"))
+    for k, v in params_to_flat(start).items():
+        np.testing.assert_array_equal(v, final[k])
+    assert float(state.global_step) == 64
+    assert all(float(s["step"]) == 8 for s in state.optimizer.state.values())
+    for k, v in params_to_flat(state.params).items():
+        assert 0.0 < float(np.abs(v - final[k]).max()) < 0.1 or k.endswith("/b"), k
+    with pytest.raises(ValueError, match="random"):
+        load_agent("random", PPOConfig(**SMALL_PPO), "cpu")
+
+
+def test_same_device_resume_is_exact(tmp_path):
+    """Saving draws the stored seed from a copy of the generator, so the run
+    goes on with its stream untouched; a restore on the same device type
+    sets the saved state, so its envs are reset by exactly the draws the
+    live generator would make next."""
+    learner = _small_learner()
+    state, _ = learner.update(learner.init(0))
+    before = state.generator.get_state().clone()
+    d = str(tmp_path / "ckpt")
+    save_checkpoint(d, state)
+    assert torch.equal(state.generator.get_state(), before)
+    restored, _ = restore_checkpoint(d, learner)
+    gen = torch.Generator()
+    gen.set_state(before)
+    want = learner.start(gen, state.params, 64.0)
+    torch.testing.assert_close(restored.obs, want.obs, rtol=0, atol=0)
+    assert torch.equal(restored.generator.get_state(), gen.get_state())
+
+
+def test_card_checkpoint_resumes_on_cpu(tmp_path, capsys):
+    """A checkpoint holding a CUDA generator's state (16 bytes, which the
+    CPU generator refuses) resumes on the CPU from the stored seed, and
+    says so; one from before the seed was stored raises a clear error
+    there, while a CPU one of that age still restores on the CPU."""
+    learner = _small_learner()
+    state, _ = learner.update(learner.init(0))
+    d = str(tmp_path / "ckpt")
+    save_checkpoint(d, state)
+    path = f"{d}/ckpt_64.pt"
+    payload = torch.load(path, weights_only=True)
+    cpu_state = payload["generator"]
+    assert payload["generator_device"] == "cpu" and 0 <= payload["generator_seed"] < 2**63
+    with pytest.raises(RuntimeError):
+        torch.Generator().set_state(torch.zeros(16, dtype=torch.uint8))
+    payload.update(generator=torch.arange(16, dtype=torch.uint8), generator_device="cuda")
+    torch.save(payload, path)
+    capsys.readouterr()
+    restored, step = restore_checkpoint(d, learner)
+    assert step == 64 and "seeded from the stored seed" in capsys.readouterr().out
+    gen = torch.Generator().manual_seed(payload["generator_seed"])
+    want = learner.start(gen, state.params, 64.0)
+    torch.testing.assert_close(restored.obs, want.obs, rtol=0, atol=0)
+    for a, b in zip(restored.params.parameters(), state.params.parameters()):
+        assert torch.equal(a, b)
+    _, m = learner.update(restored)
+    assert np.isfinite(float(m["loss"]))
+
+    del payload["generator_seed"], payload["generator_device"]
+    torch.save(payload, path)
+    with pytest.raises(ValueError, match="resume it on a cuda device"):
+        restore_checkpoint(d, learner)
+    payload["generator"] = cpu_state
+    torch.save(payload, path)
+    old, _ = restore_checkpoint(d, learner)
+    assert float(old.global_step) == 64
 
 
 def test_checkpoint_roundtrip(tmp_path):
