@@ -16,21 +16,27 @@ and the selection of its 16 candidates through
 `drone2d_tpu_torch.scripts.select_agents`; the flagship-finetune recipe
 (adaptive rehearsal) warm-started from agent_s6006, 2 updates as
 published, then 6 with the corridor and crossing-wall mixes at 0.04 and the
-PLR controller on, then 1 after a resume; agent_s8004's eval campaign on 3
-scenarios through `drone2d_tpu_torch.eval.run.evaluate`; and two stacked
+PLR controller on, then 1 after a resume; agent_s8004's eval campaign on
+stage_2 through `drone2d_tpu_torch.eval.run.evaluate`; the reference's own
+surface: an SB3 zip imported onto the card, the vector env core at 1024
+envs (256 steps through the kernel), the gym env at B=1 (200 steps), the
+graft entry's fresh-draw step (`step_batch`, 256 envs x 128 steps) and the
+initial throw; agent_s8004 on `parallel_boxes` x 1000; and two stacked
 12-scenario campaigns through `eval.episode.run_episodes_multi`: s8004 +
 s22307 at 1000 episodes each, the four imported reference agents at 200.
 It checks that the paths launched the kernels and that their outputs are
-right (an update and an eval batch on the card against the same on the
-CPU, 129 launches an update for one seed or for 8, finite losses, moved
-and distinct weights, finished episodes, the rehearsal families'
-frequencies and walls, the controller's budget, each success rate against
-the committed campaigns and the conformance report by a two-proportion
-z-test, files on disk), times each phase, the updates by layer (a
-population's in turn with one seed's) and a campaign step, and prints one
-JSON line of kernel measurements and, last, one JSON status line.  Any
-failure raises, so the exit code is 0 only when every phase passed.  Needs
-CUDA; imports no JAX.
+right (an update, an eval batch and the vector env on the card against the
+same on the CPU, 129 launches an update for one seed or for 8, finite
+losses, moved and distinct weights, finished episodes, the NEXT_STEP reset
+rows, fresh episodes after each end, the rehearsal families' frequencies
+and walls, the controller's budget, each success rate against the
+committed campaigns, the JAX package's and the conformance report by a
+two-proportion z-test, files on disk), times each phase, the updates by
+layer (a population's in turn with one seed's) and a campaign step, and
+prints one JSON line of kernel measurements and, last, one JSON status
+line.  Any failure raises, so the exit code is 0 only when every phase
+passed.  Needs CUDA; imports no JAX, and needs no gymnasium, pygame,
+imageio or matplotlib.
 """
 
 from __future__ import annotations
@@ -41,9 +47,11 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -52,16 +60,25 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from drone2d_tpu_torch.compat import make as make_gym_env
+from drone2d_tpu_torch.compat.sb3_import import load_sb3_agent, save_sb3_zip, torch_policy_value
+from drone2d_tpu_torch.compat.sb3_import import load_sb3_state_dict
+from drone2d_tpu_torch.compat.vector_env import VectorEnvCore
 from drone2d_tpu_torch.config import ALL_SCENARIOS, EnvConfig, PPOConfig
 from drone2d_tpu_torch.env.env import Drone2DEnv, _observe, _rewards_and_done
 from drone2d_tpu_torch.env.types import FAMILY_NAMES, select_state
-from drone2d_tpu_torch.eval.episode import run_episodes_from, run_episodes_multi
+from drone2d_tpu_torch.eval.episode import run_episodes, run_episodes_from, run_episodes_multi
 from drone2d_tpu_torch.eval.run import evaluate, scenario_config
 from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.gae import compute_gae
 from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState, collect_steps
 from drone2d_tpu_torch.learn.zoo import ZooTrainer
-from drone2d_tpu_torch.models.policy import ActorCritic, flat_dict_to_params, stack_params
+from drone2d_tpu_torch.models.policy import (
+    ActorCritic,
+    flat_dict_to_params,
+    params_to_flat_dict,
+    stack_params,
+)
 from drone2d_tpu_torch.ops import cuda_build, geometry, physics
 from drone2d_tpu_torch.ops.fused_policy import fused_sample_action, fused_sample_action_ref
 from drone2d_tpu_torch.scripts import select_agents, sweep
@@ -96,8 +113,11 @@ PLR_UPDATES = 6
 WALL_MIX = 0.04
 EVAL_EPISODES = 1000
 # the one-agent campaign through eval.run.evaluate, cut to one scenario:
-# agent_s8004's whole 12-scenario parity comes from the stacked campaign
-CAMPAIGN_SCENARIOS = ("corridor",)
+# agent_s8004's whole 12-scenario parity comes from the stacked campaign.
+# A stage scenario, for which evaluate draws no overlay PNG (a spatial one
+# would need pygame on this machine); the stacked campaign flies the
+# spatial ones and writes no files
+CAMPAIGN_SCENARIOS = ("stage_2",)
 # rollout steps under the profiler, for the device ops and busy share a step
 PROFILE_STEPS = 16
 # a scenario's success rate against the committed campaign's: |z| <= Z_MAX
@@ -115,6 +135,20 @@ SHIPPED = ("s8004", "s22307", "s6006", "s5004")
 IMPORTED = tuple(f"agent_{k}_90" for k in (17, 19, 20, 21))
 IMPORTED_EPISODES = 200
 CONFORMANCE = ROOT / "artifacts" / "conformance" / "report.json"
+# the reference's own surface: the vector env (VEC_ENVS envs at stage 5,
+# VEC_STEPS steps, templates drawn every VEC_REFRESH), the single gym env
+# (GYM_STEPS steps at B = 1, agent_17_90), the graft entry's step (GRAFT_ENVS
+# envs, the fresh draw per reset, GRAFT_STEPS steps) and the initial throw
+# (NUM_ENVS envs)
+IMPORTED_17 = ROOT / "artifacts" / "imported" / "agent_17_90.npz"
+VEC_ENVS, VEC_STEPS, VEC_REFRESH, VEC_CHECK_STEPS = 1024, 256, 128, 64
+GYM_STEPS = 200
+GRAFT_ENVS, GRAFT_STEPS = 256, 128
+# agent_s8004 on parallel_boxes: the JAX package's success rate over 1000
+# stochastic episodes (seed 0), computed on the CPU by
+# drone2d_tpu.eval.episode.run_episodes(scenario_config("parallel_boxes"),
+# agent_s8004, PRNGKey(0), 1000): 1000 successes, 0 collisions
+BOXES_EPISODES, JAX_BOXES_SR, JAX_BOXES_N = 1000, 1.0, 1000
 
 
 def log(*args):
@@ -175,6 +209,13 @@ def phase_device():
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    # information only: the port's card paths need none of these (the
+    # renderer and gymnasium's spaces import them where they are used)
+    found = {m: subprocess.run([sys.executable, "-c", f"import {m}"], capture_output=True,
+                               env={**os.environ, "PYGAME_HIDE_SUPPORT_PROMPT": "1"}
+                               ).returncode == 0
+             for m in ("gymnasium", "pygame", "imageio", "matplotlib")}
+    log("optional packages importable: " + ", ".join(f"{m} {ok}" for m, ok in found.items()))
 
 
 def phase_build():
@@ -224,20 +265,24 @@ def phase_kernel_vs_plain() -> dict:
         params.log_std.copy_(torch.tensor([-0.3, 0.2]))  # exercises exp/affine
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def check(p, b, label):
-        obs = torch.randn(b, 27, generator=gen, device=dev)
-        noise = torch.randn(b, 2, generator=gen, device=dev)
-        got = fused_sample_action(p, obs, noise)
+    def check(p, b, label, launches=1):
+        """`launches` calls at batch b, their outputs held together."""
+        obs = torch.randn(launches, b, 27, generator=gen, device=dev)
+        noise = torch.randn(launches, b, 2, generator=gen, device=dev)
+        got = [torch.cat(x) for x in zip(*(fused_sample_action(p, o, n)
+                                          for o, n in zip(obs, noise)))]
         torch.cuda.synchronize()
         with torch.no_grad():
-            want = fused_sample_action_ref(p, obs, noise)
+            want = fused_sample_action_ref(p, obs.flatten(0, 1), noise.flatten(0, 1))
+        obs, noise = obs[0], noise[0]
         errs = {k: scaled_err(g, w) for k, g, w in zip(("action", "logp", "value"), got, want)}
         abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         log(f"  {label}: max_abs_err {abs_err:.3e}, scaled "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
         bad = {k: v for k, v in errs.items() if v > TOL}
-        if bad:
-            raise AssertionError(f"fused_sample_action disagrees with plain ({label}): {bad}")
+        if bad or not torch.equal(got[1], want[1]):
+            raise AssertionError(f"fused_sample_action disagrees with plain ({label}): {bad}, "
+                                 f"log-prob equal {torch.equal(got[1], want[1])}")
         return obs, noise, abs_err
 
     log(f"kernel vs plain (tolerance: |d| <= {TOL} * max(1, max |plain|)):")
@@ -247,6 +292,17 @@ def phase_kernel_vs_plain() -> dict:
     check(load_agent(dev), EVAL_EPISODES, f"B={EVAL_EPISODES} H=128 agent_s8004 (eval path)")
     check(flat_dict_to_params(dict(np.load(FINETUNE_AGENT)), device=dev), 1024,
           "B=1024 H=128 agent_s6006 (fine-tune path)")
+    # the gym env's single env (agent_17_90, 64-64) and the graft entry's step
+    agent17 = flat_dict_to_params(dict(np.load(IMPORTED_17)), device=dev)
+    # B=1: 64 single-row launches held together, the scale over their 64
+    # outputs, as every other shape's is over its batch.  One row alone can
+    # put its value near 0 while its 64 value-head terms are ~12 each (this
+    # agent's critic), where float32 itself, the plain version's too, rounds
+    # beyond 1e-5 of that one value
+    obs1, noise1, _ = check(agent17, 1, "B=1 x 64 launches H=64 agent_17_90 (gym env path)",
+                            launches=64)
+    obs256, noise256, _ = check(graft_agent(dev), GRAFT_ENVS,
+                                f"B={GRAFT_ENVS} H=128 fresh 128-128 (graft step path)")
     widths = {h: ActorCritic(27, 2, (h, h), generator=torch.Generator().manual_seed(h),
                              device=dev) for h in (32, 64, 96, 256)}
     for h, p in widths.items():
@@ -270,6 +326,8 @@ def phase_kernel_vs_plain() -> dict:
     ms_1k, plain_ms_1k, bound_1k, by_ops_1k, t_tc_1k = times(
         params, obs[:1024], noise[:1024], 128)  # the training path's batch
     ms, plain_ms, bound, by_ops, t_tc = times(params, obs, noise, 128)
+    extra = {"b1_h64": times(agent17, obs1, noise1, 64),
+             f"b{GRAFT_ENVS}": times(graft_agent(dev), obs256, noise256, 128)}
     log("  library_ms: null (no single PyTorch call computes this function: "
         "two MLP trunks, two heads and the Gaussian sample)")
     return {
@@ -289,12 +347,21 @@ def phase_kernel_vs_plain() -> dict:
         "b1024": {"ms": ms_1k, "plain_ms": plain_ms_1k, "bound_ms": bound_1k,
                   "bound_by": "operations" if by_ops_1k else "bytes",
                   "bound_tc_ms": t_tc_1k, "library_ms": None},
+        # the gym env's B=1 (H=64) and the graft step's B=256 (H=128)
+        **{key: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
+                 "bound_by": "operations" if t[3] else "bytes", "bound_tc_ms": t[4],
+                 "library_ms": None} for key, t in extra.items()},
     }
 
 
 def shipped_agent(name: str, device):
     return flat_dict_to_params(dict(np.load(ROOT / "artifacts" / f"agent_{name}" /
                                             "new_agent.npz")), device=device)
+
+
+def graft_agent(device):
+    """The graft entry's policy: a fresh 128-128 actor-critic (seed 0)."""
+    return ActorCritic(27, 2, HIDDEN, generator=torch.Generator().manual_seed(0), device=device)
 
 
 def imported_agent(name: str, device):
@@ -412,7 +479,7 @@ def phase_reference():
 def _to(x, dev):
     if dataclasses.is_dataclass(x):
         return type(x)(**{f.name: _to(getattr(x, f.name), dev) for f in dataclasses.fields(x)})
-    return x.to(dev)
+    return None if x is None else x.to(dev)
 
 
 def phase_breakdown(learner, state):
@@ -995,9 +1062,10 @@ def phase_eval_reference():
     tests/test_torch_eval.py holds the port against the JAX package.  A
     quarter of the episodes start 5 px from their target (a reach-end on
     the first step) and a quarter, where they have one, on their first
-    obstacle's center (a collision), so that the latch sees every end."""
+    obstacle's center (a collision), so that the latch sees every end; in
+    parallel_boxes that center is a box's, so the box geometry ends them."""
     n, cap = 512, 64
-    for scen in ("S_corridor", "stage_5"):
+    for scen in ("S_corridor", "stage_5", "parallel_boxes"):
         cfg = scenario_config(scen).replace(n_steps=cap)
         gen = torch.Generator().manual_seed(7)
         state, obs = Drone2DEnv(cfg, device="cpu").reset_batch(gen, n)
@@ -1326,6 +1394,262 @@ def phase_imported_campaign(kernel_row: dict):
     kernel_row["launches_by_path"]["imported_eval"] = launches
 
 
+def _synced(fn):
+    """Host ms of fn(), synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+# the closest point's bearing (obs columns 25-26) turns a shift of the
+# closest point by d px by d / |cp - pos| radians, large where the drone
+# sits on the path: those columns get that conditioning on top of the 1e-4
+# (CP_SHIFT_PX of shift, the bound tests/test_torch_env.py holds the port
+# to against the JAX package)
+CP_SHIFT_PX = 0.1
+
+
+def _check_equal_steps(label, got, want):
+    """Vector-env step outputs (obs, reward, terminated, truncated, info) of
+    the card against the CPU's: flags exact, floats to 1e-4 of scale, the
+    bearing columns 25-26 with their conditioning (CP_SHIFT_PX)."""
+    obs, wobs = np.asarray(got[0], np.float64), np.asarray(want[0], np.float64)
+    errs = {"obs": scaled_err(torch.as_tensor(obs[:, :25]), torch.as_tensor(wobs[:, :25])),
+            "reward": scaled_err(torch.as_tensor(got[1]), torch.as_tensor(want[1]))}
+    half_w, half_h = EnvConfig().screensize_x / 2, EnvConfig().screensize_y / 2  # obs -> px
+    dist = np.hypot((wobs[:, 19] - wobs[:, 6]) * half_w, (wobs[:, 20] - wobs[:, 7]) * half_h)
+    allowed = 1e-4 + CP_SHIFT_PX / np.maximum(dist, 1e-6)
+    errs["bearing / allowed"] = float((np.abs(obs[:, 25:27] - wobs[:, 25:27])
+                                       / allowed[:, None]).max() * 1e-4)
+    for k, g, w in zip(("terminated", "truncated"), got[2:4], want[2:4]):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"{label}: {k} differs between the card and the CPU")
+    if max(errs.values()) > 1e-4:
+        raise AssertionError(f"{label}: the card and the CPU disagree: {errs}")
+    return errs
+
+
+def phase_compat(kernel_row: dict):
+    """The reference's own surface on the card.  (1) An SB3 zip written from
+    agent_17_90.npz imports onto the card with every leaf bit-equal, and
+    the kernel's mean and value at B=VEC_ENVS match `torch_policy_value`.
+    (2) The vector env core: VEC_ENVS curriculum envs at stage 5 driven by
+    agent_s8004 through `sample_action` for VEC_STEPS steps, templates every
+    VEC_REFRESH; one kernel launch a step; the NEXT_STEP rule on the rows
+    that end; env steps a second with the host copies against the same
+    steps kept on the card; then VEC_CHECK_STEPS steps of the core on the
+    card against the CPU from CPU-made state, templates and actions.
+    (3) Drone2dGymEnv at B=1, GYM_STEPS steps of agent_17_90 through the
+    kernel.  (4) The graft entry's step: `sample_action` + `step_batch` at
+    GRAFT_ENVS envs for GRAFT_STEPS steps, every ended env restarting at
+    t = 0 on a fresh path of its own; ms a step against
+    `step_batch_template`.  (5) The initial throw: the reset at NUM_ENVS
+    envs on the card, and `_initial_motion` on the card against the CPU
+    from the same body and draws."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    # (1) SB3 import
+    flat = dict(np.load(IMPORTED_17))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sb3_") as d:
+        path = f"{d}/PFCA_see_3_obs_17_90.zip"
+        save_sb3_zip(flat, path)
+        sd = load_sb3_state_dict(path)
+        agent17 = load_sb3_agent(path)
+    leaves = params_to_flat_dict(agent17)
+    same = sorted(leaves) == sorted(flat) and all(np.array_equal(leaves[k], v)
+                                                  for k, v in flat.items())
+    obs = torch.randn(VEC_ENVS, 27, generator=gen, device=dev)
+    mean, _, value = fused_sample_action(agent17, obs, torch.zeros(VEC_ENVS, 2, device=dev))
+    mean_ref, value_ref = torch_policy_value(sd, obs.cpu().numpy())
+    errs = {"mean": scaled_err(mean.cpu(), torch.as_tensor(mean_ref)),
+            "value": scaled_err(value.cpu(), torch.as_tensor(value_ref))}
+    log(f"sb3 import onto the card ({path.rsplit('/', 1)[1]} from {IMPORTED_17.name}): leaves "
+        f"bit-equal to the .npz: {same}; kernel at B={VEC_ENVS} against torch_policy_value, "
+        f"scaled errors " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if not same or max(errs.values()) > TOL:
+        raise AssertionError(f"sb3 import: leaves equal {same}, errors {errs}")
+
+    # (2) the vector env core, driven by the flagship through the kernel
+    params = load_agent(dev)
+    core = VectorEnvCore(VEC_ENVS, seed=3, global_step=int(START_STEP),
+                         template_refresh_steps=VEC_REFRESH)
+    obs_np, _ = core.reset()
+    torch.cuda.synchronize()
+    fused_sample_action.launches = 0
+    t0 = time.perf_counter()
+    pending, checked, ended = np.zeros(0, np.int64), 0, 0
+    for t in range(VEC_STEPS):
+        with torch.no_grad():
+            a = params.sample_action(torch.as_tensor(obs_np, device=dev), gen)[0]
+        obs_np, reward, terminated, truncated, infos = core.step(a.clamp(-1, 1).cpu().numpy())
+        if len(pending):  # the rows that ended on the last step reset now
+            tmpl_obs = core._templates[1][pending].cpu().numpy()
+            if ((reward[pending] != 0).any() or (terminated | truncated)[pending].any()
+                    or not np.array_equal(obs_np[pending], tmpl_obs)
+                    or infos["_APE"][pending].any()):
+                raise AssertionError(f"vector env step {t}: the NEXT_STEP reset rows are wrong")
+            checked += len(pending)
+        pending = np.flatnonzero(terminated | truncated)
+        ended += len(pending)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = fused_sample_action.launches
+    # the same steps kept on the card: the policy and the template step
+    state, tmpl = core._state, core._templates
+    obs_d = torch.as_tensor(obs_np, device=dev)
+
+    def on_card():
+        with torch.no_grad():
+            act = params.sample_action(obs_d, gen)[0].clamp(-1, 1)
+            core._env.step_batch_template(state, act, *tmpl)
+
+    card_ms = statistics.median(_synced(on_card) for _ in range(11))
+    log(f"vector env core: {VEC_ENVS} envs at stage 5 x {VEC_STEPS} steps (templates every "
+        f"{VEC_REFRESH}), agent_s8004 through sample_action: {dt:.3f} s, "
+        f"{VEC_ENVS * VEC_STEPS / dt:.1f} env steps a second with the host copies "
+        f"({1e3 * dt / VEC_STEPS:.3f} ms a step) against {card_ms:.3f} ms a step kept on the "
+        f"card (host clock, synchronized, median of 11); {ended} ends, the next step of "
+        f"{checked} reset rows checked (reward 0, not done, the template's obs, info masked); "
+        f"kernel launches {launches}")
+    if launches != VEC_STEPS or checked == 0:
+        raise AssertionError(f"vector env: {launches} launches, {checked} reset rows checked")
+
+    # the core on the card against the CPU from the same CPU-made inputs
+    cpu_env = Drone2DEnv(EnvConfig(), device="cpu")
+    g = torch.Generator().manual_seed(8)
+    start, _ = cpu_env.reset_batch(g, VEC_ENVS, START_STEP)
+    templates = cpu_env.reset_batch(g, VEC_ENVS, START_STEP)
+    actions = torch.randn((VEC_CHECK_STEPS, VEC_ENVS, 2), generator=g).clamp(-1, 1).numpy()
+    runs = {}
+    for d in ("cpu", "cuda"):
+        c = VectorEnvCore(VEC_ENVS, global_step=int(START_STEP), device=d,
+                          template_refresh_steps=10**9)
+        c.start_from(_to(start, d), (_to(templates[0], d), templates[1].to(d)))
+        runs[d] = [c.step(a) for a in actions]
+    worst = {"obs": 0.0, "reward": 0.0, "bearing / allowed": 0.0}
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        for k, v in _check_equal_steps("vector env", got, want).items():
+            worst[k] = max(worst[k], v)
+    ends = sum(int((w[2] | w[3]).sum()) for w in runs["cpu"])
+    log(f"  vector env on the card vs the CPU, {VEC_ENVS} envs x {VEC_CHECK_STEPS} steps from "
+        f"CPU-made state, templates and actions: terminated and truncated equal ({ends} ends); "
+        f"scaled errors (obs: columns 0-24; bearing 25-26 as a share of its bound x 1e-4) "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    if ends == 0:
+        raise AssertionError("vector env check: no env ended")
+
+    # (3) the single gym env, B = 1
+    env = make_gym_env("corridor", seed=4)
+    obs_np = env.reset()
+    fused_sample_action.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    episodes = 0
+    for _ in range(GYM_STEPS):
+        with torch.no_grad():
+            a = agent17.sample_action(torch.as_tensor(obs_np, device=dev)[None], gen)[0]
+        obs_np, reward, done, info = env.step(a[0].clamp(-1, 1).cpu().numpy())
+        if done:
+            episodes += 1
+            obs_np = env.reset()
+    dt = time.perf_counter() - t0
+    gym_launches = fused_sample_action.launches
+    log(f"gym env (Drone2dGymEnv, corridor) at B=1, agent_17_90 through sample_action: "
+        f"{GYM_STEPS} steps in {dt:.3f} s, {GYM_STEPS / dt:.1f} steps a second, {episodes} "
+        f"episodes ended; kernel launches {gym_launches}")
+    if gym_launches != GYM_STEPS or not np.isfinite(obs_np).all():
+        raise AssertionError(f"gym env: {gym_launches} launches")
+
+    # (4) the graft entry's step: the fresh draw per reset, at its shapes
+    # (a fresh 128-128 actor-critic, curriculum stage 1), whose random
+    # thrusts end episodes within tens of steps
+    env, graft = Drone2DEnv(EnvConfig()), graft_agent(dev)
+    state, obs = env.reset_batch(gen, GRAFT_ENVS, 0.0)
+    fused_sample_action.launches = 0
+    restarted = 0
+    for _ in range(GRAFT_STEPS):
+        with torch.no_grad():
+            a = graft.sample_action(obs, gen)[0].clamp(-1, 1)
+        first = state.path.wps[:, 0]
+        out = env.step_batch(state, a, gen, 0.0)
+        done = out.done
+        if bool(done.any()):
+            new = out.state.path.wps[done, 0]
+            if (bool((out.state.t[done] != 0).any()) or bool((new == first[done]).all(1).any())
+                    or len(torch.unique(new, dim=0)) != int(done.sum())):
+                raise AssertionError("graft step: an ended env did not restart on a fresh path")
+            restarted += int(done.sum())
+        state, obs = out.state, out.obs
+    graft_launches = fused_sample_action.launches
+    tmpl = env.reset_batch(gen, GRAFT_ENVS, 0.0)
+    times = {"step_batch": [], "step_batch_template": []}
+    for _ in range(11):  # in turn, so that the host's drift falls on both
+        times["step_batch"].append(_synced(lambda: env.step_batch(state, a, gen, 0.0)))
+        times["step_batch_template"].append(
+            _synced(lambda: env.step_batch_template(state, a, *tmpl)))
+    ms = {k: statistics.median(v[1:]) for k, v in times.items()}
+    log(f"graft step: sample_action + step_batch at {GRAFT_ENVS} envs (a fresh 128-128, "
+        f"stage 1) x "
+        f"{GRAFT_STEPS} steps: {restarted} ended envs, each restarted at t = 0 on a fresh path "
+        f"of its own; kernel launches {graft_launches}; ms a step (host clock, synchronized, "
+        f"median of 10): step_batch {ms['step_batch']:.3f}, step_batch_template "
+        f"{ms['step_batch_template']:.3f} ({ms['step_batch'] / ms['step_batch_template']:.1f}x)")
+    if graft_launches != GRAFT_STEPS or restarted == 0:
+        raise AssertionError(f"graft step: {graft_launches} launches, {restarted} restarts")
+
+    # (5) the initial throw
+    throw_cfg = EnvConfig(initial_motion_enabled=True)
+    env = Drone2DEnv(throw_cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, obs = env.reset_batch(gen, NUM_ENVS, START_STEP)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not bool(torch.isfinite(obs).all()) or bool((state.body.omega == 0).any()):
+        raise AssertionError("initial throw: non-finite obs or an env not thrown")
+    cpu_env = Drone2DEnv(throw_cfg, device="cpu")
+    g = torch.Generator().manual_seed(9)
+    body = Drone2DEnv(EnvConfig(), device="cpu").reset_batch(g, NUM_ENVS, START_STEP)[0].body
+    draws = cpu_env.throw_draws(g, NUM_ENVS)
+    want = cpu_env._initial_motion(body, draws)
+    got = env._initial_motion(_to(body, "cuda"), tuple(x.to(dev) for x in draws))
+    errs = {k: scaled_err(getattr(got, k).cpu(), getattr(want, k))
+            for k in ("pos", "vel", "angle", "omega")}
+    log(f"initial throw: reset of {NUM_ENVS} envs with the throw on the card in {dt:.3f} s, "
+        f"every env thrown; _initial_motion on the card vs the CPU from the same body and "
+        f"draws, scaled errors " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if max(errs.values()) > TOL:
+        raise AssertionError(f"initial throw: the card and the CPU disagree: {errs}")
+    kernel_row["launches_by_path"].update(
+        {"vector_env": launches, "gym_env": gym_launches, "graft_step": graft_launches})
+
+
+def phase_boxes(kernel_row: dict):
+    """agent_s8004 flies parallel_boxes, BOXES_EPISODES stochastic episodes
+    (seed 0) on the card; its success rate against the JAX package's by
+    |z| <= Z_MAX: the box geometry at campaign level."""
+    params = load_agent("cuda")
+    torch.cuda.synchronize()
+    fused_sample_action.launches = 0
+    t0 = time.perf_counter()
+    res = run_episodes(scenario_config("parallel_boxes"), params, 0, BOXES_EPISODES)
+    dt = time.perf_counter() - t0
+    launches = fused_sample_action.launches
+    n = max(int(res.success.sum() + res.fail.sum()), 1)
+    sr = float(res.success.sum()) / n
+    z = _z(sr, JAX_BOXES_SR, n, JAX_BOXES_N)
+    log(f"boxes: agent_s8004 on parallel_boxes, {BOXES_EPISODES} stochastic episodes: SR "
+        f"{sr:.4f} (JAX {JAX_BOXES_SR:.4f}, n {JAX_BOXES_N}, z {z:+.2f}), collisions "
+        f"{int(res.collision.sum())}, APE {res.ape.mean():.2f}, flight time "
+        f"{res.time_steps.mean():.1f}; {dt:.2f} s; kernel launches {launches}")
+    if abs(z) > Z_MAX or launches <= 0:
+        raise AssertionError(f"parallel_boxes: SR {sr} against the JAX package's, z {z}")
+    kernel_row["launches_by_path"]["boxes"] = launches
+
+
 def main():
     seconds = {}
 
@@ -1354,6 +1678,8 @@ def main():
     timed("finetune_timing", phase_finetune_timing, learner, state)
     timed("eval_reference", phase_eval_reference)
     timed("eval_breakdown", phase_eval_breakdown)
+    timed("compat", phase_compat, row)
+    timed("boxes", phase_boxes, row)
     timed("campaign", phase_campaign, row)
     timed("stacked_campaign", phase_stacked_campaign, row)
     timed("imported_campaign", phase_imported_campaign, row)

@@ -5,9 +5,10 @@ Agents load from the `.npz` naming of `drone2d_tpu/models/policy.py`
 (`params_to_flat_dict`), and an `EnvState` maps leaf for leaf: the JAX
 package's batched state, with each leaf turned into a numpy array, becomes
 the port's state with the same padded shapes (`max_wps`, `max_obs`, the
-path table) and int32 `t` and `family`.  optax's Adam state maps into the
-port's `torch.optim.Adam` (`opt_state_from_numpy`), and a whole learner
-state, PLR fields included, into the port's `TrainState`
+path table) and int32 `t` and `family`; the box obstacles' `half_wh` comes
+across where it is set and stays None where it is not.  optax's Adam state
+maps into the port's `torch.optim.Adam` (`opt_state_from_numpy`), and a
+whole learner state, PLR fields included, into the port's `TrainState`
 (`train_state_from_numpy`), and a whole population of the JAX package's
 zoo into the port's `ZooState` (`zoo_state_from_numpy`).  Nothing here
 imports JAX: every direction goes through numpy.
@@ -66,11 +67,11 @@ def env_state_from_numpy(tree, device=None) -> EnvState:
     """The JAX package's batched EnvState (leaves as numpy arrays, or the
     flat dict `flatten_fields` makes of it) -> the port's EnvState."""
     flat = dict(tree) if isinstance(tree, Mapping) else flatten_fields(tree)
-    if "obstacles.half_wh" in flat:
-        raise ValueError("box obstacles (half_wh) are not ported")
     dev = resolve_device(device)
 
     def leaf(name):
+        if name == "obstacles.half_wh" and name not in flat:
+            return None  # circles only
         a = np.asarray(flat[name])
         dtype = torch.int32 if name in _INT_LEAVES else (
             torch.bool if a.dtype == bool else torch.float32)

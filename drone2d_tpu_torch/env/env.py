@@ -4,7 +4,8 @@ Counterpart of `drone2d_tpu/env/env.py` (reference `drone_2d_env.py`,
 class Drone2dEnv).  Every function takes and returns the whole env batch:
 what the JAX package writes per env under `vmap` is written here with the
 env dimension N in front.  Auto-reset is a masked select to a reset template
-that the learner builds once per rollout.
+that the learner builds once per rollout (`step_batch_template`), or a
+fresh draw of the whole reset batch every step (`step_batch`).
 """
 
 from __future__ import annotations
@@ -55,10 +56,14 @@ def _observe(
         body.pos, alpha, cfg.drone_width / 2, cfg.drone_height / 4
     )
     obs_x, obs_y = obstacles.xy[..., 0], obstacles.xy[..., 1]
-    ddx = verts[:, :, 0:1] - obs_x[:, None, :]
-    ddy = verts[:, :, 1:2] - obs_y[:, None, :]
-    vdist = torch.sqrt(ddx * ddx + ddy * ddy) - obstacles.r[:, None, :]
-    d_all = vdist.min(dim=1).values
+    if obstacles.half_wh is None:  # circles only
+        ddx = verts[:, :, 0:1] - obs_x[:, None, :]
+        ddy = verts[:, :, 1:2] - obs_y[:, None, :]
+        vdist = torch.sqrt(ddx * ddx + ddy * ddy) - obstacles.r[:, None, :]
+        d_all = vdist.min(dim=1).values
+    else:
+        d_all = geometry.vertex_rounded_box_distances(
+            verts, obstacles.xy, obstacles.half_wh, obstacles.r)
     inf = torch.full_like(d_all, math.inf)
     remaining = torch.where(obstacles.mask, d_all, inf)
     n_obs = obstacles.mask.sum(dim=1)
@@ -237,9 +242,10 @@ class Drone2DEnv:
     Both modes of the JAX package: `curriculum` (random paths and the
     stage schedule, with the static stage, corridor and crossing-wall
     rehearsal mixes and the adaptive family draw) and `test` (one of the
-    spatial benchmark scenarios, its path and obstacles built once here).
-    The initial throw and the box obstacles of `parallel_boxes` raise
-    NotImplementedError.
+    spatial benchmark scenarios, its path and obstacles built once here,
+    the box obstacles of `parallel_boxes` included).  With
+    `initial_motion_enabled` a reset ends with the initial throw and the
+    settle steps.
     """
 
     def __init__(self, cfg: EnvConfig, device=None):
@@ -251,8 +257,6 @@ class Drone2DEnv:
                 "(stage_k scenarios run under mode='curriculum', as in the "
                 "reference: drone_2d_env.py:76-77, 326-372)"
             )
-        if cfg.initial_motion_enabled:
-            raise NotImplementedError("the initial throw (initial_motion_enabled) is not ported")
         if len(set(cfg.stage_mix_weights)) > 1 and not cfg.adaptive_rehearsal:
             # as the JAX learner checks (learn/ppo.py initial_rehearsal_probs):
             # the static mix draws its stage uniformly
@@ -281,6 +285,8 @@ class Drone2DEnv:
                 xy=torch.tensor(geo.obs_xy, device=dev)[None],
                 r=torch.tensor(geo.obs_r, device=dev)[None],
                 mask=torch.tensor(geo.obs_mask, device=dev)[None],
+                half_wh=None if geo.obs_half_wh is None
+                else torch.tensor(geo.obs_half_wh, device=dev)[None],
             )
             self._spawn_rect = tuple(float(v) for v in geo.spawn_rect)
 
@@ -306,8 +312,10 @@ class Drone2DEnv:
           with that probability (the crossing wall wins when both fire).
         Corridor and crossing-wall episodes start at the path start.  The
         env's `family` records what it drew (0 = scheduled, 1..5 a stage,
-        6 corridor, 7 cross).  Every mix draws only when it is on, so the
-        generator's stream with every mix off is unchanged.
+        6 corridor, 7 cross).  With `initial_motion_enabled` the body then
+        takes the initial throw (`throw_draws`, `_initial_motion`) before
+        the first observation.  Every mix and the throw draw only when they
+        are on, so the generator's stream with all of them off is unchanged.
         """
         cfg, dev, N = self.cfg, self.device, num_envs
         if cfg.adaptive_rehearsal and rehearsal_probs is None and cfg.mode != "test":
@@ -317,7 +325,7 @@ class Drone2DEnv:
         if cfg.mode == "test":
             pd = tpath.PathData(**{k: v.expand(N, *v.shape[1:])
                                    for k, v in vars(self._test_path).items()})
-            obstacles = ObstacleSet(**{k: v.expand(N, *v.shape[1:])
+            obstacles = ObstacleSet(**{k: None if v is None else v.expand(N, *v.shape[1:])
                                        for k, v in vars(self._test_obstacles).items()})
             xmin, ymin, xmax, ymax = self._spawn_rect
             x = scenarios._uniform(gen, (N,), xmin, xmax, dev)
@@ -331,6 +339,9 @@ class Drone2DEnv:
         zeros = torch.zeros(N, device=dev)
         body = physics.BodyState(pos=pos, vel=torch.zeros((N, 2), device=dev),
                                  angle=angle, omega=zeros)
+        if cfg.initial_motion_enabled:
+            body = self._initial_motion(
+                body, self.throw_draws(gen, N) if cfg.initial_throw else None)
         la_locked = torch.zeros(N, dtype=torch.bool, device=dev)
         obs, la_locked = _observe(cfg, pd, obstacles, body, target, la_locked)
         state = EnvState(
@@ -405,6 +416,38 @@ class Drone2DEnv:
         pos = torch.where(at_random[:, None], torch.stack([rx, ry], 1), wps[:, 0])
         return pd, obstacles, pos, family
 
+    def throw_draws(self, gen: torch.Generator, num_envs: int) -> Tuple[torch.Tensor, ...]:
+        """The initial throw's draws, each (N,): its direction in [0, 2 pi),
+        its force in [0, 1500) and the rotor couple in [-3000, 3000)."""
+        dev, N = self.device, num_envs
+        angle = torch.rand(N, generator=gen, device=dev) * 2 * math.pi
+        force = scenarios._uniform(gen, (N,), 0.0, 1500.0, dev)
+        rot = scenarios._uniform(gen, (N,), -3000.0, 3000.0, dev)
+        return angle, force, rot
+
+    def _initial_motion(self, body: physics.BodyState, draws=None) -> physics.BodyState:
+        """The optional throw and settle (initial_movement,
+        drone_2d_env.py:917-946, defined but never called in the reference;
+        `drone2d_tpu/env/env.py:456-480`): with `initial_throw`, one step
+        under the thrown force and the rotor couple (net torque -2 arm rot)
+        from `draws` (`throw_draws`), then `n_fall_steps` force-free steps."""
+        cfg = self.cfg
+        if cfg.initial_throw:
+            throw_angle, throw_force, rot = draws
+            f_world = throw_force[:, None] * torch.stack(
+                [torch.cos(throw_angle), torch.sin(throw_angle)], dim=1)
+            g = body.vel.new_tensor([0.0, cfg.gravity_y])
+            body = physics.BodyState(
+                pos=body.pos + body.vel * cfg.physics_dt,
+                vel=body.vel + (g + f_world / cfg.total_mass) * cfg.physics_dt,
+                angle=body.angle + body.omega * cfg.physics_dt,
+                omega=body.omega + (-2.0 * cfg.drone_radius * rot) / cfg.moment_of_inertia
+                * cfg.physics_dt,
+            )
+        for _ in range(cfg.n_fall_steps):
+            body = physics.free_step_body(body, dt=cfg.physics_dt, gravity_y=cfg.gravity_y)
+        return body
+
     def reset(self, gen: torch.Generator, global_step=0.0, rehearsal_probs=None):
         """One fresh episode, as a batch of one."""
         return self.reset_batch(gen, 1, global_step, rehearsal_probs)
@@ -421,10 +464,16 @@ class Drone2DEnv:
             inertia=cfg.moment_of_inertia, arm=cfg.drone_radius,
         )
         obst = state.obstacles
-        collided = geometry.any_collision(
-            body.pos, body.angle, cfg.drone_width / 2, cfg.drone_height / 4,
-            obst.xy, obst.r, obst.mask,
-        )
+        if obst.half_wh is None:  # circles only
+            collided = geometry.any_collision(
+                body.pos, body.angle, cfg.drone_width / 2, cfg.drone_height / 4,
+                obst.xy, obst.r, obst.mask,
+            )
+        else:
+            collided = geometry.any_collision_mixed(
+                body.pos, body.angle, cfg.drone_width / 2, cfg.drone_height / 4,
+                obst.xy, obst.r, obst.half_wh, obst.mask,
+            )
         t_new = state.t + 1
         obs, la_locked = _observe(cfg, state.path, obst, body, state.target,
                                   state.la_locked)
@@ -483,3 +532,19 @@ class Drone2DEnv:
 
     # the single-env and the batched name of the JAX package are one function
     step_autoreset_template = step_batch_template
+
+    def step_autoreset(
+        self, state: EnvState, action: torch.Tensor, gen: torch.Generator, global_step=0.0,
+    ) -> StepOutput:
+        """Auto-resetting step with a fresh draw per reset, as the reference
+        rebuilds its world on every reset (drone_2d_env.py:908-912): an env
+        that is done takes an episode of its own, drawn from `gen` at
+        `global_step`, not a template shared over a rollout.  As the JAX
+        package does, it draws a whole reset batch of N every step and
+        selects it on done, so no step waits for the host; that draw costs
+        many physics steps (`step_batch_template` is the rollout's cheap
+        variant)."""
+        reset_state, reset_obs = self.reset_batch(gen, action.shape[0], global_step)
+        return self.step_batch_template(state, action, reset_state, reset_obs)
+
+    step_batch = step_autoreset

@@ -4,7 +4,8 @@ Counterpart of `drone2d_tpu/env/scenarios.py`, in two halves:
 
 1. Host side (numpy, deterministic): the 7 spatial benchmark scenarios of
    reference `test_scenarios.py` (create_test_scenario :169-246,
-   generate_scen_waypoints_2d :87-167, generate_scen_obstacles :4-84) and
+   generate_scen_waypoints_2d :87-167, generate_scen_obstacles :4-84), the
+   extra `parallel_boxes` (the parallel layout with square obstacles) and
    the per-scenario spawn rectangles of `drone_2d_env.py:218-311`, padded to
    fixed `max_wps` / `max_obs` arrays once when a test-mode env is built.
 
@@ -44,6 +45,7 @@ class ScenarioGeometry(NamedTuple):
     obs_r: np.ndarray       # (max_obs,)
     obs_mask: np.ndarray    # (max_obs,) bool
     spawn_rect: np.ndarray  # (4,) xmin, ymin, xmax, ymax
+    obs_half_wh: "np.ndarray | None" = None  # (max_obs, 2) box half-extents
 
 
 def _chain(x1, y1, azimuths, distance):
@@ -56,7 +58,7 @@ def _chain(x1, y1, azimuths, distance):
 def scenario_waypoints(scen: str, w: float, h: float, *, n_wps: int = 10,
                        distance: float = 100.0, offset: float = 0.0) -> np.ndarray:
     """Deterministic scenario waypoint layouts (generate_scen_waypoints_2d)."""
-    if scen in ("perpendicular", "parallel", "impossible", "straight"):
+    if scen in ("perpendicular", "parallel", "parallel_boxes", "impossible", "straight"):
         x1 = w / 2 - distance * (n_wps - 1) / 2
         return _chain(x1, h / 2, np.zeros(n_wps - 1), distance)
     if scen == "S_parallel":
@@ -145,6 +147,14 @@ def _scenario_obstacles(scen: str, w: float, h: float) -> Tuple[np.ndarray, np.n
     elif scen == "large":
         xy.append(np.array([w / 2, h / 2]))
         r.append(w / 5)
+    elif scen == "parallel_boxes":
+        # the 'parallel' layout with Square obstacles (obstacles.py:20-31):
+        # squares of side 2 size centered on the path in place of circles
+        # of radius size
+        n, size = 6, 30.0
+        host = HostQPMI(scenario_waypoints("parallel", w, h))
+        off = (host.length - n * size * 2) / 2 - size
+        on_path_row(host, [off + i * size * 2 for i in range(1, n + 1)], size)
     else:
         raise ValueError(f"unknown scenario: {scen}")
     return np.stack(xy), np.asarray(r, dtype=np.float64)
@@ -166,15 +176,13 @@ _SPAWN_RECTS = {
 def build_test_scenario(cfg: EnvConfig) -> ScenarioGeometry:
     """Assemble padded fixed-shape geometry for cfg.scenario.
 
-    `parallel_boxes` raises NotImplementedError: its square obstacles need
-    the rounded-box geometry, which the port does not have.
+    `parallel_boxes` also gets `obs_half_wh`, its squares' half-extents,
+    with `obs_r` zeroed (sharp boxes); every other scenario is circles only
+    (`obs_half_wh` None).
     """
     scen = cfg.scenario
     if scen not in TEST_SCENARIOS + EXTRA_SCENARIOS:
         raise ValueError(f"{scen!r} is not a spatial test scenario")
-    if scen in EXTRA_SCENARIOS:
-        raise NotImplementedError(
-            f"{scen!r} needs the rounded-box obstacle geometry, which is not ported")
     w, h = cfg.screensize_x, cfg.screensize_y
 
     if scen == "S_parallel":
@@ -200,6 +208,13 @@ def build_test_scenario(cfg: EnvConfig) -> ScenarioGeometry:
     obs_r[:k] = r
     obs_mask[:k] = True
 
+    obs_half_wh = None
+    if scen == "parallel_boxes":
+        # the sizes in r are the squares' half-sides: box half-extents, radius 0
+        obs_half_wh = np.zeros((cfg.max_obs, 2), np.float32)
+        obs_half_wh[:k] = np.stack([r, r], axis=-1)
+        obs_r[:] = 0.0
+
     return ScenarioGeometry(
         wps=wps_pad.astype(np.float32),
         n_wps=n_wps,
@@ -207,6 +222,7 @@ def build_test_scenario(cfg: EnvConfig) -> ScenarioGeometry:
         obs_r=obs_r.astype(np.float32),
         obs_mask=obs_mask,
         spawn_rect=np.asarray(_SPAWN_RECTS[scen](w, h), np.float32),
+        obs_half_wh=obs_half_wh,
     )
 
 

@@ -7,7 +7,7 @@ batch dimension N written out in front of each.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -17,11 +17,18 @@ from drone2d_tpu_torch.ops.physics import BodyState
 
 @dataclasses.dataclass
 class ObstacleSet:
-    """Padded circle obstacles; padding sits at 1e6 with radius 0."""
+    """Padded obstacles; padding sits at 1e6 with radius 0.
+
+    `half_wh` None means circles only, the default path.  Set, every
+    obstacle is a rounded axis-aligned box (`half_wh` half-extents plus
+    radius `r`), as the `parallel_boxes` squares are: a Square(size) is
+    half_wh (size/2, size/2) with r 0.
+    """
 
     xy: torch.Tensor    # (N, MAX_OBS, 2) centers
     r: torch.Tensor     # (N, MAX_OBS) radii
     mask: torch.Tensor  # (N, MAX_OBS) bool, True = live obstacle
+    half_wh: Optional[torch.Tensor] = None  # (N, MAX_OBS, 2) box half-extents
 
 
 @dataclasses.dataclass
@@ -41,13 +48,24 @@ class EnvState:
     family: torch.Tensor        # (N,) int32 rehearsal family (0 = schedule)
 
 
+def _none_leaf(leaves) -> bool:
+    """True when every leaf is None; raises on a mix of None and tensors."""
+    nones = [x is None for x in leaves]
+    if any(nones) and not all(nones):
+        raise ValueError("states disagree on an optional leaf (e.g. box obstacles' half_wh)")
+    return nones[0]
+
+
 def _select(mask: torch.Tensor, a, b):
-    """Leaf-wise `where(mask, b, a)` over matching dataclass trees."""
+    """Leaf-wise `where(mask, b, a)` over matching dataclass trees; a None
+    leaf (in both) stays None."""
     if dataclasses.is_dataclass(a):
         return type(a)(**{
             f.name: _select(mask, getattr(a, f.name), getattr(b, f.name))
             for f in dataclasses.fields(a)
         })
+    if _none_leaf((a, b)):
+        return None
     m = mask.reshape(mask.shape + (1,) * (a.dim() - 1))
     return torch.where(m, b, a)
 
@@ -63,6 +81,8 @@ def cat_states(states: Sequence[EnvState]) -> EnvState:
     if dataclasses.is_dataclass(first):
         return type(first)(**{f.name: cat_states([getattr(s, f.name) for s in states])
                               for f in dataclasses.fields(first)})
+    if _none_leaf(states):
+        return None
     return torch.cat(list(states))
 
 

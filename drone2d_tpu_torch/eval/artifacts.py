@@ -6,11 +6,13 @@ writes per campaign:
     flight_paths                      (JSON list of [(x, h-y), ...])
     collisions.npy rewards.npy apes.npy time_spent.npy
     <scenario>_<nr>_results.txt       (Successes/Fails/.../Agent path lines)
+  Tests/<agent>/test_<k>/plots/<scenario>_<nr>.png   (overlay plot)
+  Gifs/<agent>/<scenario>.gif
 with the same test_<k> bumping rule: a new test_<k> directory is started
-when the current latest one already contains this scenario.  The overlay
-plot (`Tests/<agent>/test_<k>/plots/<scenario>_<nr>.png`) and the replay
-GIFs need the pygame renderer, which the port does not have: it writes no
-PNG and raises NotImplementedError when a GIF is asked for.
+when the current latest one already contains this scenario.  The plot and
+the GIF are drawn for spatial (test-mode) scenarios only, by the pygame
+renderer (`eval/render.py`), which is imported there and nowhere else: a
+stage scenario needs no pygame.
 """
 
 from __future__ import annotations
@@ -23,15 +25,6 @@ import numpy as np
 
 from drone2d_tpu_torch.config import EnvConfig
 from drone2d_tpu_torch.eval.episode import EpisodeResults
-
-
-def check_gif_request(cfg: EnvConfig, gif_root: Optional[str]) -> None:
-    """Raise NotImplementedError where the JAX package would render a GIF:
-    a spatial (test-mode) scenario with a GIF directory given."""
-    if cfg.mode == "test" and gif_root is not None:
-        raise NotImplementedError(
-            "replay GIFs need the pygame renderer (eval/render.py), which is not "
-            "ported; pass gif_root=None (--no-gif on the CLI)")
 
 
 def _campaign_dirs(root: str, agent: str, scenario: str):
@@ -48,9 +41,10 @@ def _campaign_dirs(root: str, agent: str, scenario: str):
         k += 1
     base = os.path.join(agent_dir, f"test_{k}")
     file_path = os.path.join(base, scenario)
+    plot_path = os.path.join(base, "plots")
     os.makedirs(file_path, exist_ok=True)
-    os.makedirs(os.path.join(base, "plots"), exist_ok=True)
-    return file_path
+    os.makedirs(plot_path, exist_ok=True)
+    return file_path, plot_path
 
 
 def write_campaign(
@@ -61,20 +55,25 @@ def write_campaign(
     agent_path: str,
     scenario: Optional[str] = None,
     root: str = "Tests",
-    gif_root: Optional[str] = None,
+    gif_root: Optional[str] = "Gifs",
+    gif_episode: int = 0,
+    gif_all_episodes: bool = False,
 ) -> str:
-    """Persist one campaign's artifacts; returns the scenario directory."""
-    check_gif_request(cfg, gif_root)
+    """Persist one campaign's artifacts; returns the scenario directory.
+    A spatial scenario also gets the overlay plot and, unless `gif_root` is
+    None, the GIF of episode `gif_episode` (or of every episode, with
+    `gif_all_episodes`)."""
     scenario = scenario or cfg.scenario
-    file_path = _campaign_dirs(root, agent, scenario)
+    file_path, plot_path = _campaign_dirs(root, agent, scenario)
 
     successes = int(np.sum(results.success))
     fails = int(np.sum(results.fail))
     collision_sum = int(np.sum(results.collision))
     n = max(successes + fails, 1)
 
+    flight_paths = results.flight_paths(cfg.screensize_y)
     with open(os.path.join(file_path, "flight_paths"), "w") as f:
-        json.dump(results.flight_paths(cfg.screensize_y), f)
+        json.dump(flight_paths, f)
 
     np.save(os.path.join(file_path, "collisions.npy"), results.collision)
     np.save(os.path.join(file_path, "rewards.npy"), results.total_reward)
@@ -94,4 +93,23 @@ def write_campaign(
         f.write(f"Average APE: {np.mean(results.ape)}\n")
         f.write(f"Average flight time: {np.mean(results.time_steps.astype(np.float64))}\n")
         f.write(f"Agent path: {agent_path}\n")
+
+    # the plot only for spatial scenarios: a stage_k campaign flies a random
+    # geometry per episode, and the reference draws nothing there
+    # (main.py:355-356)
+    if cfg.mode == "test":
+        from drone2d_tpu_torch.eval.render import campaign_gif, episode_gif, overlay_plot
+
+        overlay_plot(cfg, flight_paths, results.total_reward, results.collision,
+                     os.path.join(plot_path, f"{scenario}_{agent_nr}.png"))
+        if gif_root is not None and len(results.traj):
+            gif_path = os.path.join(gif_root, agent, f"{scenario}.gif")
+            if gif_all_episodes:
+                # the reference's way: one GIF over the whole campaign
+                # (main.py:259-295 gathers the frames of every episode)
+                campaign_gif(cfg, results.traj, results.angles, results.traj_len, gif_path)
+            else:
+                i = gif_episode
+                episode_gif(cfg, results.traj[i], results.angles[i], int(results.traj_len[i]),
+                            gif_path)
     return file_path

@@ -6,12 +6,11 @@ reference's `mode == "test"` harness (`main.py:242-400`) as a command:
 
 Runs all episodes of a scenario as one env batch on the CUDA card (unless
 `--device cpu`), then writes the reference's artifact set: results.txt,
-collisions/rewards/apes/time_spent .npy and the flight_paths JSON.  `--scenario
-all` sweeps the 12-scenario suite (7 spatial + 5 curriculum stages,
-rl_config.py:45-58).  The overlay PNG and the replay GIFs need the pygame
-renderer, which is not ported: no PNG is written, and a spatial scenario
-raises NotImplementedError unless `--no-gif` is given (`--gif-root` only
-chooses where GIFs would go); `--gif-all` raises NotImplementedError.
+collisions/rewards/apes/time_spent .npy and the flight_paths JSON, and for a
+spatial scenario the overlay PNG and the replay GIF of one episode under
+`--gif-root` (`--gif-all`: of every episode; `--no-gif`: none), drawn on
+the host with pygame.  `--scenario all` sweeps the 12-scenario suite (7
+spatial + 5 curriculum stages, rl_config.py:45-58).
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ from drone2d_tpu_torch.config import (
     TEST_SCENARIOS,
     EnvConfig,
 )
-from drone2d_tpu_torch.eval.artifacts import check_gif_request, write_campaign
+from drone2d_tpu_torch.eval.artifacts import write_campaign
 from drone2d_tpu_torch.eval.episode import run_episodes
 from drone2d_tpu_torch.models.policy import ActorCritic, flat_dict_to_params
 from drone2d_tpu_torch.utils.checkpoint import checkpoint_steps
@@ -97,21 +96,22 @@ def evaluate(
     seed: int = 0,
     deterministic: bool = False,
     out_root: str = "Tests",
-    gif_root: Optional[str] = None,
+    gif_root: Optional[str] = "Gifs",
     agent_name: Optional[str] = None,
     checkpoint_step: Optional[int] = None,
+    gif_all_episodes: bool = False,
     device=None,
 ) -> dict:
     """One scenario's campaign: run it, write its artifacts, print and
     return its summary."""
     cfg = scenario_config(scenario)
-    check_gif_request(cfg, gif_root)
     params = load_params(agent_path, checkpoint_step, device)
     results = run_episodes(cfg, params, seed, episodes, deterministic=deterministic,
                            device=device)
     agent = agent_name or _derive_agent_name(agent_path)
     out_dir = write_campaign(cfg, results, agent=agent, agent_path=agent_path,
-                             scenario=scenario, root=out_root, gif_root=gif_root)
+                             scenario=scenario, root=out_root, gif_root=gif_root,
+                             gif_all_episodes=gif_all_episodes)
     n = max(int(np.sum(results.success) + np.sum(results.fail)), 1)
     summary = dict(
         scenario=scenario,
@@ -145,8 +145,8 @@ def main(argv=None) -> None:
     p.add_argument("--gif-root", default="Gifs")
     p.add_argument("--no-gif", action="store_true")
     p.add_argument("--gif-all", action="store_true",
-                   help="one GIF spanning ALL campaign episodes (not ported: "
-                   "raises NotImplementedError)")
+                   help="one GIF spanning ALL campaign episodes (the reference's "
+                   "test-mode behavior, main.py:259-295) instead of a single episode")
     p.add_argument("--agent-name", default=None)
     p.add_argument("--checkpoint-step", type=int, default=None,
                    help="checkpoint step to load (default: latest)")
@@ -156,9 +156,6 @@ def main(argv=None) -> None:
         "fails without one ('cpu' runs on the host)",
     )
     args = p.parse_args(argv)
-    if args.gif_all:
-        raise NotImplementedError(
-            "--gif-all needs the pygame renderer (eval/render.py), which is not ported")
     if args.device != "cpu":
         print(f"device: {wait_for_accelerator()}")
 
@@ -171,6 +168,7 @@ def main(argv=None) -> None:
             gif_root=None if args.no_gif else args.gif_root,
             agent_name=args.agent_name,
             checkpoint_step=args.checkpoint_step,
+            gif_all_episodes=args.gif_all,
             device=args.device,
         )
 

@@ -6,7 +6,9 @@ weights an optimizer step has just updated; with the agent axis, each
 member's outputs are bit-equal to its own unstacked launch.  The PPO update,
 a population's update and the eval runner on the card against the same on
 the CPU; the adaptive rehearsal reset and its rollout's family accounting on
-the card; a checkpoint written on the card resumes on the CPU.
+the card; a checkpoint written on the card resumes on the CPU.  The box
+obstacles' geometry and step, the vector env core and the fresh-draw step
+(`step_batch`) on the card against the CPU.
 
 These need an NVIDIA GPU and nvcc, and skip without one.  This file imports
 no JAX, so on a machine with the card and without JAX it runs alone:
@@ -191,7 +193,7 @@ def test_kernel_reads_weights_after_optimizer_step(dev):
 def _to(x, dev):
     if dataclasses.is_dataclass(x):
         return type(x)(**{f.name: _to(getattr(x, f.name), dev) for f in dataclasses.fields(x)})
-    return x.to(dev)
+    return None if x is None else x.to(dev)  # half_wh is None for circles
 
 
 @pytest.mark.parametrize("scen", ["S_corridor", "stage_5"])
@@ -347,3 +349,101 @@ def test_checkpoint_from_card_resumes_on_cpu(dev, tmp_path, capsys):
     assert step == 0 and "seeded from the stored seed" in capsys.readouterr().out
     for a, b in zip(host.params.parameters(), state.params.parameters()):
         assert torch.equal(a, b.cpu())
+
+
+def test_mixed_collision_on_card_matches_cpu(dev):
+    """The box obstacles' geometry on the card against the CPU on a random
+    mixed field: the collisions exact, the rounded-box distances to 1e-5 of
+    scale; and a parallel_boxes step with its observation."""
+    from drone2d_tpu_torch.ops import geometry
+
+    g = torch.Generator().manual_seed(0)
+    n, k = 4096, 6
+    pos = 300 + 400 * torch.rand(n, 2, generator=g)
+    angle = (torch.rand(n, generator=g) - 0.5) * 6.28
+    centers = pos[:, None] + 110 * torch.randn(n, k, 2, generator=g)
+    radii = 5 + 35 * torch.rand(n, k, generator=g)
+    half_wh = (5 + 35 * torch.rand(n, k, 2, generator=g)) * (torch.rand(n, k, 1, generator=g)
+                                                               < 0.5)
+    mask = torch.rand(n, k, generator=g) < 0.85
+    args = (pos, angle, 50.0, 5.0, centers, radii, half_wh, mask)
+    want = geometry.any_collision_mixed(*args)
+    got = geometry.any_collision_mixed(*(a.to(dev) if torch.is_tensor(a) else a for a in args))
+    assert torch.equal(got.cpu(), want) and 0 < int(want.sum()) < n
+    verts = geometry.frame_vertices(pos, angle, 50.0, 5.0)
+    d = geometry.vertex_rounded_box_distances(verts, centers, half_wh, radii)
+    d_dev = geometry.vertex_rounded_box_distances(verts.to(dev), centers.to(dev),
+                                                  half_wh.to(dev), radii.to(dev))
+    assert _scaled_err(d_dev.cpu(), d) <= 1e-5
+
+    cfg = scenario_config("parallel_boxes").replace(path_table_n=128)
+    state, _ = Drone2DEnv(cfg, device="cpu").reset_batch(torch.Generator().manual_seed(1), 256)
+    i = torch.arange(256)
+    on_box = state.obstacles.xy[i, i % 6] + torch.tensor([0.0, 33.0])
+    state = dataclasses.replace(state, body=dataclasses.replace(
+        state.body, pos=torch.where((i % 2 == 0)[:, None], on_box, state.body.pos)))
+    action = torch.rand(256, 2, generator=g) * 2 - 1
+    want = Drone2DEnv(cfg, device="cpu").step(state, action)
+    got = Drone2DEnv(cfg, device=dev).step(_to(state, dev), action.to(dev))
+    assert torch.equal(got.done.cpu(), want.done) and int(want.info["n_collisions"].sum()) > 0
+    assert _scaled_err(got.obs.cpu(), want.obs) <= 1e-4
+
+
+def test_vector_core_on_card_matches_cpu(dev):
+    """The vector env core from CPU-made state and templates, 32 steps of
+    CPU-made actions on both devices: the flags exact, obs and reward to
+    1e-4 of scale."""
+    from drone2d_tpu_torch.compat.vector_env import VectorEnvCore
+
+    n, cfg = 512, EnvConfig(path_table_n=128)
+    env = Drone2DEnv(cfg, device="cpu")
+    g = torch.Generator().manual_seed(2)
+    start, _ = env.reset_batch(g, n, 3e6)
+    tmpl = env.reset_batch(g, n, 3e6)
+    actions = torch.randn((32, n, 2), generator=g).clamp(-1, 1).numpy()
+    runs = {}
+    for d in ("cpu", dev):
+        core = VectorEnvCore(n, global_step=3_000_000, device=d, template_refresh_steps=10**9,
+                             path_table_n=128)
+        core.start_from(_to(start, d), (_to(tmpl[0], d), tmpl[1].to(d)))
+        runs[str(d)] = [core.step(a) for a in actions]
+    ends = 0
+    for got, want in zip(runs[str(dev)], runs["cpu"]):
+        np.testing.assert_array_equal(got[2], want[2])
+        np.testing.assert_array_equal(got[3], want[3])
+        for a, b in zip(got[:2], want[:2]):
+            assert _scaled_err(torch.as_tensor(a), torch.as_tensor(b)) <= 1e-4
+        ends += int((want[2] | want[3]).sum())
+    assert ends > 0
+
+
+def test_graft_step_on_card_matches_cpu(dev, monkeypatch):
+    """`step_batch` on the card against the CPU with the same injected
+    fresh reset batch: the same ends and the same restarted episodes; and
+    on its own it draws fresh episodes on the card."""
+    cfg = EnvConfig(path_table_n=128, n_steps=4)
+    env_cpu, env_dev = Drone2DEnv(cfg, device="cpu"), Drone2DEnv(cfg, device=dev)
+    g = torch.Generator().manual_seed(3)
+    state, _ = env_cpu.reset_batch(g, 256)
+    state = dataclasses.replace(state, t=torch.randint(0, 4, (256,), generator=g,
+                                                       dtype=torch.int32))
+    fresh = env_cpu.reset_batch(g, 256)
+    action = torch.rand(256, 2, generator=g) * 2 - 1
+    monkeypatch.setattr(env_cpu, "reset_batch", lambda *a, **k: fresh)
+    monkeypatch.setattr(env_dev, "reset_batch",
+                        lambda *a, **k: (_to(fresh[0], dev), fresh[1].to(dev)))
+    want = env_cpu.step_batch(state, action, torch.Generator())
+    got = env_dev.step_batch(_to(state, dev), action.to(dev), torch.Generator(device=dev))
+    assert torch.equal(got.done.cpu(), want.done) and bool(want.done.any())
+    assert torch.equal(got.state.t.cpu(), want.state.t)
+    assert torch.equal(got.state.path.wps.cpu(), want.state.path.wps)
+    assert _scaled_err(got.obs.cpu(), want.obs) <= 1e-4
+    monkeypatch.undo()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    s, _ = env_dev.reset_batch(gen, 64)
+    for _ in range(4):
+        before = s.path.wps[:, 0]
+        out = env_dev.step_batch(s, torch.zeros(64, 2, device=dev), gen)
+        s = out.state
+    assert bool(out.done.all()) and bool((s.t == 0).all())
+    assert not bool((s.path.wps[:, 0] == before).all(1).any())

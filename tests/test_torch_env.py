@@ -312,12 +312,15 @@ def test_random_corner_waypoints():
 
 
 def test_unported_settings_raise():
-    # the rehearsal mixes and the test mode are ported (tests/test_torch_rehearsal.py,
-    # tests/test_torch_eval.py); the initial throw and the box obstacles are not
+    """No setting of the JAX package's env is refused any more: the initial
+    throw and the box obstacles build, reset and step (held against JAX in
+    tests/test_torch_boxes.py)."""
     for kw in (dict(initial_motion_enabled=True),
                dict(mode="test", scenario="parallel_boxes")):
-        with pytest.raises(NotImplementedError):
-            Drone2DEnv(CFG.replace(**kw), device="cpu")
+        env = Drone2DEnv(CFG.replace(path_table_n=128, **kw), device="cpu")
+        state, obs = env.reset_batch(torch.Generator().manual_seed(0), 8)
+        out = env.step(state, torch.zeros(8, 2))
+        assert bool(torch.isfinite(obs).all()) and bool(torch.isfinite(out.obs).all())
 
 
 def test_observe_all_padding_slots():

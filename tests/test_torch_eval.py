@@ -6,13 +6,15 @@ episode runner is fed the JAX runner's own reset states and per-step noise
 (its episode keys split as `drone2d_tpu/eval/episode.py` splits them) and
 must latch the same outcomes; a scripted batch holds the latch, the coast
 and the timeout fix-up; `write_campaign` must write the same files as the
-JAX package's from the same results; the CLI runs on the CPU.
+JAX package's from the same results, the overlay PNG and the GIF included;
+the CLI runs on the CPU, with its default GIF and `--gif-all`.
 """
 
 import dataclasses
 import json
 import os
 
+import imageio.v2 as imageio
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -87,10 +89,18 @@ def test_build_test_scenario_matches_jax(scen):
 
 
 def test_box_scenario_is_not_ported():
+    """`parallel_boxes` is ported now: built array for array as in JAX, box
+    half-extents included; test mode still refuses a stage scenario and
+    an unknown mode."""
     cfg = EnvConfig(mode="test", scenario="parallel_boxes")
-    assert jscen.build_test_scenario(_jax_cfg(cfg)).obs_half_wh is not None
-    with pytest.raises(NotImplementedError, match="rounded-box"):
-        scenarios.build_test_scenario(cfg)
+    got = scenarios.build_test_scenario(cfg)
+    want = jscen.build_test_scenario(_jax_cfg(cfg))
+    for k in ("wps", "obs_xy", "obs_r", "obs_mask", "spawn_rect", "obs_half_wh"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k), err_msg=k)
+    env = Drone2DEnv(cfg.replace(path_table_n=128), device="cpu")
+    state, obs = env.reset_batch(torch.Generator().manual_seed(0), 4)
+    assert state.obstacles.half_wh.shape == (4, cfg.max_obs, 2)
+    assert bool(torch.isfinite(obs).all())
     for kw in (dict(mode="test", scenario="stage_2"), dict(mode="replay")):
         with pytest.raises(ValueError):
             Drone2DEnv(EnvConfig(**kw), device="cpu")
@@ -146,7 +156,8 @@ def test_test_mode_reset_matches_jax(scen):
 CAP, N_EP = 64, 24
 # the random policy's tumbles end episodes at many steps before the cap
 RUNNER_CASES = [(s, p) for s in ("S_corridor", "stage_5")
-                for p in ("stochastic", "deterministic")] + [("stage_5", "random")]
+                for p in ("stochastic", "deterministic")] + [("stage_5", "random"),
+                                                             ("parallel_boxes", "stochastic")]
 
 
 @pytest.fixture(scope="module")
@@ -335,8 +346,9 @@ def _tree(root):
 def test_write_campaign_matches_jax(tmp_path):
     """The same results through both writers, three campaigns (a stage
     scenario twice, which starts test_1, then a spatial one, which joins
-    test_1): the same files with the same text and arrays, except the
-    overlay PNG the port does not draw."""
+    test_1): the same files with the same text and arrays, and the same
+    overlay PNG, pixel for pixel; then a spatial campaign with a GIF
+    directory: both write the GIF, with as many frames."""
     roots = {"port": str(tmp_path / "port"), "jax": str(tmp_path / "jax")}
     for i, scen in enumerate(("stage_3", "stage_3", "corridor")):
         res = _results(seed=i)
@@ -347,20 +359,29 @@ def test_write_campaign_matches_jax(tmp_path):
         jartifacts.write_campaign(_jax_cfg(cfg), jepisode.EpisodeResults(*res),
                                   root=roots["jax"], gif_root=None, **kw)
     got, want = _tree(roots["port"]), _tree(roots["jax"])
-    assert set(want) - set(got) == {"agent_s8004/test_1/plots/corridor_s8004.png"}
-    assert set(got) <= set(want)
+    assert set(got) == set(want)
     assert "agent_s8004/test_1/corridor/corridor_s8004_results.txt" in got
+    assert "agent_s8004/test_1/plots/corridor_s8004.png" in got
     for rel, path in got.items():
-        if rel.endswith(".npy"):
+        if rel.endswith(".png"):
+            np.testing.assert_array_equal(imageio.imread(path), imageio.imread(want[rel]))
+        elif rel.endswith(".npy"):
             a, b = np.load(path), np.load(want[rel])
             assert a.dtype == b.dtype
             np.testing.assert_array_equal(a, b)
         else:
             with open(path) as f, open(want[rel]) as g:
                 assert f.read() == g.read(), rel
-    with pytest.raises(NotImplementedError, match="GIF"):
-        artifacts.write_campaign(run.scenario_config("corridor"), _results(),
-                                 root=roots["port"], gif_root="Gifs", **kw)
+    res = _results(seed=3)
+    gifs = {k: str(tmp_path / f"gif_{k}") for k in roots}
+    artifacts.write_campaign(run.scenario_config("corridor"), res, root=roots["port"],
+                             gif_root=gifs["port"], gif_episode=1, **kw)
+    jartifacts.write_campaign(_jax_cfg(run.scenario_config("corridor")),
+                              jepisode.EpisodeResults(*res), root=roots["jax"],
+                              gif_root=gifs["jax"], gif_episode=1, **kw)
+    frames = {k: imageio.mimread(os.path.join(g, "agent_s8004", "corridor.gif"))
+              for k, g in gifs.items()}
+    assert len(frames["port"]) == len(frames["jax"]) == len(range(0, int(res.traj_len[1]), 2))
 
 
 def test_agent_names_and_scenario_configs_match_jax():
@@ -375,11 +396,12 @@ def test_agent_names_and_scenario_configs_match_jax():
             mod.scenario_config("stage_6")
 
 
-def test_eval_cli_on_cpu(tmp_path, capsys):
+def test_eval_cli_on_cpu(tmp_path, capsys, monkeypatch):
     """4 episodes of a stage scenario and of a spatial one through the CLI;
     the random baseline; params from the port's checkpoint directory equal
-    the .npz's; a spatial scenario without --no-gif raises, and so does
-    --gif-all."""
+    the .npz's; a spatial scenario with the defaults writes the overlay PNG
+    and one episode's GIF under --gif-root, and --gif-all a GIF of every
+    episode (those two at a 24-step cap, so that the GIFs stay short)."""
     out = str(tmp_path / "Tests")
     base = ["--device", "cpu", "--episodes", "4", "--out-root", out]
     run.main([*base, "--agent", AGENT, "--scenario", "stage_4"])
@@ -397,10 +419,24 @@ def test_eval_cli_on_cpu(tmp_path, capsys):
     assert len(paths) == 4 and all(len(p) > 0 for p in paths)
     assert np.load(files["new_agent/test_0/corridor/time_spent.npy"]).shape == (4,)
     assert "rnd/test_0/stage_2/stage_2_rnd_results.txt" in files
-    with pytest.raises(NotImplementedError, match="GIF"):
-        run.main([*base, "--agent", AGENT, "--scenario", "corridor"])
-    with pytest.raises(NotImplementedError, match="gif-all"):
-        run.main([*base, "--agent", AGENT, "--scenario", "stage_4", "--no-gif", "--gif-all"])
+    # --no-gif drops the GIF only: the spatial scenario has its overlay plot
+    assert "new_agent/test_0/plots/corridor_new_agent.png" in files
+    assert not os.path.exists("Gifs")
+    cap = 24
+    config = run.scenario_config
+    monkeypatch.setattr(run, "scenario_config",
+                        lambda s, base=None: config(s, base).replace(n_steps=cap))
+    gifs = tmp_path / "Gifs"
+    run.main([*base, "--agent", AGENT, "--scenario", "corridor", "--gif-root", str(gifs)])
+    run.main([*base, "--agent", AGENT, "--scenario", "parallel_boxes", "--gif-root", str(gifs),
+              "--gif-all"])
+    files = _tree(out)
+    for scen in ("corridor", "parallel_boxes"):  # test_1: corridor had a test_0
+        png = imageio.imread(files[f"new_agent/test_1/plots/{scen}_new_agent.png"])
+        assert png.shape[:2] == (1300, 1300)
+    one = imageio.mimread(gifs / "new_agent" / "corridor.gif")
+    every = imageio.mimread(gifs / "new_agent" / "parallel_boxes.gif")
+    assert len(one) == cap // 2 and len(every) == 4 * cap // 2
 
     learner = PPOLearner(EnvConfig(path_table_n=128), PPOConfig(hidden_sizes=(128, 128)), 4,
                          device="cpu")

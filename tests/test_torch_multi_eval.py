@@ -57,7 +57,7 @@ def _slice(tree, sl):
     if dataclasses.is_dataclass(tree):
         return type(tree)(**{f.name: _slice(getattr(tree, f.name), sl)
                              for f in dataclasses.fields(tree)})
-    return tree[sl]
+    return None if tree is None else tree[sl]  # half_wh is None for circles
 
 
 @pytest.mark.parametrize("scen, deterministic", [("S_corridor", False), ("stage_5", False),

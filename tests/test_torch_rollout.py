@@ -203,7 +203,8 @@ def test_package_imports_no_jax():
     for name in ("train", "learn.ppo", "learn.optim", "learn.plr", "learn.zoo",
                  "utils.checkpoint", "utils.metrics", "utils.runtime", "utils.host_path",
                  "eval.episode", "eval.artifacts", "eval.run", "eval.barplots",
-                 "scripts.sweep", "scripts.select_agents"):
+                 "scripts.sweep", "scripts.select_agents", "compat.from_jax",
+                 "compat.sb3_import", "compat.gym_env", "compat.vector_env", "eval.render"):
         assert f"drone2d_tpu_torch.{name}" in loaded, name
 
 
