@@ -24,6 +24,13 @@ graft entry's fresh-draw step (`step_batch`, 256 envs x 128 steps) and the
 initial throw; agent_s8004 on `parallel_boxes` x 1000; and two stacked
 12-scenario campaigns through `eval.episode.run_episodes_multi`: s8004 +
 s22307 at 1000 episodes each, the four imported reference agents at 200.
+Data parallelism (`drone2d_tpu_torch.parallel`) at flagship-scratch: a
+world-1 NCCL group's update bit-equal to the plain update, and two gloo
+ranks on the one card (2 x 512 envs) against the union batch replayed in
+one process, with the population split over them; the split-carry step
+against the template step at 4096 envs; a corridor campaign's flight
+paths replayed through `eval.replay` on the card and on the CPU; and one
+rollout step traced by `utils.profiling.trace`.
 It checks that the paths launched the kernels and that their outputs are
 right (an update, an eval batch and the vector env on the card against the
 same on the CPU, 129 launches an update for one seed or for 8, finite
@@ -47,6 +54,7 @@ import dataclasses
 import io
 import json
 import math
+import multiprocessing
 import os
 import re
 import statistics
@@ -59,6 +67,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from drone2d_tpu_torch.compat import make as make_gym_env
 from drone2d_tpu_torch.compat.sb3_import import load_sb3_agent, save_sb3_zip, torch_policy_value
@@ -66,13 +75,14 @@ from drone2d_tpu_torch.compat.sb3_import import load_sb3_state_dict
 from drone2d_tpu_torch.compat.vector_env import VectorEnvCore
 from drone2d_tpu_torch.config import ALL_SCENARIOS, EnvConfig, PPOConfig
 from drone2d_tpu_torch.env.env import Drone2DEnv, _observe, _rewards_and_done
-from drone2d_tpu_torch.env.types import FAMILY_NAMES, select_state
+from drone2d_tpu_torch.env.types import FAMILY_NAMES, finalize_split, select_state, split_state
 from drone2d_tpu_torch.eval.episode import run_episodes, run_episodes_from, run_episodes_multi
+from drone2d_tpu_torch.eval.replay import replay_campaign
 from drone2d_tpu_torch.eval.run import evaluate, scenario_config
 from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.gae import compute_gae
 from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState, collect_steps
-from drone2d_tpu_torch.learn.zoo import ZooTrainer
+from drone2d_tpu_torch.learn.zoo import ZooTrainer, shard_population
 from drone2d_tpu_torch.models.policy import (
     ActorCritic,
     flat_dict_to_params,
@@ -81,9 +91,11 @@ from drone2d_tpu_torch.models.policy import (
 )
 from drone2d_tpu_torch.ops import cuda_build, geometry, physics
 from drone2d_tpu_torch.ops.fused_policy import fused_sample_action, fused_sample_action_ref
+from drone2d_tpu_torch.parallel import mesh
 from drone2d_tpu_torch.scripts import select_agents, sweep
 from drone2d_tpu_torch.train import parse_args, train
 from drone2d_tpu_torch.utils.checkpoint import restore_checkpoint
+from drone2d_tpu_torch.utils.profiling import LEAD_KERNELS, trace
 
 ROOT = Path(__file__).resolve().parent
 AGENT = ROOT / "artifacts" / "agent_s8004" / "new_agent.npz"
@@ -144,6 +156,21 @@ IMPORTED_17 = ROOT / "artifacts" / "imported" / "agent_17_90.npz"
 VEC_ENVS, VEC_STEPS, VEC_REFRESH, VEC_CHECK_STEPS = 1024, 256, 128, 64
 GYM_STEPS = 200
 GRAFT_ENVS, GRAFT_STEPS = 256, 128
+# data parallelism at flagship-scratch: a world-1 NCCL group (the global
+# batch of the recipe, 1024 envs), then 2 gloo ranks on the one card
+# (2 x 512 envs; NCCL refuses two ranks on one device) and the population
+# split over them (DDP_POP_SEEDS, 2 a rank, 1024 envs a member); the
+# union-batch tolerance is the JAX package's (tests/test_parallel.py:206)
+DDP_ENVS, DDP_SEED, DDP_POP_SEEDS = 1024, 5, (11, 12, 13, 14)
+DDP_RTOL, DDP_ATOL = 2e-5, 2e-6
+# ddp2's depth cut: 2 of the recipe's 10 epochs (128 SGD steps an update,
+# its widths and minibatches as published), to hold the script's time
+DDP2_EPOCHS = 2
+# the split-carry step against the template step: NUM_ENVS envs at stage 5,
+# one N_STEPS chunk; then the replay of a corridor campaign (a straight
+# scenario: the kernel's replay must reproduce the live APEs to the JAX
+# package's 0.05 px, and the card's replay the CPU's to REPLAY_TOL px)
+REPLAY_EPISODES, REPLAY_TOL = 200, 1e-3
 # agent_s8004 on parallel_boxes: the JAX package's success rate over 1000
 # stochastic episodes (seed 0), computed on the CPU by
 # drone2d_tpu.eval.episode.run_episodes(scenario_config("parallel_boxes"),
@@ -303,6 +330,9 @@ def phase_kernel_vs_plain() -> dict:
                             launches=64)
     obs256, noise256, _ = check(graft_agent(dev), GRAFT_ENVS,
                                 f"B={GRAFT_ENVS} H=128 fresh 128-128 (graft step path)")
+    # a rank's rollout batch in the two-rank data-parallel run (2 x 512)
+    obs512, noise512, _ = check(graft_agent(dev), DDP_ENVS // 2,
+                                f"B={DDP_ENVS // 2} H=128 fresh 128-128 (ddp2 rank path)")
     widths = {h: ActorCritic(27, 2, (h, h), generator=torch.Generator().manual_seed(h),
                              device=dev) for h in (32, 64, 96, 256)}
     for h, p in widths.items():
@@ -327,7 +357,8 @@ def phase_kernel_vs_plain() -> dict:
         params, obs[:1024], noise[:1024], 128)  # the training path's batch
     ms, plain_ms, bound, by_ops, t_tc = times(params, obs, noise, 128)
     extra = {"b1_h64": times(agent17, obs1, noise1, 64),
-             f"b{GRAFT_ENVS}": times(graft_agent(dev), obs256, noise256, 128)}
+             f"b{GRAFT_ENVS}": times(graft_agent(dev), obs256, noise256, 128),
+             f"b{DDP_ENVS // 2}": times(graft_agent(dev), obs512, noise512, 128)}
     log("  library_ms: null (no single PyTorch call computes this function: "
         "two MLP trunks, two heads and the Gaussian sample)")
     return {
@@ -347,7 +378,8 @@ def phase_kernel_vs_plain() -> dict:
         "b1024": {"ms": ms_1k, "plain_ms": plain_ms_1k, "bound_ms": bound_1k,
                   "bound_by": "operations" if by_ops_1k else "bytes",
                   "bound_tc_ms": t_tc_1k, "library_ms": None},
-        # the gym env's B=1 (H=64) and the graft step's B=256 (H=128)
+        # the gym env's B=1 (H=64), the graft step's B=256 and a ddp2
+        # rank's B=512 (H=128)
         **{key: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
                  "bound_by": "operations" if t[3] else "bytes", "bound_tc_ms": t[4],
                  "library_ms": None} for key, t in extra.items()},
@@ -1650,6 +1682,357 @@ def phase_boxes(kernel_row: dict):
     kernel_row["launches_by_path"]["boxes"] = launches
 
 
+def _copy_state(state: TrainState, generator: torch.Generator) -> TrainState:
+    """A copy of a learner's state with its own weights and Adam, and
+    `generator` (the update replaces the env state, never writes it)."""
+    params = copy.deepcopy(state.params)
+    opt = optim.adam(params.parameters(), state.optimizer.defaults["lr"])
+    opt.load_state_dict(state.optimizer.state_dict())
+    return dataclasses.replace(state, params=params, optimizer=opt, generator=generator)
+
+
+def phase_ddp(kernel_row: dict):
+    """The data-parallel update at flagship-scratch on a world-1 NCCL group
+    (`parallel.make_group`; no other backend is tried): `shard_init` +
+    `shard_update` for one update against the plain `PPOLearner.update` from
+    a copy of the same state with the rank's generator, the weights, Adam's
+    state and every metric bit-equal, the two updates timed in turn; and
+    the collectives' share of an SGD step (an epoch's SGD with and without
+    the group, in turn, and the NCCL kernels' device time under the
+    profiler)."""
+    _, train_cfg, env_cfg, ppo_cfg = parse_args(["--preset", "flagship-scratch"])
+    group, dev = mesh.make_group("cuda:0", backend="nccl")
+    try:
+        log(f"ddp: world-1 group, backend {dist.get_backend(group)}, flagship-scratch "
+            f"{train_cfg.num_envs} envs")
+        learner = PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs, device=dev)
+        state = mesh.shard_init(group, learner, DDP_SEED)
+        twin = torch.Generator(device=dev)
+        twin.set_state(state.generator.get_state())
+        plain = _copy_state(state, mesh.rank_generator(twin, 0))
+        update = mesh.shard_update(group, learner)
+        torch.cuda.synchronize()
+        fused_sample_action.launches = 0
+        t0 = time.perf_counter()
+        sharded_state, sharded = update(state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = fused_sample_action.launches
+        plain_state, want = learner.update(plain)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        equal = {
+            "weights": all(torch.equal(a, b) for a, b in zip(
+                sharded_state.params.parameters(), plain_state.params.parameters())),
+            "adam": all(torch.equal(sa[k], sb[k]) for sa, sb in zip(
+                sharded_state.optimizer.state.values(), plain_state.optimizer.state.values())
+                for k in sa),
+            "metrics": set(sharded) == set(want) and all(
+                torch.equal(sharded[k], want[k]) for k in want),
+        }
+        log(f"  one update, sharded (world 1) vs plain from the same state and draws: "
+            f"bit-equal {equal}; loss {float(sharded['loss']):.6f}, episodes "
+            f"{float(sharded['episodes/episodes']):.0f}; kernel launches {launches}")
+        if not all(equal.values()) or launches != ppo_cfg.n_steps + 1:
+            raise AssertionError(f"ddp: world-1 update vs plain {equal}, {launches} launches")
+
+        steps = ppo_cfg.n_steps * train_cfg.num_envs
+        log(f"  train_steps_per_s (host clock, synchronized, those two updates in turn): ddp "
+            f"{steps / (t1 - t0):.1f} ({t1 - t0:.4f} s), plain {steps / (t2 - t1):.1f} "
+            f"({t2 - t1:.4f} s)")
+
+        # an SGD epoch with and without the group, in turn, on one batch
+        epoch = PPOLearner(env_cfg, ppo_cfg.replace(n_epochs=1), train_cfg.num_envs, device=dev)
+        st, batch, last_values, _ = epoch.rollout(sharded_state)
+        adv, ret = compute_gae(batch.rewards, batch.values, batch.dones, last_values,
+                               gamma=ppo_cfg.gamma, gae_lambda=ppo_cfg.gae_lambda)
+        perms = epoch.draw_perms(st.generator)
+        sgd = {}
+        for g in (group, None, None, group):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(epoch.sgd(st, batch, adv, ret, perms, group=g)["loss"])
+            sgd.setdefault("ddp" if g else "plain", []).append(
+                (time.perf_counter() - t0) / ppo_cfg.num_minibatches)
+        ms_g, ms_0 = (1e3 * statistics.mean(sgd[k]) for k in ("ddp", "plain"))
+        events, dev_us, wall_us = profile_device(
+            lambda: float(epoch.sgd(st, batch, adv, ret, perms, group=group)["loss"]))
+        nccl_us = sum(e.time_range.elapsed_us() for e in events if "nccl" in e.name.lower())
+        n_nccl = sum("nccl" in e.name.lower() for e in events)
+        log(f"  SGD step (minibatch {epoch.minibatch_size}, host clock, synchronized, mean of "
+            f"two epochs each): with the group {ms_g:.3f} ms, without {ms_0:.3f} ms; the "
+            f"collectives' share {100 * (ms_g - ms_0) / ms_g:.1f}% of a step; profiler: "
+            f"{n_nccl / ppo_cfg.num_minibatches:.0f} NCCL kernels a step, "
+            f"{nccl_us / ppo_cfg.num_minibatches:.1f} us of device time a step "
+            f"({100 * nccl_us / max(dev_us, 1e-9):.1f}% of the device's busy time), "
+            f"{len(events) / ppo_cfg.num_minibatches:.0f} device ops a step")
+    finally:
+        dist.destroy_process_group()
+    kernel_row["launches_by_path"]["ddp"] = launches
+
+
+def _ddp2_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of the two ranks of phase_ddp2 (a spawned process): one sharded
+    update at flagship-scratch over DDP_ENVS envs in all, then one update of
+    its block of DDP_POP_SEEDS; writes its weights and counts to out_dir."""
+    _, train_cfg, env_cfg, ppo_cfg = parse_args(["--preset", "flagship-scratch",
+                                                 "--ppo-n-epochs", str(DDP2_EPOCHS)])
+    group, dev = mesh.make_group("cuda:0", backend="gloo",
+                                 init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
+    learner = PPOLearner(env_cfg, ppo_cfg, DDP_ENVS, device=dev)
+    state = mesh.shard_init(group, learner, DDP_SEED)
+    torch.cuda.synchronize()
+    fused_sample_action.launches = 0
+    t0 = time.perf_counter()
+    state, metrics = mesh.shard_update(group, learner)(state)
+    torch.cuda.synchronize()
+    out = dict(seconds=time.perf_counter() - t0, launches=fused_sample_action.launches,
+               params=params_to_flat_dict(state.params), loss=float(metrics["loss"]),
+               episodes=float(metrics["episodes/episodes"]))
+    seeds = shard_population(group, DDP_POP_SEEDS)
+    trainer = ZooTrainer(env_cfg, ppo_cfg, train_cfg.num_envs, device=dev)
+    pop = trainer.init(seeds)
+    torch.cuda.synchronize()
+    fused_sample_action.launches = 0
+    t0 = time.perf_counter()
+    pop, _ = trainer.update(pop)
+    torch.cuda.synchronize()
+    out.update(pop_seconds=time.perf_counter() - t0, pop_launches=fused_sample_action.launches,
+               seeds=seeds, members={s: params_to_flat_dict(pop.params.member(i))
+                                     for i, s in enumerate(seeds)})
+    torch.save(out, os.path.join(out_dir, f"rank_{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def phase_ddp2(kernel_row: dict):
+    """Two ranks on the one card (spawned processes, each given cuda:0,
+    gloo passed explicitly: NCCL refuses two ranks on one device): one
+    sharded update of flagship-scratch over 2 x 512 envs against
+    `union_update`, the world-1 replay of the union batch with matched
+    minibatch composition (rtol DDP_RTOL, atol DDP_ATOL); then one
+    `shard_population` update of 2 members a rank, each member bit-equal to
+    the same member in a one-process population of its rank's block, and
+    held to the tolerance above against the one-process population of all
+    four.  Both at flagship-scratch's widths with DDP2_EPOCHS epochs.
+    Either rank failing fails the phase."""
+    _, train_cfg, env_cfg, ppo_cfg = parse_args(["--preset", "flagship-scratch",
+                                                 "--ppo-n-epochs", str(DDP2_EPOCHS)])
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp2_") as d:
+        port = mesh.free_port()
+        procs = [ctx.Process(target=_ddp2_rank, args=(r, port, d)) for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"ddp2: rank exit codes {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(d, f"rank_{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    wall = time.perf_counter() - t0
+    log(f"ddp2: 2 gloo ranks on cuda:0, {DDP_ENVS} envs in all, {ppo_cfg.n_epochs} epochs x "
+        f"{ppo_cfg.num_minibatches} minibatches, in {wall:.1f} s (spawn "
+        f"included): update {', '.join(f'{r['seconds']:.2f}' for r in ranks)} s, loss "
+        f"{ranks[0]['loss']:.6f} / {ranks[1]['loss']:.6f}, episodes {ranks[0]['episodes']:.0f}; "
+        f"kernel launches {[r['launches'] for r in ranks]}; population update "
+        f"{', '.join(f'{r['pop_seconds']:.2f}' for r in ranks)} s, launches "
+        f"{[r['pop_launches'] for r in ranks]}")
+    if [r["launches"] for r in ranks] != [ppo_cfg.n_steps + 1] * 2 \
+            or [r["pop_launches"] for r in ranks] != [ppo_cfg.n_steps + 1] * 2:
+        raise AssertionError("ddp2: a rank launched the kernel other than n_steps + 1 times")
+
+    # the union batch replayed in this process
+    learner = PPOLearner(env_cfg, ppo_cfg, DDP_ENVS)
+    local = mesh.local_learner(learner, 2)
+    states = [mesh.rank_state(local, DDP_SEED, r) for r in range(2)]
+    shared = dict(params=states[0].params, optimizer=states[0].optimizer,
+                  generator=states[0].generator)
+    states = mesh.union_update(learner, [dataclasses.replace(s, **shared) for s in states])
+    want = params_to_flat_dict(states[0].params)
+
+    def excess(got, ref):
+        """max |got - ref| / (atol + rtol |ref|): at most 1 passes."""
+        return max(float(np.max(np.abs(got[k].astype(np.float64) - ref[k])
+                                / (DDP_ATOL + DDP_RTOL * np.abs(ref[k])))) for k in ref)
+
+    union = max(excess(r["params"], want) for r in ranks)
+    replicated = all(np.array_equal(ranks[0]["params"][k], ranks[1]["params"][k]) for k in want)
+    log(f"  sharded vs the union batch in one process: excess {union:.4f} (<= 1 passes: "
+        f"rtol {DDP_RTOL}, atol {DDP_ATOL}); the ranks' weights bit-equal: {replicated}")
+
+    trainer = ZooTrainer(env_cfg, ppo_cfg, train_cfg.num_envs)
+    whole, _ = trainer.update(trainer.init(DDP_POP_SEEDS))
+    block_equal, pop_excess = True, 0.0
+    for r in ranks:
+        block, _ = trainer.update(trainer.init(r["seeds"]))
+        for i, s in enumerate(r["seeds"]):
+            ref = params_to_flat_dict(block.params.member(i))
+            block_equal &= all(np.array_equal(r["members"][s][k], ref[k]) for k in ref)
+            pop_excess = max(pop_excess, excess(r["members"][s], params_to_flat_dict(
+                whole.params.member(DDP_POP_SEEDS.index(s)))))
+    log(f"  shard_population, {len(DDP_POP_SEEDS)} seeds over 2 ranks: each member bit-equal "
+        f"to its rank's block trained in one process: {block_equal}; against the population "
+        f"of all {len(DDP_POP_SEEDS)} in one process: excess {pop_excess:.4f}")
+    if union > 1.0 or not replicated or not block_equal or pop_excess > 1.0:
+        raise AssertionError(f"ddp2: union excess {union}, replicated {replicated}, "
+                             f"block equal {block_equal}, population excess {pop_excess}")
+    kernel_row["launches_by_path"]["ddp2"] = sum(r["launches"] for r in ranks)
+    kernel_row["launches_by_path"]["ddp2_zoo"] = sum(r["pop_launches"] for r in ranks)
+
+
+def phase_split(kernel_row: dict):
+    """The split-carry step (`step_batch_split`) against the template step
+    over one N_STEPS chunk of NUM_ENVS envs at stage 5, agent_s8004 acting
+    through the kernel with one noise sequence: every step's obs, reward
+    and done bit-equal, and `finalize_split` equal to the template chunk's
+    state; ms a step of each, and the device ops a step under the profiler."""
+    dev = torch.device("cuda")
+    env = Drone2DEnv(EnvConfig(), dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    state, obs = env.reset_batch(gen, NUM_ENVS, START_STEP)
+    # every 8th env near the step cap, so that episodes end in the chunk
+    k = torch.arange(NUM_ENVS, device=dev)
+    state.t = torch.where(k % 8 == 0, env.cfg.n_steps - 1 - k % 64, state.t).to(torch.int32)
+    tmpl, tmpl_obs = env.reset_batch(gen, NUM_ENVS, START_STEP)
+    noise = torch.randn(N_STEPS, NUM_ENVS, 2, generator=gen, device=dev)
+    params = load_agent(dev)
+    init_static, dyn0 = split_state(state)
+    tmpl_static, tmpl_dyn = split_state(tmpl)
+
+    def template_steps(s, o, n):
+        outs = []
+        for t in range(n):
+            a = params.sample_action(o, noise=noise[t])[0].clamp(-1.0, 1.0)
+            out = env.step_batch_template(s, a, tmpl, tmpl_obs)
+            outs.append((out.obs, out.reward, out.done))
+            s, o = out.state, out.obs
+        return s, outs
+
+    def split_steps(d, o, n):
+        fresh = torch.zeros(NUM_ENVS, dtype=torch.bool, device=dev)
+        outs = []
+        for t in range(n):
+            a = params.sample_action(o, noise=noise[t])[0].clamp(-1.0, 1.0)
+            d, fresh, o, r, done, _ = env.step_batch_split(d, fresh, a, init_static,
+                                                           tmpl_static, tmpl_dyn, tmpl_obs)
+            outs.append((o, r, done))
+        return d, fresh, outs
+
+    with torch.no_grad():
+        template_steps(state, obs, 2)  # warm the caches of both
+        split_steps(dyn0, obs, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, want = template_steps(state, obs, N_STEPS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fused_sample_action.launches = 0
+        dyn, fresh, got = split_steps(dyn0, obs, N_STEPS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = fused_sample_action.launches
+        equal = all(torch.equal(g, w) for gs, ws in zip(got, want) for g, w in zip(gs, ws))
+        finalized = finalize_split(init_static, tmpl_static, fresh, dyn)
+        same_state = all(torch.equal(a, b) for a, b in zip(_leaves(finalized), _leaves(final)))
+        ops = {}
+        for label, fn in (("template", lambda: template_steps(state, obs, 3)),
+                          ("split", lambda: split_steps(dyn0, obs, 3))):
+            events, dev_us, wall_us = profile_device(fn)
+            ops[label] = (len(events) / 3, dev_us / 3e3, wall_us / 3e3)
+    ends = int(sum(int(w[2].sum()) for w in want))
+    log(f"split: {NUM_ENVS} envs x {N_STEPS} steps at stage 5, agent_s8004: template "
+        f"{1e3 * (t1 - t0) / N_STEPS:.3f} ms a step, split {1e3 * (t2 - t1) / N_STEPS:.3f} ms "
+        f"a step (host clock, synchronized, kernel included); {ends} episode ends, "
+        f"{int(fresh.sum())} envs reset in the chunk; obs, reward and done bit-equal every "
+        f"step: {equal}; finalize_split equal to the template's state: {same_state}; "
+        f"kernel launches {launches}")
+    log("  profiler, 3 steps each: " + "; ".join(
+        f"{k} {n:.0f} device ops a step, device {d:.3f} ms of {w:.3f} ms wall"
+        for k, (n, d, w) in ops.items()))
+    if not equal or not same_state or launches != N_STEPS or ends <= 0:
+        raise AssertionError(f"split: equal {equal}, state {same_state}, {launches} launches, "
+                             f"{ends} ends")
+    kernel_row["launches_by_path"]["split"] = launches
+
+
+def _leaves(tree):
+    if dataclasses.is_dataclass(tree):
+        return [x for f in dataclasses.fields(tree) for x in _leaves(getattr(tree, f.name))]
+    return [] if tree is None else [tree]
+
+
+def phase_replay(kernel_row: dict):
+    """agent_s8004 flies corridor REPLAY_EPISODES times on the card; its
+    `flight_paths` and `apes.npy`, written as `eval/artifacts.py` writes
+    them, are replayed through `eval/replay.replay_campaign` on the card
+    and on the CPU: the card's replay against the CPU's (REPLAY_TOL px) and
+    against the live APEs (0.05 px, the JAX package's bar on a straight
+    path)."""
+    cfg = scenario_config("corridor")
+    torch.cuda.synchronize()
+    fused_sample_action.launches = 0
+    t0 = time.perf_counter()
+    res = run_episodes(cfg, load_agent("cuda"), 3, REPLAY_EPISODES)
+    launches = fused_sample_action.launches
+    fly = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_replay_") as d:
+        with open(f"{d}/flight_paths", "w") as f:
+            json.dump(res.flight_paths(cfg.screensize_y), f)
+        np.save(f"{d}/apes.npy", res.ape)
+        t0 = time.perf_counter()
+        card = replay_campaign(d, "corridor")
+        t1 = time.perf_counter()
+        cpu = replay_campaign(d, "corridor", device="cpu")
+        t2 = time.perf_counter()
+    vs_cpu = float(np.abs(card.ape_ours - cpu.ape_ours).max())
+    vs_live = float(card.abs_err.max())
+    log(f"replay: {REPLAY_EPISODES} corridor episodes of agent_s8004 ({int(card.n_steps.sum())} "
+        f"positions) flown in {fly:.2f} s, kernel launches {launches}; replayed on the card "
+        f"in {t1 - t0:.3f} s, on the CPU in {t2 - t1:.3f} s; |card - CPU| max {vs_cpu:.2e} px "
+        f"(limit {REPLAY_TOL}); |card - live APE| max {vs_live:.2e} px (limit 0.05); mean APE "
+        f"{card.ape_ours.mean():.3f} px")
+    if vs_cpu > REPLAY_TOL or vs_live > 0.05 or launches <= 0:
+        raise AssertionError(f"replay: card vs CPU {vs_cpu}, vs live {vs_live}")
+    kernel_row["launches_by_path"]["replay"] = launches
+
+
+def phase_profiling(kernel_row: dict, learner, state):
+    """`utils/profiling.trace` around one rollout step at NUM_ENVS envs:
+    the Chrome trace exists, every launch of the step has its kernel
+    recorded (the lead-in's trivial kernels may lose theirs), and it names
+    the step's one fused policy kernel."""
+    reset_state, reset_obs, noise = learner._rollout_draws(state)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        fused_sample_action.launches = 0
+        with trace(d) as path:
+            collect_steps(state.params, learner.env, state.env_state, state.obs, reset_state,
+                          reset_obs, noise[:1])
+        launches = fused_sample_action.launches
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    recorded = {e["args"].get("correlation") for e in kernels}
+    calls = sorted(e["args"]["correlation"] for e in events
+                   if e.get("cat") == "cuda_runtime" and "Launch" in e.get("name", ""))
+    lead = LEAD_KERNELS + 1  # the lead-in's zeros and its adds
+    lost_lead = sum(c not in recorded for c in calls[:lead])
+    lost = sum(c not in recorded for c in calls[lead:])
+    named = [e["name"] for e in kernels if "fused_sample_action" in e["name"]]
+    log(f"profiling: trace of one rollout step, {size} bytes; {len(calls) - lead} launches in "
+        f"the step, {lost} of them without their kernel recorded ({lost_lead} of the "
+        f"lead-in's {lead}); the policy kernel's events: {named}; kernel launches {launches}")
+    if len(named) != 1 or launches != 1 or lost:
+        raise AssertionError("profiling: the trace lost kernels of the step or does not name "
+                             "its one fused_sample_action kernel")
+    kernel_row["launches_by_path"]["profiling"] = launches
+
+
 def main():
     seconds = {}
 
@@ -1667,10 +2050,15 @@ def main():
     timed("reference", phase_reference)
     timed("update_reference", phase_update_reference)
     learner, state = timed("rollout", phase_slice, row)
+    slice_state = (learner, state)
     timed("breakdown", phase_breakdown, learner, state)
     cfgs, state = timed("train", phase_train, row)
     learner, state = timed("train_timing", phase_train_timing, cfgs, state)
     timed("weights_live", phase_weights_live, learner, state)
+    timed("ddp", phase_ddp, row)
+    timed("ddp2", phase_ddp2, row)
+    timed("split", phase_split, row)
+    timed("profiling", phase_profiling, row, *slice_state)
     timed("zoo", phase_zoo, row)
     timed("zoo_timing", phase_zoo_timing, learner, state)
     timed("rehearsal_reset", phase_rehearsal_reset)
@@ -1681,6 +2069,7 @@ def main():
     timed("compat", phase_compat, row)
     timed("boxes", phase_boxes, row)
     timed("campaign", phase_campaign, row)
+    timed("replay", phase_replay, row)
     timed("stacked_campaign", phase_stacked_campaign, row)
     timed("imported_campaign", phase_imported_campaign, row)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())

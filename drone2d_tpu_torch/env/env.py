@@ -18,7 +18,16 @@ import torch
 from drone2d_tpu_torch.config import EnvConfig
 from drone2d_tpu_torch.device import resolve_device
 from drone2d_tpu_torch.env import scenarios
-from drone2d_tpu_torch.env.types import EnvState, ObstacleSet, StepOutput, select_state
+from drone2d_tpu_torch.env.types import (
+    EnvState,
+    EpisodeDyn,
+    EpisodeStatic,
+    ObstacleSet,
+    StepOutput,
+    merge_state,
+    select_state,
+    split_state,
+)
 from drone2d_tpu_torch.ops import geometry, path as tpath, physics
 from drone2d_tpu_torch.ops.transforms import invm1to1, m1to1, ssa
 
@@ -532,6 +541,31 @@ class Drone2DEnv:
 
     # the single-env and the batched name of the JAX package are one function
     step_autoreset_template = step_batch_template
+
+    def step_autoreset_split(
+        self, dyn: EpisodeDyn, fresh: torch.Tensor, action: torch.Tensor,
+        init_static: EpisodeStatic, tmpl_static: EpisodeStatic, tmpl_dyn: EpisodeDyn,
+        tmpl_obs: torch.Tensor,
+    ):
+        """The split-carry auto-resetting step (`drone2d_tpu/env/env.py:612-659`):
+        `step_batch_template`'s semantics with the state split in two.  The
+        carry is the leaves `step` writes (`dyn`) and one `fresh` bit an env,
+        set once the env has auto-reset in this chunk; an env's per-episode
+        constants are `where(fresh, template, initial)`, blended at read time
+        from two operands the chunk never writes.  By induction the blend
+        equals the template variant's carried state, so the two loops agree
+        bit for bit.  At the end of a chunk `types.finalize_split(init_static,
+        tmpl_static, fresh, dyn)` gives back the whole state, and the next
+        chunk starts with `fresh` False.
+
+        Returns (dyn', fresh', obs, reward, done, info)."""
+        static = select_state(fresh, init_static, tmpl_static)
+        out = self.step(merge_state(static, dyn), action)
+        new_dyn = select_state(out.done, split_state(out.state)[1], tmpl_dyn)
+        new_obs = torch.where(out.done[:, None], tmpl_obs, out.obs)
+        return new_dyn, fresh | out.done, new_obs, out.reward, out.done, out.info
+
+    step_batch_split = step_autoreset_split
 
     def step_autoreset(
         self, state: EnvState, action: torch.Tensor, gen: torch.Generator, global_step=0.0,

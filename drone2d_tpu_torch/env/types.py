@@ -48,6 +48,69 @@ class EnvState:
     family: torch.Tensor        # (N,) int32 rehearsal family (0 = schedule)
 
 
+@dataclasses.dataclass
+class EpisodeStatic:
+    """The leaves of EnvState that are constant within an episode.
+
+    `Drone2DEnv.step` never writes them; they change only when an
+    auto-reset swaps in a template episode.  The split-carry step
+    (`Drone2DEnv.step_autoreset_split`) carries only the mutated leaves and
+    one `fresh` bit an env, and blends these at read time (`finalize_split`
+    gives back the whole state)."""
+
+    path: PathData
+    obstacles: ObstacleSet
+    target: torch.Tensor        # (N, 2)
+    family: torch.Tensor        # (N,) int32
+
+
+@dataclasses.dataclass
+class EpisodeDyn:
+    """The leaves of EnvState that `step` writes."""
+
+    body: BodyState
+    t: torch.Tensor
+    path_error: torch.Tensor
+    total_reward: torch.Tensor
+    la_locked: torch.Tensor
+    left_force: torch.Tensor
+    right_force: torch.Tensor
+
+
+def split_state(state: "EnvState") -> "tuple[EpisodeStatic, EpisodeDyn]":
+    """EnvState -> (per-episode constants, the leaves step writes)."""
+    return (
+        EpisodeStatic(state.path, state.obstacles, state.target, state.family),
+        EpisodeDyn(state.body, state.t, state.path_error, state.total_reward,
+                   state.la_locked, state.left_force, state.right_force),
+    )
+
+
+def merge_state(static: EpisodeStatic, dyn: EpisodeDyn) -> "EnvState":
+    """Inverse of split_state."""
+    return EnvState(
+        path=static.path, obstacles=static.obstacles, body=dyn.body, target=static.target,
+        t=dyn.t, path_error=dyn.path_error, total_reward=dyn.total_reward,
+        la_locked=dyn.la_locked, left_force=dyn.left_force, right_force=dyn.right_force,
+        family=static.family,
+    )
+
+
+def finalize_split(init_static: EpisodeStatic, tmpl_static: EpisodeStatic,
+                   fresh: torch.Tensor, dyn: EpisodeDyn) -> "EnvState":
+    """The whole EnvState at the end of a split-carry chunk
+    (`drone2d_tpu/env/types.py:113-139`).
+
+    The split loop never writes the per-episode constants: an env's true
+    statics are the template's where it has auto-reset in the chunk
+    (`fresh` (N,) bool), else its initial ones.  A caller that stops the
+    loop (to start the next chunk against a new template, to checkpoint, to
+    inspect) applies this blend once; carrying `init_static` on unblended
+    would bring back the finished episode's geometry for every env that
+    reset in the chunk."""
+    return merge_state(select_state(fresh, init_static, tmpl_static), dyn)
+
+
 def _none_leaf(leaves) -> bool:
     """True when every leaf is None; raises on a mix of None and tensors."""
     nones = [x is None for x in leaves]
@@ -71,7 +134,9 @@ def _select(mask: torch.Tensor, a, b):
 
 
 def select_state(mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
-    """Per env, the state `b` where mask (N,) is True, else `a`."""
+    """Per env, the state `b` where mask (N,) is True, else `a` (also for
+    any other tree of dataclasses over (N, ...) leaves, such as
+    `EpisodeStatic` and `EpisodeDyn`)."""
     return _select(mask, a, b)
 
 

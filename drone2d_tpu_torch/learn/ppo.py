@@ -25,6 +25,13 @@ with a leading member axis S (`state.params.members`) over S blocks of
 `num_envs` envs, one kernel launch a rollout step for all of them, each
 member's minibatches cut from its own rows, its loss, clip and metrics its
 own.  A single learner is the case with no member axis.
+
+Where the JAX package takes `axis_name` (inside `shard_map`), `update`,
+`update_from`, `learn_from`, `sgd` and `loss_fn` take `group`, a
+`torch.distributed` process group (`parallel/mesh.py`): the advantage
+moments, each minibatch's gradients, loss and aux, and the rollout's
+episode stats are reduced over the ranks with `all_reduce` (a mean is the
+SUM divided by the world size).  `group=None` runs no collective.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import dataclasses
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from drone2d_tpu_torch.config import EnvConfig, PPOConfig
 from drone2d_tpu_torch.device import resolve_device
@@ -134,6 +142,27 @@ def episode_stats(dones: torch.Tensor, infos: Dict[str, torch.Tensor],
     )
 
 
+def all_reduce_mean_(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of `x` over the ranks of `group`, in place: all_reduce SUM,
+    then a division by the world size (by 1.0, exact, for one rank).  Only
+    `all_reduce`, which gloo and NCCL both run on CUDA tensors."""
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x.div_(float(dist.get_world_size(group)))
+
+
+def sum_stats(stats: EpisodeStats, group) -> EpisodeStats:
+    """Each field of `stats` summed over the ranks of `group`, in one
+    all_reduce of the fields flattened into one buffer."""
+    fields = [getattr(stats, f.name) for f in dataclasses.fields(stats)]
+    flat = torch.cat([x.reshape(-1) for x in fields])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    out, at = {}, 0
+    for f, x in zip(dataclasses.fields(stats), fields):
+        out[f.name] = flat[at:at + x.numel()].view_as(x)
+        at += x.numel()
+    return EpisodeStats(**out)
+
+
 @dataclasses.dataclass
 class TrainState:
     params: ActorCritic
@@ -231,7 +260,7 @@ class PPOLearner:
     n_steps, GAE, then epochs x minibatches of SGD."""
 
     def __init__(self, env_cfg: EnvConfig, ppo_cfg: PPOConfig, num_envs: int,
-                 *, device=None):
+                 *, device=None, step_increment: int | None = None):
         batch_size = ppo_cfg.n_steps * num_envs
         # the JAX learner's checks and messages (learn/ppo.py:160-182)
         if batch_size % ppo_cfg.num_minibatches:
@@ -259,6 +288,10 @@ class PPOLearner:
         self.env = Drone2DEnv(env_cfg, self.device)
         self.cfg = ppo_cfg
         self.num_envs = num_envs
+        # global_step's advance an env step: under data parallelism a rank
+        # steps num_envs / world envs, but the curriculum clock counts the
+        # global batch (drone2d_tpu/learn/ppo.py:151-159)
+        self.step_increment = num_envs if step_increment is None else step_increment
         self.batch_size = batch_size
         self.minibatch_size = batch_size // ppo_cfg.num_minibatches
 
@@ -308,16 +341,19 @@ class PPOLearner:
 
     def start(self, generator: torch.Generator, params: ActorCritic,
               global_step: float = 0.0, episodes_total: float = 0.0,
-              rehearsal_probs: torch.Tensor | None = None) -> TrainState:
-        """A state over `params` with a fresh optimizer and envs reset from
-        `generator` at `global_step`, with zero family counts.  The rehearsal
-        probabilities default to the initial ones."""
+              rehearsal_probs: torch.Tensor | None = None,
+              env_generator: torch.Generator | None = None) -> TrainState:
+        """A state over `params` with a fresh optimizer and envs reset at
+        `global_step` from `env_generator` (default: `generator`, the
+        state's), with zero family counts.  The rehearsal probabilities
+        default to the initial ones."""
         f32 = dict(dtype=torch.float32, device=self.device)
         step = torch.tensor(global_step, **f32)
         probs = (self.initial_rehearsal_probs() if rehearsal_probs is None
                  else rehearsal_probs.to(**f32))
-        env_state, obs = self.env.reset_batch(generator, self.num_envs, step,
-                                              self._reset_probs(probs))
+        env_state, obs = self.env.reset_batch(
+            generator if env_generator is None else env_generator, self.num_envs, step,
+            self._reset_probs(probs))
         return TrainState(
             params=params, optimizer=optim.adam(params.parameters(), self.cfg.learning_rate),
             env_state=env_state, obs=obs, generator=generator, global_step=step,
@@ -372,7 +408,7 @@ class PPOLearner:
         _, _, last_values = state.params.sample_action(
             obs.view(*lead, OBS_DIM), noise=torch.zeros((*lead, ACT_DIM), **f32)
         )
-        global_step = state.global_step + torch.tensor(float(T * N), **f32)
+        global_step = state.global_step + torch.tensor(float(T * self.step_increment), **f32)
         new_state = dataclasses.replace(
             state, env_state=env_state, obs=obs, global_step=global_step
         )
@@ -388,11 +424,15 @@ class PPOLearner:
         old_log_probs: torch.Tensor,
         advantages: torch.Tensor,
         returns: torch.Tensor,
+        group=None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The clipped-surrogate loss of one minibatch and its aux values
-        (`drone2d_tpu/learn/ppo.py:323-371`, one device).  The minibatch is
-        (B, ...); a population's is (S, B, ...), each member's loss and aux
-        taken over its own B, shaped (S,)."""
+        (`drone2d_tpu/learn/ppo.py:323-371`).  The minibatch is (B, ...); a
+        population's is (S, B, ...), each member's loss and aux taken over
+        its own B, shaped (S,).  With `group` the minibatch is the union of
+        the ranks' equal-sized local minibatches: the advantage moments are
+        averaged over the ranks (the mean of the local moments is the
+        union's), as the JAX package pmeans them."""
         cfg = self.cfg
         log_prob, entropy, value = params.action_log_prob_entropy(obs, actions)
 
@@ -401,9 +441,14 @@ class PPOLearner:
 
         # per-minibatch advantage normalization (SB3 normalize_advantage),
         # two-pass with the population variance, as the JAX package writes
-        # it (torch.std would divide by n - 1)
+        # it (torch.std would divide by n - 1); the advantages are data, so
+        # no gradient flows through the moments
         m = mean(advantages, keepdim=True)
+        if group is not None:
+            all_reduce_mean_(m, group)
         var = mean(torch.square(advantages - m), keepdim=True)
+        if group is not None:
+            all_reduce_mean_(var, group)
         adv = (advantages - m) / (torch.sqrt(var) + 1e-8)
 
         ratio = torch.exp(log_prob - old_log_probs)
@@ -449,12 +494,16 @@ class PPOLearner:
         advantages: torch.Tensor,
         returns: torch.Tensor,
         perms: torch.Tensor,
+        group=None,
     ) -> Dict[str, torch.Tensor]:
         """The epochs x minibatches of clipped-surrogate steps, in place on
         `state.params` and `state.optimizer`, with the shuffles `perms` (see
         `draw_perms`; (S, ...) for a population, one row of shuffles a
         member).  Returns the loss and aux values averaged over every
-        minibatch, as () tensors on the device, (S,) for a population."""
+        minibatch, as () tensors on the device, (S,) for a population.
+        With `group`, each minibatch's gradients, loss and aux are averaged
+        over the ranks after the backward pass, before the clip and Adam, in
+        one all_reduce of one flat buffer."""
         cfg, M = self.cfg, self.cfg.num_minibatches
         S = state.params.members
         lead = () if S is None else (S,)
@@ -470,14 +519,17 @@ class PPOLearner:
                            device=self.device)
         data = (batch.obs, batch.actions, batch.log_probs, advantages, returns)
         for i, mb_data in enumerate(self._minibatches(data, perms, S)):
-            loss, aux = self.loss_fn(params, *mb_data)
+            loss, aux = self.loss_fn(params, *mb_data, group=group)
             opt.zero_grad(set_to_none=True)
             # a population's members share no weight: the sum's gradient is
             # each member's own
             loss.sum().backward()
+            row = torch.stack([v.detach() for v in (loss, *map(aux.get, _AUX_KEYS))])
+            if group is not None:
+                row = _all_reduce_grads_(leaves, row, group)
             optim.clip_by_global_norm_([p.grad for p in leaves], cfg.max_grad_norm, members=S)
             opt.step()
-            rows[i] = torch.stack([v.detach() for v in (loss, *map(aux.get, _AUX_KEYS))])
+            rows[i] = row
         means = rows.mean(dim=0)
         return {key: means[i] for i, key in enumerate(("loss",) + _AUX_KEYS)}
 
@@ -523,15 +575,16 @@ class PPOLearner:
         batch: RolloutBatch,
         last_values: torch.Tensor,
         perms: torch.Tensor,
+        group=None,
     ) -> Dict[str, torch.Tensor]:
-        """GAE over `batch`, then `sgd` with the shuffles `perms`; updates
-        `state.params` and `state.optimizer` in place and returns the SGD
-        metrics."""
+        """GAE over `batch`, then `sgd` with the shuffles `perms` (over
+        `group`'s ranks, if given); updates `state.params` and
+        `state.optimizer` in place and returns the SGD metrics."""
         advantages, returns = compute_gae(
             batch.rewards, batch.values, batch.dones, last_values,
             gamma=self.cfg.gamma, gae_lambda=self.cfg.gae_lambda,
         )
-        return self.sgd(state, batch, advantages, returns, perms)
+        return self.sgd(state, batch, advantages, returns, perms, group=group)
 
     def draws(self, state: TrainState):
         """An update's draws from the state's generator, as `update_from`
@@ -539,9 +592,12 @@ class PPOLearner:
         then the shuffles."""
         return (*self._rollout_draws(state), self.draw_perms(state.generator))
 
-    def update(self, state: TrainState) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One PPO iteration with the draws made from the state's generator."""
-        return self.update_from(state, *self.draws(state))
+    def update(self, state: TrainState, *, group=None
+               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One PPO iteration with the draws made from the state's generator;
+        with `group`, one rank's share of a data-parallel iteration (see
+        `update_from`)."""
+        return self.update_from(state, *self.draws(state), group=group)
 
     def update_from(
         self,
@@ -550,13 +606,21 @@ class PPOLearner:
         reset_obs: torch.Tensor,
         noise: torch.Tensor,
         perms: torch.Tensor,
+        *,
+        group=None,
     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One PPO iteration with its draws given.  Returns (state',
         metrics): the keys of the JAX package's metrics
         (`learn/ppo.py:468-478`), as () tensors on the device, (S,) for a
-        population."""
+        population.  With `group` this rank rolls out its own envs, the SGD
+        steps take the union of the ranks' minibatches (`sgd`) and the
+        episode stats are summed over the ranks, so that the weights, the
+        optimizer, the counters and the metrics come out the same on every
+        rank (`drone2d_tpu/learn/ppo.py:376-402, 471-473`)."""
         state, batch, last_values, stats = self.rollout_from(state, reset_state, reset_obs, noise)
-        metrics = self.learn_from(state, batch, last_values, perms)
+        metrics = self.learn_from(state, batch, last_values, perms, group=group)
+        if group is not None:
+            stats = sum_stats(stats, group)
         episodes_total = state.episodes_total + stats.n_episodes
         metrics.update({f"episodes/{k}": v for k, v in stats.summary().items()})
         metrics["episodes/total"] = episodes_total
@@ -566,6 +630,24 @@ class PPOLearner:
             family_counts=state.family_counts + stats.family_counts,
             family_wins=state.family_wins + stats.family_wins,
         ), metrics
+
+
+def _all_reduce_grads_(leaves, row: torch.Tensor, group) -> torch.Tensor:
+    """Average every leaf's gradient and the minibatch's (loss, *aux) `row`
+    over the ranks of `group` in one all_reduce: the gradients and the row
+    flattened into one buffer, reduced, divided by the world size and
+    copied back into the gradients.  Returns the reduced row.
+
+    The copy keeps each gradient in its own allocation: views into the
+    buffer would sit at offsets that are not 16-byte aligned, and CUDA's
+    multi-tensor norm (the clip) then sums in another order than for the
+    plain update's gradients."""
+    grads = [p.grad for p in leaves]
+    flat = all_reduce_mean_(torch.cat([g.reshape(-1) for g in grads] + [row.reshape(-1)]),
+                            group)
+    parts = torch.split(flat, [g.numel() for g in grads] + [row.numel()])
+    torch._foreach_copy_(grads, [x.view_as(g) for x, g in zip(parts, grads)])
+    return parts[-1].view_as(row)
 
 
 def affine_perm(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:

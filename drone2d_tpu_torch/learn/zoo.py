@@ -21,8 +21,10 @@ float32 rounding (the stacked products and per-member sums run in another
 order).  `update_from` takes the draws, so tests can feed it the JAX
 package's.
 
-`shard_population` (the JAX package's population over a device mesh) has
-no meaning on one card; it waits for data parallelism.
+`shard_population` splits the member axis over the ranks of a
+`torch.distributed` group with no collective, as the JAX package shards it
+over a device mesh: each rank trains its own block of S / world seeds, and
+`train_zoo(group=...)` writes each seed's files from the rank that owns it.
 
 Seed-selection campaigns pair this with
 `drone2d_tpu_torch.scripts.select_agents` (batched multi-agent eval).
@@ -37,6 +39,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from drone2d_tpu_torch.config import EnvConfig, PPOConfig
 from drone2d_tpu_torch.env.env import ACT_DIM, OBS_DIM
@@ -111,6 +114,19 @@ def assemble(members: Sequence[TrainState], learning_rate: float) -> ZooState:
     )
 
 
+def shard_population(group, seeds: Sequence[int]) -> List[int]:
+    """This rank's block of the population `seeds`: the member axis split
+    over the ranks of `group`, rank r taking seeds [r S / world, (r + 1) S /
+    world).  Members share nothing, so the block trains alone, with no
+    collective (`drone2d_tpu/learn/zoo.py:62-92`).  Raises unless the
+    world size divides S."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    if len(seeds) % world:
+        raise ValueError(f"population size {len(seeds)} not divisible by {world} ranks")
+    n = len(seeds) // world
+    return list(seeds[rank * n:(rank + 1) * n])
+
+
 def save_zoo(state: ZooState, seeds: Sequence[int], out_root: str,
              step: Optional[int] = None) -> List[str]:
     """Write each member's weights as seed_<s>/new_agent.npz (final) or
@@ -139,6 +155,7 @@ def train_zoo(
     log_every: int = 20,
     init_params: Optional[str] = None,
     device=None,
+    group=None,
 ) -> ZooState:
     """Train the population to `total_timesteps` each, writing snapshots on
     the way: `snapshots` evenly spaced ones, or, given `snapshot_steps`, one
@@ -147,7 +164,13 @@ def train_zoo(
     adaptive rehearsal with the controller on, each member reweights its own
     families every `log_every` updates.  `init_params` (an agent .npz or the
     port's checkpoint directory) warm-starts every member from its own copy
-    of one agent.  Prints the population's mean and best success rate."""
+    of one agent.  Prints the population's mean and best success rate.
+    With `group`, this rank trains its block of the seeds
+    (`shard_population`) and writes their files; rank 0 prints its own
+    block's rates."""
+    if group is not None:
+        seeds = shard_population(group, seeds)
+    lead = group is None or dist.get_rank(group) == 0
     trainer = ZooTrainer(env_cfg, ppo_cfg, num_envs, device=device)
     if env_cfg.adaptive_rehearsal and float(trainer.initial_rehearsal_probs().sum()) <= 0.0:
         raise ValueError(
@@ -169,7 +192,7 @@ def train_zoo(
             raise ValueError(f"init_params {init_params} has shapes {got}, but the "
                              f"population expects {want} (check hidden_sizes)")
     state = trainer.init(seeds, params=params)
-    if init_params:
+    if init_params and lead:
         print(f"warm-started {len(seeds)} members from {init_params}")
     spu = trainer.batch_size  # env steps a member an update
     n_updates = max((total_timesteps + spu - 1) // spu, 1)
@@ -203,7 +226,7 @@ def train_zoo(
             # the first update also builds the kernel: the rate starts after it
             float(metrics["loss"][0])
             t0 = time.perf_counter()
-        if u % log_every == 0 or u == n_updates:
+        if lead and (u % log_every == 0 or u == n_updates):
             sr = metrics["episodes/success_rate"].cpu().numpy()
             loss = metrics["loss"].cpu().numpy()
             rate = spu * len(seeds) * max(u - 1, 1) / max(time.perf_counter() - t0, 1e-9)

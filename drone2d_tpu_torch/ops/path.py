@@ -279,3 +279,18 @@ def lookahead_u(pd: PathData, u: torch.Tensor, lookahead_distance) -> torch.Tens
 def lookahead_point_from_u(pd: PathData, u: torch.Tensor, lookahead_distance) -> torch.Tensor:
     """Lookahead point given an already-computed closest u."""
     return path_point(pd, lookahead_u(pd, u, lookahead_distance))
+
+
+def closest_position(pd: PathData, position: torch.Tensor, *, golden_iters: int) -> torch.Tensor:
+    """Closest point on the path to position (N, 2) -> (N, 2), by
+    `golden_iters` golden-section steps (reference get_closest_position,
+    predef_path.py:251-255)."""
+    return path_point(pd, closest_u(pd, position, golden_iters=golden_iters))
+
+
+def path_coords(pd: PathData, n: int = 100) -> torch.Tensor:
+    """n evenly spaced points over [0, L] of each path -> (N, n, 2)
+    (reference get_path_coord, predef_path.py:297-304), a host-side
+    rendering helper."""
+    zero = torch.zeros(1, dtype=pd.length.dtype, device=pd.length.device)
+    return path_point(pd, _linspace(zero, zero + 1, n) * pd.length[:, None])

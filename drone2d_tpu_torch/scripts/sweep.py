@@ -14,7 +14,9 @@ each evaluated on the full 12-scenario suite, summaries written to --out.
 batch and one policy-kernel launch a step for all S), writes the
 seed_<s>/ snapshots and leaves the evaluation to
 `drone2d_tpu_torch.scripts.select_agents`.  Runs on the CUDA card unless
-`--device cpu`.
+`--device cpu`.  Under torchrun (`torchrun --nproc_per_node=K -m
+drone2d_tpu_torch.scripts.sweep --vmap S ...`) each population of S seeds
+is split over the K ranks, one card each (`learn/zoo.py::shard_population`).
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from drone2d_tpu_torch.config import (
 )
 from drone2d_tpu_torch.eval.run import evaluate
 from drone2d_tpu_torch.learn.zoo import train_zoo
+from drone2d_tpu_torch.parallel.mesh import make_group
+from drone2d_tpu_torch.parallel.multihost import host_info, launched
 from drone2d_tpu_torch.train import train
 
 
@@ -170,6 +174,12 @@ def main(argv=None) -> None:
                         shuffle=args.shuffle, **ppo_overrides)
 
     os.makedirs(args.out, exist_ok=True)
+    group, device = None, args.device
+    if launched():
+        if not args.vmap:
+            raise SystemExit("under torchrun the sweep splits each population over the "
+                             "ranks: pass --vmap S")
+        group, device = make_group(args.device)
     if args.vmap:
         for i in range(0, len(args.seeds), args.vmap):
             chunk = args.seeds[i:i + args.vmap]
@@ -177,10 +187,11 @@ def main(argv=None) -> None:
             train_zoo(
                 env_cfg, ppo_cfg, args.num_envs, chunk, args.total_timesteps, args.out,
                 snapshots=args.snapshots, snapshot_steps=args.snapshot_steps,
-                init_params=args.init_params, device=args.device,
+                init_params=args.init_params, device=device, group=group,
             )
-            print(f"=== zoo chunk {chunk}: trained ({time.time()-t0:.0f}s), "
-                  f"eval via select_agents")
+            if host_info().is_coordinator:
+                print(f"=== zoo chunk {chunk}: trained ({time.time()-t0:.0f}s), "
+                      f"eval via select_agents")
         return
     for seed in args.seeds:
         run_dir = os.path.join(args.out, f"seed_{seed}")

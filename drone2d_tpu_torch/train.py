@@ -3,9 +3,15 @@
 
     python -m drone2d_tpu_torch.train --preset flagship-scratch
 
-Runs on the CUDA card unless `--device cpu`, on one device (data
-parallelism is not ported).  It maps the reference pipeline as the JAX
-package does:
+Runs on the CUDA card unless `--device cpu`.  Under torchrun,
+
+    torchrun --nproc_per_node=K -m drone2d_tpu_torch.train --preset flagship-scratch
+
+it trains one learner over K ranks, one card each (`parallel/mesh.py`:
+each rank rolls out num_envs / K envs, the gradients are averaged over the
+ranks; NCCL on the cards, gloo with `--device cpu`), and rank 0 alone
+writes the metrics, the checkpoints and new_agent.npz.  It maps the
+reference pipeline as the JAX package does:
   PPO("MlpPolicy", ent_coef=0.01)     -> drone2d_tpu_torch.learn.PPOLearner
   CheckpointCallback(100000//n_cpu)   -> torch.save every checkpoint_every_steps
   TensorboardLogger                   -> MetricsWriter (JSONL + TB)
@@ -26,6 +32,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from drone2d_tpu_torch.config import (
     PRESETS,
@@ -39,6 +46,8 @@ from drone2d_tpu_torch.eval.run import load_params
 from drone2d_tpu_torch.learn.plr import family_report, reweight_rehearsal
 from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState
 from drone2d_tpu_torch.models.policy import params_to_flat_dict
+from drone2d_tpu_torch.parallel.mesh import make_group, shard_init, shard_restore, shard_update
+from drone2d_tpu_torch.parallel.multihost import host_info, launched
 from drone2d_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from drone2d_tpu_torch.utils.metrics import MetricsWriter
 
@@ -131,10 +140,13 @@ def train(
     max_updates: int = 0,
     init_params: str | None = None,
     device=None,
+    group=None,
 ) -> TrainState:
     """Train until `total_timesteps` (or `max_updates`), then save a
     checkpoint and `new_agent.npz` under `checkpoint_dir`.  Returns the
-    final state."""
+    final state.  With `group` (`parallel.make_group`) this process is one
+    rank of a data-parallel run over `train_cfg.num_envs` envs in all; rank
+    0 alone writes and prints."""
     learner = PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs, device=device)
     if env_cfg.adaptive_rehearsal and float(learner.initial_rehearsal_probs().sum()) <= 0.0:
         raise ValueError(
@@ -145,27 +157,38 @@ def train(
         )
     plr_tick = env_cfg.adaptive_rehearsal and env_cfg.rehearsal_adapt
 
+    lead = group is None or dist.get_rank(group) == 0
+    log = print if lead else (lambda *a, **k: None)
     start_step = 0
     if resume:
-        state, start_step = restore_checkpoint(train_cfg.checkpoint_dir, learner)
-        print(f"resumed from step {start_step}")
+        if group is None:
+            state, start_step = restore_checkpoint(train_cfg.checkpoint_dir, learner)
+        else:
+            state, start_step = shard_restore(group, learner, train_cfg.checkpoint_dir)
+        log(f"resumed from step {start_step}")
     else:
         # a warm start takes the policy only; optimizer, envs and
         # global_step start fresh (a fine-tune, not a resume)
         params = load_agent(init_params, ppo_cfg, learner.device) if init_params else None
-        state = learner.init(train_cfg.seed, params=params)
+        if group is None:
+            state = learner.init(train_cfg.seed, params=params)
+        else:
+            state = shard_init(group, learner, train_cfg.seed, params=params)
         if init_params:
-            print(f"warm-started params from {init_params}")
+            log(f"warm-started params from {init_params}")
+    update = learner.update if group is None else shard_update(group, learner)
 
-    writer = MetricsWriter(
-        train_cfg.metrics_path,
-        tensorboard_dir=f"{train_cfg.checkpoint_dir}/tb",
-        resume=resume,
-    )
-    writer.write_config_snapshot(
-        train_cfg.checkpoint_dir,
-        env_train_config=env_cfg, rl_config=ppo_cfg, train_config=train_cfg,
-    )
+    writer = None
+    if lead:
+        writer = MetricsWriter(
+            train_cfg.metrics_path,
+            tensorboard_dir=f"{train_cfg.checkpoint_dir}/tb",
+            resume=resume,
+        )
+        writer.write_config_snapshot(
+            train_cfg.checkpoint_dir,
+            env_train_config=env_cfg, rl_config=ppo_cfg, train_config=train_cfg,
+        )
 
     steps_per_update = ppo_cfg.n_steps * train_cfg.num_envs
     next_ckpt = (start_step // train_cfg.checkpoint_every_steps + 1) * train_cfg.checkpoint_every_steps
@@ -175,7 +198,7 @@ def train(
     t0 = time.perf_counter()
     try:
         while True:
-            state, metrics = learner.update(state)
+            state, metrics = update(state)
             n_updates += 1
             # host-side step bookkeeping: nothing is copied from the device
             # between logged updates
@@ -189,12 +212,12 @@ def train(
                 # one copy of every metric to the host
                 values = torch.stack(list(metrics.values())).tolist()
                 m = dict(zip(metrics, values))
-                # cumulative episodes accumulated on the device (exact across
-                # skipped updates and across resume)
-                writer.set_episodes_total(int(m.pop("episodes/total")))
+                episodes_total = int(m.pop("episodes/total"))
                 if plr_tick:
                     # PLR-lite controller tick: reweight the rehearsal
                     # families by their failure rates since the last tick
+                    # (on every rank: the counts are summed over the ranks,
+                    # so the probabilities stay replicated)
                     counts, wins, probs = (t.cpu().numpy() for t in (
                         state.family_counts, state.family_wins, state.rehearsal_probs))
                     dc, dw = counts - plr_last[0], wins - plr_last[1]
@@ -204,20 +227,25 @@ def train(
                         new_probs, device=learner.device))
                     for f, name in enumerate(FAMILY_NAMES[1:]):
                         m[f"rehearsal/p_{name}"] = float(new_probs[f])
-                    print("  rehearsal:", family_report(dc, dw), "->", np.round(new_probs, 3))
+                    log("  rehearsal:", family_report(dc, dw), "->", np.round(new_probs, 3))
                 rate = ""
                 if n_updates > 1:  # the clock restarted after the first update
                     m["throughput/env_steps_per_s"] = steps_per_update * (n_updates - 1) / (
                         time.perf_counter() - t0)
                     rate = f"  {m['throughput/env_steps_per_s']:,.0f} steps/s"
-                writer.write(gs, m)
-                print(
+                if lead:
+                    # cumulative episodes accumulated on the device (exact
+                    # across skipped updates and across resume)
+                    writer.set_episodes_total(episodes_total)
+                    writer.write(gs, m)
+                log(
                     f"step {gs:>9d}  loss {m['loss']:8.3f}  "
                     f"ep_ret {m['episodes/avg_total_reward']:8.2f}  "
                     f"sr {m['episodes/success_rate']:.2f}{rate}"
                 )
             if gs >= next_ckpt:
-                save_checkpoint(train_cfg.checkpoint_dir, state)
+                if lead:
+                    save_checkpoint(train_cfg.checkpoint_dir, state)
                 next_ckpt += train_cfg.checkpoint_every_steps
             if gs >= train_cfg.total_timesteps:
                 break
@@ -225,10 +253,12 @@ def train(
                 break
     finally:
         # final save (reference model.save('new_agent'), main.py:209)
-        step = save_checkpoint(train_cfg.checkpoint_dir, state)
-        np.savez(f"{train_cfg.checkpoint_dir}/new_agent.npz", **params_to_flat_dict(state.params))
-        writer.close()
-        print(f"saved final checkpoint at step {step}")
+        if lead:
+            step = save_checkpoint(train_cfg.checkpoint_dir, state)
+            np.savez(f"{train_cfg.checkpoint_dir}/new_agent.npz",
+                     **params_to_flat_dict(state.params))
+            writer.close()
+            print(f"saved final checkpoint at step {step}")
     return state
 
 
@@ -236,19 +266,28 @@ def main(argv=None) -> None:
     from drone2d_tpu_torch.utils.runtime import wait_for_accelerator
 
     args, train_cfg, env_cfg, ppo_cfg = parse_args(argv)
+    group, device = None, args.device
+    if launched():  # one rank of a torchrun launch
+        group, device = make_group(args.device)
+    log = print if host_info().is_coordinator else (lambda *a: None)
     if args.preset:
-        print(f"preset {args.preset!r}: {PRESETS[args.preset]['doc']}")
+        log(f"preset {args.preset!r}: {PRESETS[args.preset]['doc']}")
     if args.device != "cpu":
-        print(f"device: {wait_for_accelerator()}")
-    train(
-        train_cfg,
-        env_cfg,
-        ppo_cfg,
-        resume=args.resume,
-        max_updates=args.max_updates,
-        init_params=args.init_params,
-        device=args.device,
-    )
+        log(f"device: {wait_for_accelerator()}")
+    try:
+        train(
+            train_cfg,
+            env_cfg,
+            ppo_cfg,
+            resume=args.resume,
+            max_updates=args.max_updates,
+            init_params=args.init_params,
+            device=device,
+            group=group,
+        )
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -23,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
-from typing import List, Tuple
+from typing import Callable, List, Tuple
 
 import torch
 
@@ -77,10 +77,12 @@ def save_checkpoint(directory: str, state: TrainState) -> int:
     return step
 
 
-def restore_checkpoint(directory: str, learner: PPOLearner) -> Tuple[TrainState, int]:
+def restore_checkpoint(directory: str, learner: PPOLearner, env_generator: Callable[
+        [torch.Generator], torch.Generator] | None = None) -> Tuple[TrainState, int]:
     """A runnable TrainState from the latest checkpoint, with its envs reset
     at the restored global_step (from the restored rehearsal probabilities
-    under adaptive rehearsal).  A checkpoint without the PLR fields restores
+    under adaptive rehearsal), drawing from the restored generator, or from
+    `env_generator(restored generator)` when given (a rank's own slice).  A checkpoint without the PLR fields restores
     the initial probabilities and zero counts.  On another device type than
     the one that saved it, the generator is seeded from the stored seed; a
     checkpoint without one (written before the seed was stored) raises."""
@@ -107,7 +109,8 @@ def restore_checkpoint(directory: str, learner: PPOLearner) -> Tuple[TrainState,
             f"{path} holds a {saved_on} generator state and no seed (it predates "
             f"cross-device resume): resume it on a {saved_on} device")
     state = learner.start(gen, params, float(payload["global_step"]),
-                          float(payload["episodes_total"]), payload.get("rehearsal_probs"))
+                          float(payload["episodes_total"]), payload.get("rehearsal_probs"),
+                          None if env_generator is None else env_generator(gen))
     if "family_counts" in payload:
         state = dataclasses.replace(state, **{
             k: payload[k].to(learner.device) for k in ("family_counts", "family_wins")})

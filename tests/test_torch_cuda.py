@@ -8,7 +8,9 @@ a population's update and the eval runner on the card against the same on
 the CPU; the adaptive rehearsal reset and its rollout's family accounting on
 the card; a checkpoint written on the card resumes on the CPU.  The box
 obstacles' geometry and step, the vector env core and the fresh-draw step
-(`step_batch`) on the card against the CPU.
+(`step_batch`) on the card against the CPU.  A world-1 NCCL group's sharded
+update bit-equal to the plain update, and the split-carry step bit-equal to
+the template step over a chunk.
 
 These need an NVIDIA GPU and nvcc, and skip without one.  This file imports
 no JAX, so on a machine with the card and without JAX it runs alone:
@@ -447,3 +449,68 @@ def test_graft_step_on_card_matches_cpu(dev, monkeypatch):
         s = out.state
     assert bool(out.done.all()) and bool((s.t == 0).all())
     assert not bool((s.path.wps[:, 0] == before).all(1).any())
+
+
+def test_world_one_nccl_shard_update_bit_equal_to_plain(dev):
+    """`shard_update` over a world-1 NCCL group on the card against the
+    plain update from a copy of the same state with the rank's generator:
+    weights, Adam's state and every metric bit-equal (the collectives run:
+    a sum over one rank and a division by 1.0 are exact)."""
+    import copy
+
+    import torch.distributed as dist
+
+    from drone2d_tpu_torch.parallel import mesh
+
+    group, d = mesh.make_group("cuda:0", backend="nccl")
+    try:
+        assert dist.get_backend(group) == "nccl"
+        learner = PPOLearner(EnvConfig(path_table_n=128),
+                             PPOConfig(n_steps=8, num_minibatches=4, n_epochs=2,
+                                       hidden_sizes=(32, 32)), 64, device=d)
+        state = mesh.shard_init(group, learner, 3)
+        twin = torch.Generator(device=d)
+        twin.set_state(state.generator.get_state())
+        params = copy.deepcopy(state.params)
+        plain = dataclasses.replace(state, params=params,
+                                    optimizer=optim.adam(params.parameters(), 3e-4),
+                                    generator=mesh.rank_generator(twin, 0))
+        got_state, got = mesh.shard_update(group, learner)(state)
+        want_state, want = learner.update(plain)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(got_state.params.parameters(), want_state.params.parameters()):
+        assert torch.equal(a, b)
+    for sa, sb in zip(got_state.optimizer.state.values(), want_state.optimizer.state.values()):
+        assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+def test_split_chunk_on_card_bit_exact(dev):
+    """The split-carry step on the card over a chunk against the template
+    step: every step's obs, reward and done bit-equal, and finalize_split
+    equal to the template chunk's state."""
+    from drone2d_tpu_torch.env.types import finalize_split, split_state
+
+    env = Drone2DEnv(EnvConfig(path_table_n=128), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    state, _ = env.reset_batch(gen, 512, 3e6)
+    state.t = torch.where(torch.arange(512, device=dev) % 2 == 0, 1090, state.t).to(torch.int32)
+    tmpl, tmpl_obs = env.reset_batch(gen, 512, 3e6)
+    actions = torch.rand(32, 512, 2, generator=gen, device=dev) * 2 - 1
+    init_static, dyn = split_state(state)
+    tmpl_static, tmpl_dyn = split_state(tmpl)
+    fresh = torch.zeros(512, dtype=torch.bool, device=dev)
+    for t in range(32):
+        out = env.step_batch_template(state, actions[t], tmpl, tmpl_obs)
+        dyn, fresh, obs, reward, done, _ = env.step_batch_split(
+            dyn, fresh, actions[t], init_static, tmpl_static, tmpl_dyn, tmpl_obs)
+        assert torch.equal(obs, out.obs) and torch.equal(reward, out.reward)
+        assert torch.equal(done, out.done)
+        state = out.state
+    assert int(fresh.sum()) >= 256
+    final = finalize_split(init_static, tmpl_static, fresh, dyn)
+    for name in ("t", "total_reward", "target", "family"):
+        assert torch.equal(getattr(final, name), getattr(state, name)), name
+    assert torch.equal(final.path.table_u, state.path.table_u)
+    assert torch.equal(final.body.pos, state.body.pos)

@@ -1,0 +1,401 @@
+"""The port's data parallelism on the CPU: `parallel/` over gloo.
+
+Ranks are separate processes (`tests/torch_dist_workers.py`, joined by a
+rendezvous file), so every collective really crosses processes:
+- a world-1 `shard_update` is bit-equal to the plain `PPOLearner.update`
+  from the same state and draws (the collectives still run: a sum over
+  one rank and a division by 1.0 are exact);
+- 2 and 4 ranks equal `union_update`, the same update replayed in one
+  process over the union batch with matched minibatch composition, at the
+  JAX package's tolerance (`tests/test_parallel.py`: rtol 2e-5, atol 2e-6);
+- the port's 2-rank update equals JAX's 2-shard `shard_update` on the
+  conftest's virtual CPU mesh, with JAX's per-shard draws injected as
+  `tests/test_torch_ppo.py` injects them for one device (its bounds: the
+  weights to 1e-3 of the lr x SGD-steps budget, the metrics to 1e-4 of
+  max(|value|, 1), the counts exactly);
+- `shard_population` over 2 ranks is bit-equal, member by member, to the
+  one-process population of each rank's block, and equal to the whole
+  one-process population at the tolerance above;
+- the divisibility checks, `init_distributed` for a lone process, the
+  multi-process smoke script, `shard_restore` of rank 0's checkpoint on
+  both ranks, and `train.py` under torchrun (rank 0 writes one checkpoint
+  and one metrics file, and the checkpoint restores).
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from drone2d_tpu.config import EnvConfig as JEnvConfig, PPOConfig as JPPOConfig
+from drone2d_tpu.learn.ppo import PPOLearner as JPPOLearner
+from drone2d_tpu.models.policy import params_to_flat_dict as jax_to_flat
+from drone2d_tpu.parallel import make_mesh, shard_init as jax_shard_init
+from drone2d_tpu.parallel import shard_update as jax_shard_update
+from drone2d_tpu_torch.compat.from_jax import flatten_fields
+from drone2d_tpu_torch.config import EnvConfig, PPOConfig
+from drone2d_tpu_torch.learn import optim
+from drone2d_tpu_torch.learn.ppo import PPOLearner
+from drone2d_tpu_torch.learn.zoo import ZooTrainer
+from drone2d_tpu_torch.models.policy import ActorCritic, params_to_flat_dict
+from drone2d_tpu_torch.parallel import mesh
+from drone2d_tpu_torch.parallel.multihost import host_info, init_distributed
+from drone2d_tpu_torch.utils.checkpoint import restore_checkpoint
+from tests import torch_dist_workers as W
+from tests.test_torch_ppo import _jax_draws
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RTOL, ATOL = 2e-5, 2e-6
+# the JAX comparison: stage 2, every other env near the episode cap, so
+# that episodes end inside the rollout and the stats' reduction counts them
+JAX_GLOBAL_STEP, JAX_ENVS = 8e5, 16
+
+
+def _env():
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("XLA_FLAGS", "WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    return env
+
+
+def run_ranks(world: int, jobs, directory: str, timeout: float = 240.0) -> dict:
+    """Start `world` rank processes on `jobs`; -> {job: [result of each rank]}."""
+    with open(os.path.join(directory, "jobs.json"), "w") as f:
+        json.dump(list(jobs), f)
+    logs = [open(os.path.join(directory, f"rank_{r}.log"), "w+") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_dist_workers", str(r),
+                               str(world), directory], cwd=ROOT, env=_env(),
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    text = []
+    for log in logs:
+        log.seek(0)
+        text.append(log.read())
+        log.close()
+    assert all(p.returncode == 0 for p in procs), "\n".join(text)[-4000:]
+    return {job: [torch.load(os.path.join(directory, f"{job}_{r}.pt"), weights_only=False)
+                  for r in range(world)] for job in jobs}
+
+
+def _learner(num_envs):
+    return W._learner(num_envs)
+
+
+def _rank_states(world):
+    """The ranks' initial states as shard_init makes them, in one process,
+    sharing one weights object, optimizer and parent generator."""
+    local = mesh.local_learner(_learner(W.GLOBAL_ENVS), world)
+    states = [mesh.rank_state(local, W.SEED, r) for r in range(world)]
+    shared = dict(params=states[0].params, optimizer=states[0].optimizer,
+                  generator=states[0].generator)
+    return [dataclasses.replace(s, **shared) for s in states]
+
+
+def _union_params(world):
+    learner = _learner(W.GLOBAL_ENVS)
+    states = _rank_states(world)
+    for _ in range(W.UPDATES):
+        states = mesh.union_update(learner, states)
+    return params_to_flat_dict(states[0].params)
+
+
+# -- JAX's two shards --------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_two_shards(tmp_path_factory):
+    """JAX's 2-shard update from its shard_init state, moved to stage 2 with
+    every other env near the cap; and each rank's inputs for the port: the
+    JAX state's weights and env slice, and the shard's draws (the parent
+    key folded with the shard index, then split as `update` splits it)."""
+    if len(jax.devices()) < 2:
+        pytest.skip("needs the conftest's virtual CPU devices")
+    d = str(tmp_path_factory.mktemp("jax_two"))
+    env_cfg, ppo_cfg = JEnvConfig(**W.ENV_KW), JPPOConfig(**W.PPO_KW)
+    jl = JPPOLearner(env_cfg, ppo_cfg, JAX_ENVS)
+    m = make_mesh(jax.devices()[:2])
+    state0 = jax_shard_init(m, jl, jax.random.PRNGKey(5))
+    t0 = np.where(np.arange(JAX_ENVS) % 2 == 0,
+                  env_cfg.n_steps - 1 - np.arange(JAX_ENVS) % 6, 0).astype(np.int32)
+    moved = state0._replace(global_step=jnp.float32(JAX_GLOBAL_STEP),
+                            env_state=state0.env_state._replace(t=t0))
+    state0 = jax.tree.map(lambda new, old: jax.device_put(jnp.asarray(new), old.sharding),
+                          moved, state0)
+    state1, metrics = jax_shard_update(m, jl)(state0)
+    host = jax.tree.map(np.asarray, state0)
+    n_loc = JAX_ENVS // 2
+    local = JPPOLearner(env_cfg, ppo_cfg, n_loc, step_increment=JAX_ENVS)
+    reset = jax.jit(local.env.reset_batch, static_argnums=1)
+    flat_params = {k: np.asarray(v) for k, v in jax_to_flat(host.params).items()}
+    for sh in range(2):
+        sl = lambda x: x[sh * n_loc:(sh + 1) * n_loc]  # noqa: E731
+        st = host._replace(rng=jax.random.fold_in(state0.rng, sh))
+        reset_state, reset_obs, noise, perms = _jax_draws(local, reset, st)
+        arrays = {f"params/{k}": v for k, v in flat_params.items()}
+        arrays.update({f"env/{k}": sl(v) for k, v in
+                       flatten_fields(jax.tree.map(np.asarray, host.env_state)).items()})
+        arrays.update({f"reset/{k}": v for k, v in flatten_fields(reset_state).items()})
+        np.savez(os.path.join(d, f"jax_in_{sh}.npz"), obs=sl(host.obs), reset_obs=reset_obs,
+                 noise=noise, perms=perms, global_step=np.float32(JAX_GLOBAL_STEP), **arrays)
+    return d, dict(params={k: np.asarray(v) for k, v in jax_to_flat(state1.params).items()},
+                   metrics={k: float(v) for k, v in metrics.items()},
+                   global_step=float(state1.global_step),
+                   episodes_total=float(state1.episodes_total))
+
+
+@pytest.fixture(scope="module")
+def two_ranks(jax_two_shards):
+    """One 2-rank gloo group running every 2-rank job."""
+    d, _ = jax_two_shards
+    return run_ranks(2, ("shard", "jax", "population", "train_zoo", "raises"), d)
+
+
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    return run_ranks(4, ("shard",), str(tmp_path_factory.mktemp("four")))
+
+
+# -- the tests ---------------------------------------------------------------
+
+
+def test_world_one_shard_update_bit_equal_to_plain(tmp_path):
+    """shard_init + shard_update over a 1-rank gloo group against the plain
+    update from a copy of the same state, with the rank's generator: the
+    weights, Adam's moments, every other state field and every metric
+    bit-equal."""
+    group, dev = mesh.make_group("cpu", backend="gloo",
+                                 init_method=f"file://{tmp_path / 'rendezvous'}",
+                                 world_size=1, rank=0)
+    try:
+        learner = _learner(8)
+        state = mesh.shard_init(group, learner, 3)
+        local = mesh.local_learner(learner, 1)
+        assert (local.num_envs, local.step_increment) == (8, 8)
+        params = ActorCritic(27, 2, W.PPO_KW["hidden_sizes"], device="cpu")
+        params.load_state_dict(state.params.state_dict())
+        twin = torch.Generator()
+        twin.set_state(state.generator.get_state())
+        plain = dataclasses.replace(
+            state, params=params, optimizer=optim.adam(params.parameters(), 3e-4),
+            generator=mesh.rank_generator(twin, 0))
+        sharded_state, sharded = mesh.shard_update(group, learner)(state)
+        plain_state, want = learner.update(plain)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(sharded_state.params.parameters(), plain_state.params.parameters()):
+        assert torch.equal(a, b)
+    for sa, sb in zip(sharded_state.optimizer.state.values(),
+                      plain_state.optimizer.state.values()):
+        for k in sa:
+            assert torch.equal(sa[k], sb[k]), k
+    assert set(sharded) == set(want)
+    for k in want:
+        assert torch.equal(sharded[k], want[k]), k
+    for name in ("obs", "global_step", "episodes_total", "family_counts"):
+        assert torch.equal(getattr(sharded_state, name), getattr(plain_state, name)), name
+    # the parent generator advanced by one draw, as the twin did
+    assert torch.equal(sharded_state.generator.get_state(), twin.get_state())
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_shard_update_matches_union_batch(world, two_ranks, four_ranks):
+    """UPDATES sharded updates over `world` gloo ranks against the union
+    batch replayed in one process: every rank's weights to rtol 2e-5, atol
+    2e-6, and the counters exact."""
+    runs = {2: two_ranks, 4: four_ranks}[world]["shard"]
+    want = _union_params(world)
+    for r, run in enumerate(runs):
+        for k, v in want.items():
+            np.testing.assert_allclose(run["params"][k], v, rtol=RTOL, atol=ATOL,
+                                       err_msg=f"rank {r} {k}")
+        assert run["global_step"] == W.UPDATES * W.GLOBAL_ENVS * W.PPO_KW["n_steps"]
+
+
+def test_ranks_stay_replicated(two_ranks):
+    """After two updates both ranks hold the same weights, Adam moments,
+    parent generator and metrics, and their own envs."""
+    a, b = two_ranks["shard"]
+    for k in a["params"]:
+        np.testing.assert_array_equal(a["params"][k], b["params"][k])
+    for sa, sb in zip(a["adam"], b["adam"]):
+        for k in sa:
+            assert torch.equal(sa[k], sb[k])
+    assert torch.equal(a["generator"], b["generator"])
+    assert a["metrics"] == b["metrics"]
+    assert not torch.equal(a["obs"], b["obs"])
+
+
+def test_two_ranks_match_jax_two_shards(jax_two_shards, two_ranks):
+    _, want = jax_two_shards
+    bound = 1e-3 * 3e-4 * W.PPO_KW["n_epochs"] * W.PPO_KW["num_minibatches"]
+    assert want["metrics"]["episodes/episodes"] >= 4
+    for run in two_ranks["jax"]:
+        for k, v in want["params"].items():
+            err = float(np.abs(run["params"][k].astype(np.float64) - v).max())
+            assert err <= bound, (k, err, bound)
+        got = run["metrics"]
+        assert set(got) == set(want["metrics"])
+        for k in ("episodes/episodes", "episodes/total", "global_step",
+                  "episodes/success_rate", "episodes/failure_rate"):
+            assert got[k] == want["metrics"][k], k
+        for k, v in want["metrics"].items():
+            assert abs(got[k] - v) <= 1e-4 * max(abs(v), 1.0), k
+        assert run["global_step"] == want["global_step"]
+        assert run["episodes_total"] == want["episodes_total"]
+
+
+def test_shard_population_bit_equal_to_one_process(two_ranks):
+    """Each rank trains its block of POP_SEEDS with no collective: every
+    member's weights after one update are bit-equal to the same member's
+    in a one-process population of that block, and equal to the
+    one-process population of all S at rtol 2e-5, atol 2e-6 (the stacked
+    products and per-member reductions round in an order that depends on
+    S: ~1e-8 apart on this CPU)."""
+    trainer = ZooTrainer(EnvConfig(**W.ENV_KW), PPOConfig(**W.PPO_KW), W.POP_ENVS, device="cpu")
+    whole, _ = trainer.update(trainer.init(W.POP_SEEDS))
+    runs = two_ranks["population"]
+    assert [s for run in runs for s in run["seeds"]] == list(W.POP_SEEDS)
+    for run in runs:
+        block, _ = trainer.update(trainer.init(run["seeds"]))
+        for i, s in enumerate(run["seeds"]):
+            flat = run["members"][s]
+            want = params_to_flat_dict(block.params.member(i))
+            near = params_to_flat_dict(whole.params.member(W.POP_SEEDS.index(s)))
+            for k in want:
+                np.testing.assert_array_equal(flat[k], want[k], err_msg=f"seed {s} {k}")
+                np.testing.assert_allclose(flat[k], near[k], rtol=RTOL, atol=ATOL,
+                                           err_msg=f"seed {s} {k}")
+
+
+def test_train_zoo_over_two_ranks_writes_every_seed(jax_two_shards, two_ranks):
+    """`train_zoo(group=...)`: each rank writes its own seeds' agent files,
+    the layout `scripts/select_agents.py` reads, each the weights of its
+    block's update."""
+    d, _ = jax_two_shards
+    for run in two_ranks["population"]:
+        for s, flat in run["members"].items():
+            with np.load(os.path.join(d, "zoo", f"seed_{s}", "new_agent.npz")) as z:
+                assert sorted(z) == sorted(flat)
+                for k in flat:
+                    np.testing.assert_array_equal(z[k], flat[k], err_msg=f"seed {s} {k}")
+
+
+def test_num_envs_not_divisible_raises(two_ranks):
+    for run in two_ranks["raises"]:
+        assert run["num_envs"] == "num_envs=3 % 2 ranks != 0"
+
+
+def test_population_not_divisible_raises(two_ranks):
+    for run in two_ranks["raises"]:
+        assert run["population"] == "population size 3 not divisible by 2 ranks"
+
+
+def test_init_distributed_lone_process_is_noop(monkeypatch):
+    for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    info = init_distributed()
+    assert not dist.is_initialized()
+    assert info == host_info() and info.is_coordinator
+    assert (info.process_index, info.process_count, info.global_device_count) == (0, 1, 1)
+
+
+def test_multihost_smoke_script():
+    out = subprocess.run([sys.executable, "-m", "drone2d_tpu_torch.scripts.multihost_smoke",
+                          "--device", "cpu", "--timeout", "120"], cwd=ROOT, env=_env(), capture_output=True,
+                         text=True, timeout=150)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    assert "MULTIHOST SMOKE OK" in out.stdout
+    assert out.stdout.count(" OK") == 3  # each rank's line and the verdict
+
+
+def test_ddp_check_script_under_torchrun():
+    """The cross-rank check (`scripts/ddp_check.py`) under torchrun with 2
+    gloo ranks on the CPU: each rank within rtol 2e-5, atol 2e-6 of the
+    union replay, the ranks bit-equal, DDP CHECK OK."""
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node=2", "-m", "drone2d_tpu_torch.scripts.ddp_check", "--device",
+            "cpu", "--num-envs", "8", "--ppo-n-steps", "8", "--ppo-num-minibatches", "4",
+            "--ppo-n-epochs", "2", "--env-path-table-n", "128"]
+    out = subprocess.run(argv, cwd=ROOT, env=_env(), capture_output=True, text=True,
+                         timeout=150)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "DDP CHECK OK"
+    rows = json.loads(lines[-2])["ranks"]
+    assert [r["rank"] for r in rows] == [0, 1]
+    assert all(r["backend"] == "gloo" and r["replicated"] and r["excess"] <= 1.0
+               and r["global_step"] == 64.0 for r in rows)
+
+
+def test_shard_restore_resets_each_rank_slice(two_ranks):
+    """Rank 0's checkpoint of the sharded state, restored on both ranks:
+    the step, the weights and the parent generator as saved and the same on
+    both, each rank's envs reset once, from its own seed: the parent
+    advances by that one seed's draw and no reset more."""
+    a, b = (run["restored"] for run in two_ranks["shard"])
+    saved = two_ranks["shard"][0]
+    assert a["step"] == b["step"] == saved["global_step"] == a["global_step"]
+    for k in saved["params"]:
+        np.testing.assert_array_equal(a["params"][k], saved["params"][k])
+        np.testing.assert_array_equal(b["params"][k], saved["params"][k])
+    parent = torch.Generator()
+    parent.set_state(saved["generator"])
+    seed = mesh.draw_seed(parent)
+    assert torch.equal(a["generator"], parent.get_state())
+    assert torch.equal(b["generator"], parent.get_state())
+    local = mesh.local_learner(W._learner(W.GLOBAL_ENVS), 2)
+    step = torch.tensor(saved["global_step"], dtype=torch.float32)
+    for rank, run in enumerate((a, b)):
+        _, obs = local.env.reset_batch(mesh.seeded(mesh.fold_in(seed, 1 + rank), "cpu"),
+                                       local.num_envs, step,
+                                       local._reset_probs(local.initial_rehearsal_probs()))
+        assert torch.equal(run["obs"], obs), rank
+    assert not torch.equal(a["obs"], b["obs"])
+
+
+def test_train_under_torchrun_checkpoints(tmp_path):
+    """Two CPU ranks under torchrun train 2 updates: rank 0 alone prints
+    and writes the checkpoint, the metrics rows and new_agent.npz, which a
+    resume reads back (the distributed resume: the test above)."""
+    d = tmp_path / "run"
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node=2", "-m", "drone2d_tpu_torch.train", "--device", "cpu",
+            "--num-envs", "8", "--ppo-n-steps", "8", "--ppo-num-minibatches", "4",
+            "--ppo-n-epochs", "2", "--env-path-table-n", "128", "--max-updates", "2",
+            "--log-every-updates", "1", "--checkpoint-dir", str(d),
+            "--metrics-path", str(d / "metrics.jsonl")]
+    out = subprocess.run(argv, cwd=ROOT, env=_env(), capture_output=True, text=True,
+                         timeout=150)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    assert out.stdout.count("saved final checkpoint at step 128") == 1, out.stdout
+    assert out.stdout.count("loss") == 2, out.stdout
+    assert [p.name for p in d.glob("ckpt_*.pt")] == ["ckpt_128.pt"]
+    rows = [json.loads(line) for line in open(d / "metrics.jsonl")]
+    assert [r["global_step"] for r in rows] == [64, 128]
+    assert all(np.isfinite(r["loss"]) for r in rows)
+    learner = PPOLearner(EnvConfig(path_table_n=128), PPOConfig(n_steps=8, num_minibatches=4,
+                                                                n_epochs=2), 8, device="cpu")
+    state, step = restore_checkpoint(str(d), learner)
+    assert step == 128 and float(state.global_step) == 128.0
+    with np.load(d / "new_agent.npz") as z:
+        for k, v in params_to_flat_dict(state.params).items():
+            np.testing.assert_array_equal(z[k], v)

@@ -204,7 +204,10 @@ def test_package_imports_no_jax():
                  "utils.checkpoint", "utils.metrics", "utils.runtime", "utils.host_path",
                  "eval.episode", "eval.artifacts", "eval.run", "eval.barplots",
                  "scripts.sweep", "scripts.select_agents", "compat.from_jax",
-                 "compat.sb3_import", "compat.gym_env", "compat.vector_env", "eval.render"):
+                 "compat.sb3_import", "compat.gym_env", "compat.vector_env", "eval.render",
+                 "parallel.mesh", "parallel.multihost", "eval.replay", "eval.curves",
+                 "eval.replotting", "utils.profiling", "debug", "scripts.multihost_smoke",
+                 "scripts.ddp_check"):
         assert f"drone2d_tpu_torch.{name}" in loaded, name
 
 
@@ -217,7 +220,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     from drone2d_tpu_torch.models.policy import ActorCritic, flat_dict_to_params
     from drone2d_tpu_torch.eval.run import main as eval_main
     from drone2d_tpu_torch.learn.zoo import ZooTrainer
-    from drone2d_tpu_torch.scripts import select_agents, sweep
+    from drone2d_tpu_torch.scripts import multihost_smoke, select_agents, sweep
     from drone2d_tpu_torch.train import main as train_main
     from drone2d_tpu_torch.utils.runtime import wait_for_accelerator
 
@@ -234,6 +237,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
                  lambda: ZooTrainer(EnvConfig(), PPOConfig(), 4),
                  lambda: sweep.main(["--out", os.devnull, "--vmap", "2", "--seeds", "1", "2"]),
                  lambda: select_agents.main([os.path.dirname(AGENT), "--episodes", "2"]),
+                 lambda: multihost_smoke.main([]),
                  wait_for_accelerator):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
