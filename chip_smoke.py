@@ -22,15 +22,25 @@ surface: an SB3 zip imported onto the card, the vector env core at 1024
 envs (256 steps through the kernel), the gym env at B=1 (200 steps), the
 graft entry's fresh-draw step (`step_batch`, 256 envs x 128 steps) and the
 initial throw; agent_s8004 on `parallel_boxes` x 1000; and two stacked
-12-scenario campaigns through `eval.episode.run_episodes_multi`: s8004 +
-s22307 at 1000 episodes each, the four imported reference agents at 200.
+campaigns through `eval.episode.run_episodes_multi`: s8004 + s22307 on the
+12 scenarios at 1000 episodes each (through `scripts/precision_campaign`),
+the four imported reference agents on 4 of them at 200.
 Data parallelism (`drone2d_tpu_torch.parallel`) at flagship-scratch: a
 world-1 NCCL group's update bit-equal to the plain update, and two gloo
 ranks on the one card (2 x 512 envs) against the union batch replayed in
 one process, with the population split over them; the split-carry step
 against the template step at 4096 envs; a corridor campaign's flight
 paths replayed through `eval.replay` on the card and on the CPU; and one
-rollout step traced by `utils.profiling.trace`.
+rollout step traced by `utils.profiling.trace`.  The system's last entry
+points: the headline bench (`python -m drone2d_tpu_torch.bench --all`, its
+stdout `bench.py`'s two lines), the precision campaign of s8004 + s22307
+(the stacked campaign above) and its n1000 conversion
+through `package_agent`, `package_agent`'s 100-episode campaigns on two
+scenarios, the stage-1 failure modes and time margin, the AAPE
+survivorship's paired width groups, and the probes at small depth
+(`scripts/bench_update_split`, `roofline_probe`, `roofline_update`,
+`bench_kernels`, `bench_fused_policy`, `profile_step`,
+`probe_split_carry`).
 It checks that the paths launched the kernels and that their outputs are
 right (an update, an eval batch and the vector env on the card against the
 same on the CPU, 129 launches an update for one seed or for 8, finite
@@ -69,6 +79,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from drone2d_tpu_torch import bench
 from drone2d_tpu_torch.compat import make as make_gym_env
 from drone2d_tpu_torch.compat.sb3_import import load_sb3_agent, save_sb3_zip, torch_policy_value
 from drone2d_tpu_torch.compat.sb3_import import load_sb3_state_dict
@@ -76,9 +87,10 @@ from drone2d_tpu_torch.compat.vector_env import VectorEnvCore
 from drone2d_tpu_torch.config import ALL_SCENARIOS, EnvConfig, PPOConfig
 from drone2d_tpu_torch.env.env import Drone2DEnv, _observe, _rewards_and_done
 from drone2d_tpu_torch.env.types import FAMILY_NAMES, finalize_split, select_state, split_state
+from drone2d_tpu_torch.eval import episode as eval_episode
 from drone2d_tpu_torch.eval.episode import run_episodes, run_episodes_from, run_episodes_multi
 from drone2d_tpu_torch.eval.replay import replay_campaign
-from drone2d_tpu_torch.eval.run import evaluate, scenario_config
+from drone2d_tpu_torch.eval.run import evaluate, load_params, scenario_config
 from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.gae import compute_gae
 from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState, collect_steps
@@ -92,10 +104,25 @@ from drone2d_tpu_torch.models.policy import (
 from drone2d_tpu_torch.ops import cuda_build, geometry, physics
 from drone2d_tpu_torch.ops.fused_policy import fused_sample_action, fused_sample_action_ref
 from drone2d_tpu_torch.parallel import mesh
-from drone2d_tpu_torch.scripts import select_agents, sweep
+from drone2d_tpu_torch.scripts import (
+    aape_survivorship,
+    bench_fused_policy,
+    bench_kernels,
+    bench_update_split,
+    package_agent,
+    precision_campaign,
+    probe_split_carry,
+    profile_step,
+    roofline_probe,
+    roofline_update,
+    select_agents,
+    stage1_failure_modes,
+    stage1_time_margin,
+    sweep,
+)
 from drone2d_tpu_torch.train import parse_args, train
 from drone2d_tpu_torch.utils.checkpoint import restore_checkpoint
-from drone2d_tpu_torch.utils.profiling import LEAD_KERNELS, trace
+from drone2d_tpu_torch.utils.profiling import LEAD_KERNELS, device_window, trace
 
 ROOT = Path(__file__).resolve().parent
 AGENT = ROOT / "artifacts" / "agent_s8004" / "new_agent.npz"
@@ -130,8 +157,6 @@ EVAL_EPISODES = 1000
 # would need pygame on this machine); the stacked campaign flies the
 # spatial ones and writes no files
 CAMPAIGN_SCENARIOS = ("stage_2",)
-# rollout steps under the profiler, for the device ops and busy share a step
-PROFILE_STEPS = 16
 # a scenario's success rate against the committed campaign's: |z| <= Z_MAX
 Z_MAX = 3.0
 # the population: flagship-scratch, 8 seeds (the JAX package's population
@@ -146,6 +171,11 @@ SELECT_SCENARIOS, SELECT_EPISODES = ("corridor", "stage_3"), 64
 SHIPPED = ("s8004", "s22307", "s6006", "s5004")
 IMPORTED = tuple(f"agent_{k}_90" for k in (17, 19, 20, 21))
 IMPORTED_EPISODES = 200
+# the imported campaign's scenarios: 4 of the 12, cut to hold the script's
+# time (each flies to the 1100-step cap: some episode of these agents
+# always times out); the aape phase holds these agents against the same
+# conformance rows on parallel and stage_2
+IMPORTED_SCENARIOS = ("perpendicular", "S_corridor", "large", "stage_1")
 CONFORMANCE = ROOT / "artifacts" / "conformance" / "report.json"
 # the reference's own surface: the vector env (VEC_ENVS envs at stage 5,
 # VEC_STEPS steps, templates drawn every VEC_REFRESH), the single gym env
@@ -171,6 +201,21 @@ DDP2_EPOCHS = 2
 # scenario: the kernel's replay must reproduce the live APEs to the JAX
 # package's 0.05 px, and the card's replay the CPU's to REPLAY_TOL px)
 REPLAY_EPISODES, REPLAY_TOL = 200, 1e-3
+# the agent-shipping tools: the precision campaign (PRECISION_EPISODES a
+# scenario in one chunk, seed PRECISION_SEED; 500 took as long: a batch's
+# slowest episode sets its steps, and a step's time hardly depends on the
+# batch), package_agent's campaigns on PACKAGE_SCENARIOS (one stage, one
+# spatial) at the committed 100 episodes,
+# the stage-1 analyses at STAGE1_EPISODES, the AAPE survivorship on
+# AAPE_SCENARIOS x AAPE_EPISODES; each against its committed report
+PRECISION_EPISODES, PRECISION_SEED = 1000, 555
+PACKAGE_SCENARIOS, PACKAGE_EPISODES = ("stage_2", "parallel"), 100
+STAGE1_EPISODES = 500
+R4 = ROOT / "artifacts" / "campaigns" / "r4"
+AAPE_SCENARIOS, AAPE_EPISODES = ("parallel", "stage_2"), 250
+AAPE_REPORT = ROOT / "artifacts" / "campaigns" / "r5" / "aape_survivorship.json"
+# the probes at small depth: the roofline grid, a chunk of PROBE_CHUNK steps
+PROBE_ENVS, PROBE_TABLES, PROBE_CHUNK = (1024, 4096), (256, 512), 32
 # agent_s8004 on parallel_boxes: the JAX package's success rate over 1000
 # stochastic episodes (seed 0), computed on the CPU by
 # drone2d_tpu.eval.episode.run_episodes(scenario_config("parallel_boxes"),
@@ -211,29 +256,18 @@ def device_ms(fn, reps: int = 25, inner: int = 20, launches: int = 1) -> float:
     return statistics.median(times)
 
 
-def profile_device(fn):
-    """Run fn() once under torch.profiler, synchronized -> (the device
-    events, their summed device µs, the wall µs)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return events, sum(e.time_range.elapsed_us() for e in events), wall_us
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
 
 
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    log(smi)
+    log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     # information only: the port's card paths need none of these (the
@@ -319,6 +353,9 @@ def phase_kernel_vs_plain() -> dict:
     check(load_agent(dev), EVAL_EPISODES, f"B={EVAL_EPISODES} H=128 agent_s8004 (eval path)")
     check(flat_dict_to_params(dict(np.load(FINETUNE_AGENT)), device=dev), 1024,
           "B=1024 H=128 agent_s6006 (fine-tune path)")
+    # the shipping tools' single-agent batches
+    check(load_agent(dev), PACKAGE_EPISODES, f"B={PACKAGE_EPISODES} H=128 agent_s8004 (package)")
+    check(load_agent(dev), STAGE1_EPISODES, f"B={STAGE1_EPISODES} H=128 agent_s8004 (stage1)")
     # the gym env's single env (agent_17_90, 64-64) and the graft entry's step
     agent17 = flat_dict_to_params(dict(np.load(IMPORTED_17)), device=dev)
     # B=1: 64 single-row launches held together, the scale over their 64
@@ -337,6 +374,10 @@ def phase_kernel_vs_plain() -> dict:
                              device=dev) for h in (32, 64, 96, 256)}
     for h, p in widths.items():
         check(p, 1000, f"B=1000 H={h}")
+    # the bench's lines: PPOConfig's default width at the env line's and the
+    # train line's batches
+    obs64, noise64, _ = check(widths[64], NUM_ENVS, f"B={NUM_ENVS} H=64 (bench env line)")
+    obs64k, noise64k, _ = check(widths[64], 1024, "B=1024 H=64 (bench train line)")
 
     def times(p, o, n, h):
         with torch.no_grad():
@@ -350,13 +391,13 @@ def phase_kernel_vs_plain() -> dict:
             f"-> bound_tc {t_tc:.5f} ms ({100 * t_tc / ms:.1f}%)")
         return ms, plain_ms, bound, by_ops, t_tc
 
-    obs64 = torch.randn(NUM_ENVS, 27, generator=gen, device=dev)
-    times(widths[64], obs64, noise, 64)  # PPOConfig's default width
     times(params, obs[:32], noise[:32], 128)  # one block: the latency floor
     ms_1k, plain_ms_1k, bound_1k, by_ops_1k, t_tc_1k = times(
         params, obs[:1024], noise[:1024], 128)  # the training path's batch
     ms, plain_ms, bound, by_ops, t_tc = times(params, obs, noise, 128)
-    extra = {"b1_h64": times(agent17, obs1, noise1, 64),
+    extra = {f"b{NUM_ENVS}_h64": times(widths[64], obs64, noise64, 64),
+             "b1024_h64": times(widths[64], obs64k, noise64k, 64),
+             "b1_h64": times(agent17, obs1, noise1, 64),
              f"b{GRAFT_ENVS}": times(graft_agent(dev), obs256, noise256, 128),
              f"b{DDP_ENVS // 2}": times(graft_agent(dev), obs512, noise512, 128)}
     log("  library_ms: null (no single PyTorch call computes this function: "
@@ -378,8 +419,9 @@ def phase_kernel_vs_plain() -> dict:
         "b1024": {"ms": ms_1k, "plain_ms": plain_ms_1k, "bound_ms": bound_1k,
                   "bound_by": "operations" if by_ops_1k else "bytes",
                   "bound_tc_ms": t_tc_1k, "library_ms": None},
-        # the gym env's B=1 (H=64), the graft step's B=256 and a ddp2
-        # rank's B=512 (H=128)
+        # the bench's env and train lines (H=64, B=4096 and 1024), the gym
+        # env's B=1 (H=64), the graft step's B=256 and a ddp2 rank's B=512
+        # (H=128)
         **{key: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
                  "bound_by": "operations" if t[3] else "bytes", "bound_tc_ms": t[4],
                  "library_ms": None} for key, t in extra.items()},
@@ -408,8 +450,10 @@ def phase_kernel_stacked(kernel_row: dict):
     16 candidates (16 x SELECT_EPISODES, H=128: the four shipped agents and
     12 perturbed copies, so member offsets reach 15 weight sets), the
     stacked eval of s8004 and s22307 (2 x 1000, H=128) and of the four
-    imported agents (4 x 200, H=64).  Each against its plain version (scaled errors <= TOL, log-prob
-    equal), each member's slice bit-equal to its own unstacked launch; then
+    imported agents (4 x 200, H=64), and the AAPE survivorship's two stacks
+    (1 x 250, H=128; 4 x 250, H=64).  Each against its plain version
+    (scaled errors <= TOL, log-prob equal), each member's slice bit-equal
+    to its own unstacked launch; then
     device times of one stacked launch, of the S unstacked launches and of
     the plain version, against the bounds."""
     dev = torch.device("cuda")
@@ -431,6 +475,9 @@ def phase_kernel_stacked(kernel_row: dict):
         "a2_n1000": (shipped[:2], EVAL_EPISODES, "stacked eval, s8004 + s22307"),
         "a4_n200": ([imported_agent(a, dev) for a in IMPORTED], IMPORTED_EPISODES,
                     "stacked eval, the 4 imported agents"),
+        "a1_n250": (shipped[:1], AAPE_EPISODES, "aape, the focal agent's stack of one"),
+        "a4_n250": ([imported_agent(a, dev) for a in IMPORTED], AAPE_EPISODES,
+                    "aape, the 4 imported agents' stack"),
     }
     log(f"kernel with the agent axis vs plain (|d| <= {TOL} * max(1, max |plain|); each "
         "member's slice bit-equal to its own unstacked launch):")
@@ -564,7 +611,7 @@ def phase_breakdown(learner, state):
                 a = state.params.sample_action(obs, noise=noise)[0]
                 env.step_batch_template(es, a.clamp(-1, 1), es, obs)
 
-    device_events, dev_us, wall_us = profile_device(three_steps)
+    device_events, dev_us, wall_us = device_window(three_steps)
     kernels = len(device_events)
     if dev_us > 0:
         log(f"profiler, 3 steps: device busy {dev_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
@@ -627,19 +674,6 @@ def phase_slice(kernel_row: dict):
         raise AssertionError("no episode finished in two rollouts")
     log(f"  kernel launches on the main path: {launches}; episodes finished: {episodes:.0f}")
     kernel_row["launches_by_path"] = {"rollout": launches}
-
-    # the rate is bound by host launch overhead on a shared host: repeat it
-    rates = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, batch, last_values, _ = learner.rollout(state)
-        compute_gae(batch.rewards, batch.values, batch.dones, last_values,
-                    gamma=ppo.gamma, gae_lambda=ppo.gae_lambda)
-        torch.cuda.synchronize()
-        rates.append(NUM_ENVS * N_STEPS / (time.perf_counter() - t0))
-    log(f"  env_steps_per_s over 5 more rollouts: median {statistics.median(rates):.1f}, "
-        f"min {min(rates):.1f}, max {max(rates):.1f}")
     return learner, state
 
 
@@ -762,73 +796,17 @@ def _train_in(d: str, kernel_row: dict):
     return (train_cfg, env_cfg, ppo_cfg), state
 
 
-def _update_split(runs: dict, reps: int = 3) -> dict:
-    """For each label -> (learner or population trainer, state): seconds per
-    update split into the reset templates' draws, the rollout's steps, GAE
-    and SGD (host clock, each part synchronized), the median of `reps`
-    updates, the labels' updates taken in turn so that the host's drift
-    falls on each alike; the env steps trained a second; then one rollout's
-    steps under the profiler: the device ops a step and the device's busy
-    share.  Returns label -> (state, batch, adv, ret, env steps a second)."""
-    parts, out = {k: [] for k in runs}, {}
-    for _ in range(reps):
-        for label, (learner, state) in runs.items():
-            cfg = learner.cfg
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            *draws, perms = learner.draws(state)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            state, batch, last_values, _ = learner.rollout_from(state, *draws)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            adv, ret = compute_gae(batch.rewards, batch.values, batch.dones, last_values,
-                                   gamma=cfg.gamma, gae_lambda=cfg.gae_lambda)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            metrics = learner.sgd(state, batch, adv, ret, perms)
-            torch.cuda.synchronize()
-            t4 = time.perf_counter()
-            parts[label].append((t1 - t0, t2 - t1, t3 - t2, t4 - t3, t4 - t0))
-            if not bool(torch.isfinite(metrics["loss"]).all()):
-                raise AssertionError(f"{label}: non-finite loss")
-            runs[label] = (learner, state)
-            out[label] = (state, batch, adv, ret)
-    for label, (learner, state) in runs.items():
-        cfg, members = learner.cfg, state.params.members or 1
-        draws_s, steps_s, gae_s, sgd_s, total_s = (
-            statistics.median(p[i] for p in parts[label]) for i in range(5))
-        sgd_steps = cfg.n_epochs * cfg.num_minibatches
-        rate = members * cfg.n_steps * learner.num_envs / total_s
-        log(f"{label} update (host clock, synchronized, median of {reps}): reset draws "
-            f"{draws_s:.4f} s, rollout steps {steps_s:.4f} s ({1e3 * steps_s / cfg.n_steps:.3f} "
-            f"ms a step), GAE {gae_s:.4f} s, SGD {sgd_s:.4f} s ({1e3 * sgd_s / sgd_steps:.3f} ms "
-            f"a minibatch step), total {total_s:.4f} s; "
-            f"all: {[tuple(round(x, 4) for x in p) for p in parts[label]]}")
-        log(f"  train_steps_per_s {rate:.1f} ({members} x {learner.num_envs} envs x "
-            f"{cfg.n_steps} steps / seconds per update)")
-        reset_state, reset_obs, noise, _ = learner.draws(state)
-        noise = noise[:PROFILE_STEPS]
-        events, dev_us, wall_us = profile_device(lambda: collect_steps(
-            state.params, learner.env, state.env_state, state.obs, reset_state, reset_obs,
-            noise))
-        log(f"  profiler, {PROFILE_STEPS} rollout steps: " + (
-            f"{len(events) / PROFILE_STEPS:.0f} device ops a step, device busy "
-            f"{dev_us / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms wall "
-            f"({100 * dev_us / wall_us:.1f}%)" if events
-            else "device time not measured (no device events)"))
-        out[label] = out[label] + (rate,)
-    return out
-
-
 def phase_train_timing(cfgs, state):
-    """Seconds per update at the recipe by layer (`_update_split`); one
-    minibatch step by layer; one update each with the 'exact' and 'affine'
-    shuffles; the device's busy share over one update under the profiler."""
+    """One minibatch step at the recipe by layer, on a fresh rollout's
+    batch; one update each with the 'exact' and 'affine' shuffles; the
+    device's busy share over one SGD epoch under the profiler.  (The
+    update's own time is the bench's train line, and its split by layer
+    `phase_zoo_timing`'s.)"""
     train_cfg, env_cfg, ppo_cfg = cfgs
     learner = PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs)
-    state, batch, adv, ret, _ = _update_split(
-        {"flagship-scratch": (learner, state)}, reps=1)["flagship-scratch"]
+    state, batch, last_values, _ = learner.rollout(state)
+    adv, ret = compute_gae(batch.rewards, batch.values, batch.dones, last_values,
+                           gamma=ppo_cfg.gamma, gae_lambda=ppo_cfg.gae_lambda)
 
     # one minibatch step by layer, each synchronized, median of 20
     mb = [x.reshape((-1,) + x.shape[2:])[: learner.minibatch_size]
@@ -876,7 +854,7 @@ def phase_train_timing(cfgs, state):
     # the rollout's is in the update split above
     epoch = PPOLearner(env_cfg, ppo_cfg.replace(n_epochs=1), train_cfg.num_envs)
     perms = epoch.draw_perms(state.generator)
-    device_events, dev_us, wall_us = profile_device(
+    device_events, dev_us, wall_us = device_window(
         lambda: float(epoch.sgd(state, batch, adv, ret, perms)["loss"]))
     if dev_us > 0:
         log(f"  profiler, one SGD epoch ({ppo_cfg.num_minibatches} minibatch steps): device "
@@ -1067,13 +1045,14 @@ def _finetune_in(d: str, kernel_row: dict):
 
 def phase_finetune_timing(scratch: PPOLearner, scratch_state):
     """The flagship-finetune update by layer, warm from agent_s6006 as
-    `train` starts it, in turn with flagship-scratch's (`_update_split`)."""
+    `train` starts it, in turn with flagship-scratch's
+    (`scripts/bench_update_split.update_split`)."""
     _, train_cfg, env_cfg, ppo_cfg = parse_args(["--preset", "flagship-finetune"])
     learner = PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs)
     state = learner.init(train_cfg.seed, params=flat_dict_to_params(
         dict(np.load(FINETUNE_AGENT)), device="cuda"))
-    _update_split({"flagship-scratch": (scratch, scratch_state),
-                   "flagship-finetune": (learner, state)}, reps=1)
+    bench_update_split.update_split({"flagship-scratch": (scratch, scratch_state),
+                                     "flagship-finetune": (learner, state)}, reps=1, log=log)
 
 
 def _episode_errors(got, want) -> dict:
@@ -1143,7 +1122,7 @@ def phase_eval_breakdown():
             run_episodes_from(env, params, state, obs, noise)
             step_ms = (time.perf_counter() - t0) * 1e3 / cap
         else:
-            events, dev_us, wall_us = profile_device(
+            events, dev_us, wall_us = device_window(
                 lambda: run_episodes_from(env, params, state, obs, noise))
     busy = (f"device busy {dev_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
             f"({100 * dev_us / wall_us:.1f}%), {len(events) / 8:.0f} device ops a step"
@@ -1300,77 +1279,124 @@ def _zoo_in(d: str, kernel_row: dict):
 
 def phase_zoo_timing(scratch: PPOLearner, scratch_state):
     """A population update of 8 seeds by layer, in turn with a single-seed
-    flagship-scratch update (`_update_split`), and the population's env
-    steps a second against the single seed's."""
+    flagship-scratch update (`scripts/bench_update_split.update_split`), and
+    the population's env steps a second against the single seed's."""
     _, train_cfg, env_cfg, ppo_cfg = parse_args(["--preset", "flagship-scratch"])
     trainer = ZooTrainer(env_cfg, ppo_cfg, train_cfg.num_envs)
-    out = _update_split({"flagship-scratch": (scratch, scratch_state),
-                         "flagship-scratch population of 8": (trainer,
-                                                               trainer.init(ZOO_SEEDS))},
-                        reps=1)
-    single, pop = out["flagship-scratch"][-1], out["flagship-scratch population of 8"][-1]
+    out = bench_update_split.update_split(
+        {"flagship-scratch": (scratch, scratch_state),
+         "flagship-scratch population of 8": (trainer, trainer.init(ZOO_SEEDS))},
+        reps=1, log=log)
+    single, pop = out["flagship-scratch"][4], out["flagship-scratch population of 8"][4]
     log(f"population of {len(ZOO_SEEDS)}: {pop:.1f} env steps a second against a single "
         f"seed's {single:.1f}, taken in turn: {pop / single:.2f}x")
 
 
-def phase_stacked_campaign(kernel_row: dict):
-    """Stacked eval parity: s8004 and s22307 as one stacked campaign of the
-    12 scenarios x EVAL_EPISODES episodes each (run_episodes_multi, one
-    kernel launch a step for both), each scenario's success rate against its
-    committed campaign (each file's own episodes) by |z| <= Z_MAX."""
+def phase_precision(kernel_row: dict):
+    """Stacked eval parity through `scripts/precision_campaign`: s8004 and
+    s22307 as one stack over the 12 scenarios x PRECISION_EPISODES episodes
+    (one chunk each, one kernel launch a step for both), each scenario's
+    success rate against its committed campaign (each file's own episodes)
+    by |z| <= Z_MAX.  The report then goes through `package_agent`'s n1000
+    conversion for s8004: the committed file's keys, and its rows the
+    report's."""
     names = ("s8004", "s22307")
+    paths = [str(ROOT / "artifacts" / f"agent_{a}" / "new_agent.npz") for a in names]
     refs = {}
     for a in names:
         with open(ROOT / "artifacts" / f"agent_{a}" / "campaign_n1000_summary.json") as f:
-            refs[a] = {r["scenario"]: r for r in json.load(f)["scenarios"]}
-    stack = stack_params([shipped_agent(a, "cuda") for a in names])
-    log(f"stacked eval campaign: {' + '.join(names)}, {len(ALL_SCENARIOS)} scenarios x "
-        f"{EVAL_EPISODES} stochastic episodes each, one batch of {len(names) * EVAL_EPISODES}, "
-        f"against the committed campaigns (|z| <= {Z_MAX}):")
+            refs[a] = json.load(f)
+    log(f"precision campaign: {' + '.join(names)}, {len(ALL_SCENARIOS)} scenarios x "
+        f"{PRECISION_EPISODES} stochastic episodes each (seed {PRECISION_SEED}, one chunk), "
+        f"one batch of {len(names) * PRECISION_EPISODES}, against the committed campaigns "
+        f"(|z| <= {Z_MAX}):")
     torch.cuda.synchronize()
     fused_sample_action.launches = 0
-    t_all = time.perf_counter()
-    rows, bad = [], []
-    for scen in ALL_SCENARIOS:
-        before = fused_sample_action.launches
-        t0 = time.perf_counter()
-        res = run_episodes_multi(scenario_config(scen), stack, 0, EVAL_EPISODES)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        n = np.maximum(res.success.sum(1) + res.fail.sum(1), 1)
-        sr = res.success.sum(1) / n
-        parts = []
-        for i, a in enumerate(names):
-            r = refs[a][scen]
-            z = _z(float(sr[i]), r["success_rate"], EVAL_EPISODES, r["episodes"])
-            rows.append(dict(agent=a, scenario=scen, sr=float(sr[i]), ref_sr=r["success_rate"],
-                             ref_n=r["episodes"], z=z, ape=float(res.ape[i].mean()),
-                             ref_ape=r["avg_ape"]))
-            parts.append(f"{a} SR {sr[i]:.4f} (committed {r['success_rate']:.4f}, n "
-                         f"{r['episodes']}, z {z:+.2f}), APE {res.ape[i].mean():.2f} "
-                         f"({r['avg_ape']:.2f})")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        doc = precision_campaign.run(paths, ALL_SCENARIOS, episodes=PRECISION_EPISODES,
+                                     chunk=PRECISION_EPISODES, seed=PRECISION_SEED)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = fused_sample_action.launches
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    labels = list(doc["agents"])
+    bad = []
+    for a, lab in zip(names, labels):
+        ref = {r["scenario"]: r for r in refs[a]["scenarios"]}
+        zs = []
+        for scen, r in doc["agents"][lab].items():
+            z = _z(r["success_rate"], ref[scen]["success_rate"], r["episodes"],
+                   ref[scen]["episodes"])
+            zs.append(z)
             if abs(z) > Z_MAX:
                 bad.append((a, scen))
-        log(f"  stacked {scen}: " + "; ".join(parts)
-            + f"; {dt:.2f} s, kernel launches {fused_sample_action.launches - before}")
-    total = time.perf_counter() - t_all
-    launches = fused_sample_action.launches
-    for a in names:
-        mine = [r for r in rows if r["agent"] == a]
-        log(f"  {a}: mean SR {statistics.mean(r['sr'] for r in mine):.4f} (committed "
-            f"{statistics.mean(r['ref_sr'] for r in mine):.4f}), largest |z| "
-            f"{max(abs(r['z']) for r in mine):.2f}")
-    log(f"  stacked campaign: {len(names) * len(ALL_SCENARIOS) * EVAL_EPISODES} episodes in "
-        f"{total:.2f} s, {len(names) * len(ALL_SCENARIOS) * EVAL_EPISODES / total:.1f} "
-        f"episodes_per_s; kernel launches {launches}")
+            log(f"  precision {a} {scen}: SR {r['success_rate']:.4f} ({r['successes']}/"
+                f"{r['episodes']}; committed {ref[scen]['success_rate']:.4f}, n "
+                f"{ref[scen]['episodes']}, z {z:+.2f}), APE {r['avg_ape']:.2f} "
+                f"({ref[scen]['avg_ape']:.2f})")
+        rows = doc["agents"][lab].values()
+        log(f"  {a}: mean SR {statistics.mean(r['success_rate'] for r in rows):.4f} "
+            f"(committed {refs[a]['mean_success_rate']:.4f}), largest |z| "
+            f"{max(abs(z) for z in zs):.2f}")
+    episodes = len(names) * len(ALL_SCENARIOS) * PRECISION_EPISODES
+    log(f"  precision campaign: {episodes} episodes in {total:.2f} s, "
+        f"{episodes / total:.1f} episodes_per_s; kernel launches {launches}")
     if bad:
-        raise AssertionError(f"stacked campaign success rates off the committed ones: {bad}")
-    kernel_row["launches_by_path"]["stacked_eval"] = launches
+        raise AssertionError(f"precision campaign success rates off the committed ones: {bad}")
+    if launches <= 0:
+        raise AssertionError("the precision campaign launched no kernel")
+
+    summary = package_agent.n1000_doc(doc, paths[0], seed=8004, note="chip smoke")
+    if list(summary) != list(refs["s8004"]):
+        raise AssertionError(f"n1000 summary keys {list(summary)}, committed "
+                             f"{list(refs['s8004'])}")
+    for row in summary["scenarios"]:
+        r = doc["agents"][labels[0]][row["scenario"]]
+        want = dict(scenario=row["scenario"], episodes=r["episodes"],
+                    success_rate=r["success_rate"], sr_stderr=round(r["sr_stderr"], 4),
+                    collision_rate=r["collision_rate"], avg_ape=r["avg_ape"],
+                    avg_flight_time=r["avg_flight_time"])
+        if row != want or list(row) != list(refs["s8004"]["scenarios"][0]):
+            raise AssertionError(f"n1000 row {row} is not the report's {want}")
+    log(f"  package_agent --n1000 of s8004: the committed keys, {len(summary['scenarios'])} rows "
+        f"equal to the report's; coverage {summary['published_coverage']}/12, mean "
+        f"{summary['mean_success_rate']}")
+    kernel_row["launches_by_path"]["precision"] = launches
+
+
+def _against_conformance(report, agent: str, scen: str, sr: float, n: int, compared: dict,
+                         bad: list) -> list:
+    """`agent`'s success rate `sr` over `n` episodes of `scen` against its
+    rows of the conformance report by |z| <= Z_MAX: the JAX package's pooled
+    seeds 0 and 777 (100 episodes each) on every row, the reference's own
+    where the row has one.  Counts the comparisons in `compared`, appends
+    the failures to `bad`, and returns a text a row."""
+    texts = []
+    for row in (r for r in report[agent]["rows"] if r["scenario"] == scen):
+        ours = statistics.mean(o["success_rate"] for o in row["ours"])
+        z_ours = _z(sr, ours, n, 100 * len(row["ours"]))
+        text = f"{row['label']} {agent}: SR {sr:.3f} (JAX {ours:.3f}, z {z_ours:+.2f}"
+        compared["ours"] += 1
+        if abs(z_ours) > Z_MAX:
+            bad.append((agent, row["label"], "JAX"))
+        if row["ref"]:
+            ref = row["ref"]
+            ref_n = ref["successes"] + ref["fails"]
+            z_ref = _z(sr, ref["success_rate"], n, ref_n)
+            text += f"; reference {ref['success_rate']:.3f}, n {ref_n}, z {z_ref:+.2f}"
+            compared["ref"] += 1
+            if abs(z_ref) > Z_MAX:
+                bad.append((agent, row["label"], "reference"))
+        texts.append(text + ")")
+    return texts
 
 
 def phase_imported_campaign(kernel_row: dict):
     """The four imported reference agents (64-64, so the kernel runs at
-    H=64) as one stacked campaign of the 12 scenarios x IMPORTED_EPISODES
+    H=64) as one stacked campaign of IMPORTED_SCENARIOS x IMPORTED_EPISODES
     episodes each, held by |z| <= Z_MAX against the reference's own row of
     `artifacts/conformance/report.json` (n = 100) wherever it has one, and
     against the JAX package's pooled rows (seeds 0 and 777, n = 200) on
@@ -1378,7 +1404,8 @@ def phase_imported_campaign(kernel_row: dict):
     with open(CONFORMANCE) as f:
         report = json.load(f)["agents"]
     stack = stack_params([imported_agent(a, "cuda") for a in IMPORTED])
-    log(f"imported agents' stacked campaign: {', '.join(IMPORTED)}, {len(ALL_SCENARIOS)} "
+    log(f"imported agents' stacked campaign: {', '.join(IMPORTED)}, "
+        f"{len(IMPORTED_SCENARIOS)} "
         f"scenarios x {IMPORTED_EPISODES} episodes each, one batch of "
         f"{len(IMPORTED) * IMPORTED_EPISODES}, against {CONFORMANCE.relative_to(ROOT)} "
         f"(|z| <= {Z_MAX}):")
@@ -1386,7 +1413,7 @@ def phase_imported_campaign(kernel_row: dict):
     fused_sample_action.launches = 0
     t_all = time.perf_counter()
     bad, compared = [], {"ref": 0, "ours": 0}
-    for scen in ALL_SCENARIOS:
+    for scen in IMPORTED_SCENARIOS:
         before = fused_sample_action.launches
         t0 = time.perf_counter()
         res = run_episodes_multi(scenario_config(scen), stack, 0, IMPORTED_EPISODES)
@@ -1396,29 +1423,13 @@ def phase_imported_campaign(kernel_row: dict):
         sr = res.success.sum(1) / n
         parts = []
         for i, a in enumerate(IMPORTED):
-            for row in (r for r in report[a]["rows"] if r["scenario"] == scen):
-                # the JAX package's seeds 0 and 777, 100 episodes each
-                ours = statistics.mean(o["success_rate"] for o in row["ours"])
-                n_ours = 100 * len(row["ours"])
-                z_ours = _z(float(sr[i]), ours, IMPORTED_EPISODES, n_ours)
-                text = f"{row['label']} {a}: SR {sr[i]:.3f} (JAX {ours:.3f}, z {z_ours:+.2f}"
-                compared["ours"] += 1
-                if abs(z_ours) > Z_MAX:
-                    bad.append((a, row["label"], "JAX"))
-                if row["ref"]:
-                    ref = row["ref"]
-                    ref_n = ref["successes"] + ref["fails"]
-                    z_ref = _z(float(sr[i]), ref["success_rate"], IMPORTED_EPISODES, ref_n)
-                    text += f"; reference {ref['success_rate']:.3f}, n {ref_n}, z {z_ref:+.2f}"
-                    compared["ref"] += 1
-                    if abs(z_ref) > Z_MAX:
-                        bad.append((a, row["label"], "reference"))
-                parts.append(text + ")")
+            parts += _against_conformance(report, a, scen, float(sr[i]), IMPORTED_EPISODES,
+                                          compared, bad)
         log(f"  imported {scen} ({dt:.2f} s, kernel launches "
             f"{fused_sample_action.launches - before}): " + "; ".join(parts))
     total = time.perf_counter() - t_all
     launches = fused_sample_action.launches
-    log(f"  imported campaign: {len(IMPORTED) * len(ALL_SCENARIOS) * IMPORTED_EPISODES} "
+    log(f"  imported campaign: {len(IMPORTED) * len(IMPORTED_SCENARIOS) * IMPORTED_EPISODES} "
         f"episodes in {total:.2f} s; {compared['ref']} rows against the reference, "
         f"{compared['ours']} against the JAX package; kernel launches {launches}")
     if bad:
@@ -1755,7 +1766,7 @@ def phase_ddp(kernel_row: dict):
             sgd.setdefault("ddp" if g else "plain", []).append(
                 (time.perf_counter() - t0) / ppo_cfg.num_minibatches)
         ms_g, ms_0 = (1e3 * statistics.mean(sgd[k]) for k in ("ddp", "plain"))
-        events, dev_us, wall_us = profile_device(
+        events, dev_us, wall_us = device_window(
             lambda: float(epoch.sgd(st, batch, adv, ret, perms, group=group)["loss"]))
         nccl_us = sum(e.time_range.elapsed_us() for e in events if "nccl" in e.name.lower())
         n_nccl = sum("nccl" in e.name.lower() for e in events)
@@ -1942,7 +1953,7 @@ def phase_split(kernel_row: dict):
         ops = {}
         for label, fn in (("template", lambda: template_steps(state, obs, 3)),
                           ("split", lambda: split_steps(dyn0, obs, 3))):
-            events, dev_us, wall_us = profile_device(fn)
+            events, dev_us, wall_us = device_window(fn)
             ops[label] = (len(events) / 3, dev_us / 3e3, wall_us / 3e3)
     ends = int(sum(int(w[2].sum()) for w in want))
     log(f"split: {NUM_ENVS} envs x {N_STEPS} steps at stage 5, agent_s8004: template "
@@ -2033,6 +2044,266 @@ def phase_profiling(kernel_row: dict, learner, state):
     kernel_row["launches_by_path"]["profiling"] = launches
 
 
+def phase_bench(kernel_row: dict):
+    """The headline bench: `python -m drone2d_tpu_torch.bench --all` at its
+    defaults.  Its stdout is exactly `bench.py`'s two lines; the kernel
+    launched n_steps + 1 times an update run (the warm-up, the timed
+    repeats, and the rollout under the profiler) and 256 a chunk run (the
+    warm-up and the timed repeats), plus the OPS_STEPS profiled steps."""
+    out, err = io.StringIO(), io.StringIO()
+    fused_sample_action.launches = 0
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        res = bench.main(["--all"])
+    torch.cuda.synchronize()
+    launches = fused_sample_action.launches
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"  | {line}")
+    for line in err.getvalue().splitlines():
+        log(f"  ! {line}")
+    rows = [json.loads(line) for line in lines]
+    if [list(r) for r in rows] != [["metric", "value", "unit", "vs_baseline"]] * 2 or [
+            r["metric"] for r in rows] != ["train_steps_per_s", "env_steps_per_s"]:
+        raise AssertionError(f"bench stdout is not bench.py's two lines: {lines}")
+    train, env = res["train"], res["env"]
+    want_train = (1 + bench.TRAIN_REPEATS + 1) * (bench.TRAIN_PPO["n_steps"] + 1)
+    want_env = (1 + bench.REPEATS) * bench.CHUNK_T + bench.OPS_STEPS
+    if (train["launches_all"], env["launches_all"]) != (want_train, want_env) or (
+            launches != want_train + want_env):
+        raise AssertionError(f"bench launched the kernel {train['launches_all']} + "
+                             f"{env['launches_all']} = {launches} times, want {want_train} + "
+                             f"{want_env}")
+    if not all(math.isfinite(r["value"]) and r["value"] > 0 for r in rows):
+        raise AssertionError(f"bench values {rows}")
+    log(f"bench: train line {rows[0]['value']} steps/s, env line {rows[1]['value']} steps/s "
+        f"(vs_baseline: against BASELINE.json's TPU v5e target); kernel launches "
+        f"{train['launches_all']} (train) + {env['launches_all']} (env); card {card_line()}")
+    kernel_row["launches_by_path"]["bench_train"] = train["launches_all"]
+    kernel_row["launches_by_path"]["bench_env"] = env["launches_all"]
+
+
+def phase_package(kernel_row: dict):
+    """`package_agent`'s two campaigns for s8004 on PACKAGE_SCENARIOS at the
+    committed PACKAGE_EPISODES episodes (eval seeds 0 and 777): each
+    success rate within |z| <= Z_MAX of `summary.json` and
+    `campaign_seed777_summary.json`, and the documents, written to a
+    temporary directory, with the committed files' keys."""
+    agent_dir = ROOT / "artifacts" / "agent_s8004"
+    params = load_params(str(agent_dir / "new_agent.npz"), device="cuda")
+    hidden = package_agent.hidden_sizes(params)
+    torch.cuda.synchronize()
+    fused_sample_action.launches = 0
+    t0 = time.perf_counter()
+    bad = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_package_") as d:
+        for eval_seed, fname, tag in package_agent.SUMMARIES:
+            with open(agent_dir / fname) as f:
+                committed = json.load(f)
+            ref = {r["scenario"]: r for r in committed["scenarios"]}
+            results = package_agent.campaign_results(params, eval_seed, PACKAGE_EPISODES,
+                                                     scenarios=PACKAGE_SCENARIOS)
+            rows = package_agent.campaign_rows(results, PACKAGE_EPISODES)
+            doc = package_agent.summary_doc(rows, seed=8004,
+                                            checkpoint_step=committed["checkpoint_step"],
+                                            eval_seed=eval_seed, note="chip smoke", tag=tag,
+                                            hidden=hidden)
+            with open(Path(d, fname), "w") as f:
+                json.dump(doc, f, indent=1)
+            with open(Path(d, fname)) as f:
+                keys = list(json.load(f))
+            if keys != list(committed) or list(rows[0]) != list(committed["scenarios"][0]):
+                raise AssertionError(f"package {fname}: keys {keys}, committed {list(committed)}")
+            for r in rows:
+                c = ref[r["scenario"]]
+                z = _z(r["success_rate"], c["success_rate"], PACKAGE_EPISODES, c["episodes"])
+                log(f"  package seed {eval_seed} {r['scenario']}: SR {r['success_rate']:.2f} "
+                    f"(committed {c['success_rate']:.2f}, z {z:+.2f}), APE {r['avg_ape']:.2f} "
+                    f"({c['avg_ape']:.2f}), flight time {r['avg_flight_time']:.1f} "
+                    f"({c['avg_flight_time']:.1f})")
+                if abs(z) > Z_MAX:
+                    bad.append((eval_seed, r["scenario"]))
+    torch.cuda.synchronize()
+    launches = fused_sample_action.launches
+    log(f"package: s8004, {len(PACKAGE_SCENARIOS)} scenarios x {PACKAGE_EPISODES} episodes x 2 "
+        f"eval seeds in {time.perf_counter() - t0:.2f} s, hidden sizes {hidden}, the committed "
+        f"files' keys; kernel launches {launches}")
+    if bad or launches <= 0:
+        raise AssertionError(f"package campaigns off the committed summaries: {bad}")
+    kernel_row["launches_by_path"]["package"] = launches
+
+
+def phase_stage1(kernel_row: dict):
+    """The stage-1 analyses of s8004 at STAGE1_EPISODES episodes:
+    `stage1_failure_modes`' successes against
+    `stage1_failmodes_s8004.json`, and `stage1_time_margin`'s finishes
+    within the reference cap, both modes, against `stage1_margin_s8004.json`
+    (|z| <= Z_MAX each)."""
+    with open(R4 / "stage1_failmodes_s8004.json") as f:
+        fail_ref = json.load(f)
+    with open(R4 / "stage1_margin_s8004.json") as f:
+        margin_ref = json.load(f)
+    agent = str(AGENT)
+    params = load_params(agent, device="cuda")
+    torch.cuda.synchronize()
+    fused_sample_action.launches = 0
+    t0 = time.perf_counter()
+    cfg = scenario_config("stage_1")
+    chunks = stage1_failure_modes.stage1_chunks(params, 606, STAGE1_EPISODES, STAGE1_EPISODES,
+                                                cfg)
+    rep = stage1_failure_modes.failure_report(agent, chunks, cfg.n_steps)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        margin = stage1_time_margin.run([agent], episodes=STAGE1_EPISODES,
+                                        chunk=STAGE1_EPISODES)
+    torch.cuda.synchronize()
+    launches = fused_sample_action.launches
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    z = _z(rep["successes"] / rep["episodes"], fail_ref["successes"] / fail_ref["episodes"],
+           rep["episodes"], fail_ref["episodes"])
+    log(f"stage1 failure modes: s8004 {rep['successes']}/{rep['episodes']} successes "
+        f"(committed {fail_ref['successes']}/{fail_ref['episodes']}, z {z:+.2f}); timeouts "
+        f"{rep['timeouts']}, aggressive alpha {rep['aggressive_alpha']}, collisions "
+        f"{rep['collisions']}")
+    zs = {"failure_modes": z}
+    for mode, row in margin["agents"][agent].items():
+        want = margin_ref["agents"]["artifacts/agent_s8004/new_agent.npz"][mode]
+        n, n_ref = margin["episodes"], margin_ref["episodes"]
+        zs[mode] = _z(row["finish_within_ref_cap"] / n, want["finish_within_ref_cap"] / n_ref,
+                      n, n_ref)
+        log(f"stage1 time margin {mode}: {row['finish_within_ref_cap']}/{n} within the "
+            f"reference cap (committed {want['finish_within_ref_cap']}/{n_ref}, z "
+            f"{zs[mode]:+.2f}); over it {row['finish_over_ref_cap']}, stuck "
+            f"{row['stuck_at_cap']}, p50 {row['time_p50']} ({want['time_p50']}), max "
+            f"{row['time_max']} ({want['time_max']})")
+    log(f"  stage1: {time.perf_counter() - t0:.2f} s, kernel launches {launches}")
+    if any(abs(v) > Z_MAX for v in zs.values()) or launches <= 0:
+        raise AssertionError(f"stage1 analyses off the committed reports: {zs}")
+    kernel_row["launches_by_path"]["stage1"] = launches
+
+
+def phase_aape(kernel_row: dict):
+    """`aape_survivorship` on AAPE_SCENARIOS x AAPE_EPISODES: the focal
+    s8004 (128-128) and the four imported 64-64 agents as two stacks under
+    the same chunk seeds.  Each agent's success rate within |z| <= Z_MAX of
+    the committed report's, each imported agent's also of its conformance
+    rows (as `phase_imported_campaign` holds it), and the two stacks'
+    episodes identical (start states, obstacles, paths and noise, each
+    agent's block of the larger stack the same)."""
+    with open(AAPE_REPORT) as f:
+        ref = json.load(f)
+    seen = []
+    real = eval_episode.run_episodes_from
+
+    def spy(env, params, state, obs, draws, **kw):
+        seen.append((params.members, state, obs, draws))
+        return real(env, params, state, obs, draws, **kw)
+
+    refs = [str(ROOT / r) for r in aape_survivorship.REFERENCE_IMPORTS]
+    torch.cuda.synchronize()
+    fused_sample_action.launches = 0
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    eval_episode.run_episodes_from = spy
+    try:
+        with contextlib.redirect_stdout(buf):
+            rep, raw = aape_survivorship.run(str(AGENT), refs, AAPE_SCENARIOS,
+                                             episodes=AAPE_EPISODES, chunk=AAPE_EPISODES)
+    finally:
+        eval_episode.run_episodes_from = real
+    torch.cuda.synchronize()
+    launches = fused_sample_action.launches
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    n = AAPE_EPISODES
+    paired = []
+    for (m1, s1, o1, d1), (m4, s4, o4, d4) in zip(seen[::2], seen[1::2]):
+        if (m1, m4) != (1, len(refs)):
+            raise AssertionError(f"aape groups of {m1} and {m4}")
+        paired.append(all(
+            torch.equal(o4[a * n:(a + 1) * n], o1) and torch.equal(d4[:, a * n:(a + 1) * n], d1)
+            and all(torch.equal(x[a * n:(a + 1) * n], y) for x, y in (
+                (s4.body.pos, s1.body.pos), (s4.body.angle, s1.body.angle),
+                (s4.obstacles.xy, s1.obstacles.xy), (s4.obstacles.r, s1.obstacles.r),
+                (s4.path.wps, s1.path.wps)))
+            for a in range(len(refs))))
+    with open(CONFORMANCE) as f:
+        conformance = json.load(f)["agents"]
+    bad, compared = [], {"ref": 0, "ours": 0}
+    for scen in AAPE_SCENARIOS:
+        parts, rows = [], []
+        for lab, row in rep["scenarios"][scen]["agents"].items():
+            want = ref["scenarios"][scen]["agents"][lab]
+            z = _z(row["success_rate"], want["success_rate"], n, ref["episodes"])
+            parts.append(f"{lab} SR {row['success_rate']:.3f} ({want['success_rate']:.3f}, z "
+                         f"{z:+.2f}), AAPE {row['aape_all']:.1f} ({want['aape_all']:.1f})")
+            if abs(z) > Z_MAX:
+                bad.append((lab, scen))
+            if lab in IMPORTED:
+                rows += _against_conformance(conformance, lab, scen, row["success_rate"], n,
+                                             compared, bad)
+        log(f"  aape {scen}: " + "; ".join(parts))
+        log(f"  aape {scen} against {CONFORMANCE.relative_to(ROOT)}: " + "; ".join(rows))
+    log(f"aape: {len(AAPE_SCENARIOS)} scenarios x {n} episodes x {1 + len(refs)} agents in "
+        f"{time.perf_counter() - t0:.2f} s; {compared['ref']} imported rows against the "
+        f"reference, {compared['ours']} against the JAX package; the two width groups' "
+        f"episodes identical: {paired}; "
+        f"raw rows {sorted(raw)[:3]}...; kernel launches {launches}")
+    if bad or len(paired) != len(AAPE_SCENARIOS) or not all(paired) or launches <= 0:
+        raise AssertionError(f"aape: off the committed report {bad}, paired {paired}")
+    kernel_row["launches_by_path"]["aape"] = launches
+
+
+def phase_probes(kernel_row: dict):
+    """The probes at small depth: `bench_update_split` (1024 envs x 16 steps,
+    4 minibatches), `roofline_probe` on PROBE_ENVS x PROBE_TABLES with a
+    PROBE_CHUNK-step chunk, `roofline_update` at the same update,
+    `bench_kernels` at 4096 x 512, `bench_fused_policy` at B=4096, H=128
+    (its kernel within TOL of the plain version's scale, log-prob equal),
+    `profile_step` (its trace names the fused kernel at every launch) and
+    `probe_split_carry` (rewards bit-equal)."""
+    torch.cuda.synchronize()
+    fused_sample_action.launches = 0
+    t0 = time.perf_counter()
+    _run_cli(bench_update_split.main, ["1024", "16", "4"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rows = roofline_probe.probe(PROBE_ENVS, PROBE_TABLES, chunk_t=PROBE_CHUNK, repeats=1)
+        upd = roofline_update.decompose(1024, 16, 4, reps=1, iters=5)
+        closest_us = bench_kernels.time_closest(4096, 512, iters=50) * 1e6
+        fused = bench_fused_policy.run(4096, 256, reps=2)
+        split = probe_split_carry.run(4096, PROBE_CHUNK, repeats=1)
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    log(f"  roofline_update (1024 x 16, 4 minibatches): ms {json.dumps(upd['ms'])}; floors "
+        f"us {json.dumps(upd['floors_us'])}; shares {json.dumps(upd['shares'])}")
+    log(f"  bench_kernels: closest-point scan {closest_us:.1f} us a call (4096 envs x 512)")
+    log(f"  bench_fused_policy: {json.dumps(fused)}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as d:
+        before = fused_sample_action.launches
+        path = profile_step.profile(d, NUM_ENVS, 4, 1)
+        traced = fused_sample_action.launches - before
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    named = [e["name"] for e in events
+             if e.get("cat") == "kernel" and "fused_sample_action" in e["name"]]
+    # a warm-up chunk, then the traced one
+    log(f"  profile_step: {len(named)} fused kernel events in the trace for {traced - 4} traced "
+        f"launches ({named[:1]})")
+    torch.cuda.synchronize()
+    launches = fused_sample_action.launches
+    log(f"probes: {time.perf_counter() - t0:.2f} s, kernel launches {launches}; roofline rows "
+        f"{[(r['probe'], r['num_envs'], r['table_n'], r['ns_per_env_step']) for r in rows]}")
+    errs = fused["scaled_errors"]
+    if max(errs.values()) > TOL or errs["logp"] != 0.0:
+        raise AssertionError(f"bench_fused_policy: kernel vs plain {errs}")
+    if len(named) != traced - 4 or not named:
+        raise AssertionError(f"profile_step: {len(named)} fused events, {traced - 4} launches")
+    if not split["first_chunk_reward_equal"] or launches <= 0:
+        raise AssertionError(f"probe_split_carry: {split}")
+    kernel_row["launches_by_path"]["probes"] = launches
+
+
 def main():
     seconds = {}
 
@@ -2055,6 +2326,7 @@ def main():
     cfgs, state = timed("train", phase_train, row)
     learner, state = timed("train_timing", phase_train_timing, cfgs, state)
     timed("weights_live", phase_weights_live, learner, state)
+    timed("bench", phase_bench, row)
     timed("ddp", phase_ddp, row)
     timed("ddp2", phase_ddp2, row)
     timed("split", phase_split, row)
@@ -2070,8 +2342,12 @@ def main():
     timed("boxes", phase_boxes, row)
     timed("campaign", phase_campaign, row)
     timed("replay", phase_replay, row)
-    timed("stacked_campaign", phase_stacked_campaign, row)
+    timed("precision", phase_precision, row)
     timed("imported_campaign", phase_imported_campaign, row)
+    timed("package", phase_package, row)
+    timed("stage1", phase_stage1, row)
+    timed("aape", phase_aape, row)
+    timed("probes", phase_probes, row)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {sum(seconds.values()):.1f}")
     row["launches"] = sum(row["launches_by_path"].values())

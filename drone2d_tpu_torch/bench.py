@@ -1,0 +1,217 @@
+"""Headline benchmark on the card: the port's counterpart of `bench.py`.
+
+    python -m drone2d_tpu_torch.bench [--train | --all] [--shuffle timeperm]
+        [--num-envs 4096] [--chunk 256] [--device cpu]
+
+The env line times the training-relevant hot loop at 4096 envs: per
+256-step chunk one reset template (`reset_batch`), then each step the policy
+sample (`sample_action`, the fused kernel on the card), the clip to [-1, 1]
+and the auto-resetting `step_batch_template`, the rewards summed.  `--train`
+instead times the full quality-recipe PPO update (`PPOLearner.update`:
+rollout + GAE + 10 epochs x 64 minibatches of SGD at 1024 envs x 128
+steps), as `train.py` runs it; `--all` prints both, the train line first.
+
+Stdout carries exactly `bench.py`'s lines, one JSON object a metric:
+{"metric", "value", "unit", "vs_baseline"}, `value` being the total steps
+over the total seconds of the timed repeats.  The spread (the seconds of
+each repeat, min/median/max), the kernel launches and the device ops a step
+go to stderr.  The kernel is built, and one chunk or update run, before the
+timed window; the host clock is read after `torch.cuda.synchronize()`,
+since eager launches return before the card has run them.  Runs on the CUDA
+card unless `--device cpu`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+
+import torch
+
+from drone2d_tpu_torch.config import EnvConfig, PPOConfig
+from drone2d_tpu_torch.device import resolve_device, synchronize
+from drone2d_tpu_torch.env.env import ACT_DIM
+from drone2d_tpu_torch.learn.gae import compute_gae
+from drone2d_tpu_torch.learn.ppo import PPOLearner
+from drone2d_tpu_torch.ops.fused_policy import fused_sample_action
+from drone2d_tpu_torch.utils.profiling import device_window
+
+NUM_ENVS = 4096
+CHUNK_T = 256          # steps per timed chunk
+REPEATS = 8
+# the env-steps/s target of BASELINE.json, stated there for a TPU v5e; the
+# `vs_baseline` ratio is against it, and it is no figure of the card
+BASELINE_TPU_V5E = 1_000_000.0
+
+# the quality-recipe update shape (1024 envs x 128 steps, 64 minibatches x
+# 10 epochs = 640 SGD steps per update), shuffle 'timeperm' by default
+TRAIN_NUM_ENVS = 1024
+TRAIN_PPO = dict(n_steps=128, num_minibatches=64, n_epochs=10)
+TRAIN_REPEATS = 5
+# env steps under the profiler, for the device ops a step
+OPS_STEPS = 4
+
+
+@torch.no_grad()
+def chunk_from(params, env, env_state, obs, reset_state, reset_obs, noise, *,
+               autoreset: bool = True):
+    """The chunk's steps with its reset template and (T, N, 2) noise given:
+    each step the policy sample, the clip, and the auto-resetting step
+    against the template (`autoreset=False`: the plain `env.step`, no reset
+    select).  Returns (env_state, obs, rewards (T, N))."""
+    rewards = torch.empty(noise.shape[:2], device=obs.device)
+    for t in range(noise.shape[0]):
+        action = torch.clamp(params.sample_action(obs, noise=noise[t])[0], -1.0, 1.0)
+        out = (env.step_batch_template(env_state, action, reset_state, reset_obs)
+               if autoreset else env.step(env_state, action))
+        rewards[t] = out.reward
+        env_state, obs = out.state, out.obs
+    return env_state, obs, rewards
+
+
+def chunk(params, env, env_state, obs, gen: torch.Generator, chunk_t: int, **kw):
+    """One bench chunk drawn from `gen`: the reset template at global step 0,
+    then the noise; -> (env_state, obs, rewards (T, N))."""
+    n = obs.shape[0]
+    reset_state, reset_obs = env.reset_batch(gen, n, 0.0)
+    noise = torch.randn((chunk_t, n, ACT_DIM), generator=gen, device=obs.device)
+    return chunk_from(params, env, env_state, obs, reset_state, reset_obs, noise, **kw)
+
+
+def _line(metric: str, rate: float) -> str:
+    return json.dumps({"metric": metric, "value": round(rate, 1), "unit": "steps/s",
+                       "vs_baseline": round(rate / BASELINE_TPU_V5E, 3)})
+
+
+def _spread(label: str, seconds, launches: int, ops_a_step) -> str:
+    ops = "not measured (no CUDA device)" if ops_a_step is None else f"{ops_a_step:.1f}"
+    return (f"{label}: seconds {[round(s, 6) for s in seconds]}; min {min(seconds):.6f} median "
+            f"{statistics.median(seconds):.6f} max {max(seconds):.6f}; kernel launches "
+            f"{launches}; device ops a step {ops}")
+
+
+def _ops_a_step(fn, steps: int, device: torch.device):
+    """Device ops a step of fn() (`steps` steps), or None off the card."""
+    if device.type != "cuda":
+        return None
+    events, _, _ = device_window(fn)
+    return len(events) / steps
+
+
+def time_env(num_envs: int = NUM_ENVS, chunk_t: int = CHUNK_T, repeats: int = REPEATS,
+             device=None) -> dict:
+    """The env line's measurement: seconds of each of `repeats` chunks after
+    a warm-up chunk, synchronized; the kernel launches in them, and in the
+    whole measurement (`launches_all`); the summed reward of the last chunk;
+    the device ops a step over OPS_STEPS steps (OPS_STEPS more launches)."""
+    dev = resolve_device(device)
+    start = fused_sample_action.launches
+    learner = PPOLearner(EnvConfig(), PPOConfig(), num_envs, device=dev)
+    state = learner.init(0)
+    params, env, gen = state.params, learner.env, state.generator
+    env_state, obs = state.env_state, state.obs
+    env_state, obs, r = chunk(params, env, env_state, obs, gen, chunk_t)  # warm-up
+    float(r.sum())
+    seconds, before = [], fused_sample_action.launches
+    for _ in range(repeats):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        env_state, obs, r = chunk(params, env, env_state, obs, gen, chunk_t)
+        total = float(r.sum())  # the summed reward, on the host: synchronizes
+        seconds.append(time.perf_counter() - t0)
+    launches = fused_sample_action.launches - before
+    # the steps alone: a chunk's template is drawn once for all its steps
+    reset_state, reset_obs = env.reset_batch(gen, num_envs, 0.0)
+    noise = torch.randn((OPS_STEPS, num_envs, ACT_DIM), generator=gen, device=dev)
+    ops = _ops_a_step(lambda: chunk_from(params, env, env_state, obs, reset_state, reset_obs,
+                                         noise), OPS_STEPS, dev)
+    return dict(steps=repeats * chunk_t * num_envs, seconds=seconds, launches=launches,
+                launches_all=fused_sample_action.launches - start, reward_sum=total,
+                ops_a_step=ops)
+
+
+def time_train(shuffle: str = "timeperm", num_envs: int = TRAIN_NUM_ENVS, ppo: dict = TRAIN_PPO,
+               repeats: int = TRAIN_REPEATS, device=None) -> dict:
+    """The train line's measurement: seconds of each of `repeats`
+    `PPOLearner.update`s after a warm-up update, synchronized; the kernel
+    launches in them (n_steps + 1 an update), and in the whole measurement
+    (`launches_all`); the last loss; the device ops
+    a minibatch step over one epoch of SGD on one more rollout (n_steps + 1
+    more launches)."""
+    dev = resolve_device(device)
+    start = fused_sample_action.launches
+    cfg = PPOConfig(**ppo, shuffle=shuffle)
+    learner = PPOLearner(EnvConfig(), cfg, num_envs, device=dev)
+    state = learner.init(0)
+    state, metrics = learner.update(state)  # warm-up
+    float(metrics["loss"])
+    seconds, before = [], fused_sample_action.launches
+    for _ in range(repeats):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        state, metrics = learner.update(state)
+        loss = float(metrics["loss"])  # on the host: synchronizes
+        seconds.append(time.perf_counter() - t0)
+    launches = fused_sample_action.launches - before
+    ops = None
+    if dev.type == "cuda":
+        epoch = PPOLearner(EnvConfig(), cfg.replace(n_epochs=1), num_envs, device=dev)
+        state, batch, last_values, _ = epoch.rollout(state)
+        adv, ret = compute_gae(batch.rewards, batch.values, batch.dones, last_values,
+                               gamma=cfg.gamma, gae_lambda=cfg.gae_lambda)
+        perms = epoch.draw_perms(state.generator)
+        ops = _ops_a_step(lambda: float(epoch.sgd(state, batch, adv, ret, perms)["loss"]),
+                          cfg.num_minibatches, dev)
+    return dict(steps=repeats * num_envs * cfg.n_steps, seconds=seconds, launches=launches,
+                launches_all=fused_sample_action.launches - start, loss=loss, ops_a_step=ops)
+
+
+def bench_train(shuffle: str = "timeperm", device=None, **kw) -> dict:
+    out = time_train(shuffle, device=device, **kw)
+    print(_line("train_steps_per_s", out["steps"] / sum(out["seconds"])), flush=True)
+    print(_spread("train_steps_per_s", out["seconds"], out["launches"], out["ops_a_step"])
+          + " (a minibatch step)", file=sys.stderr, flush=True)
+    return out
+
+
+def bench_env(num_envs: int = NUM_ENVS, chunk_t: int = CHUNK_T, device=None, **kw) -> dict:
+    out = time_env(num_envs, chunk_t, device=device, **kw)
+    print(_line("env_steps_per_s", out["steps"] / sum(out["seconds"])), flush=True)
+    print(_spread("env_steps_per_s", out["seconds"], out["launches"], out["ops_a_step"]),
+          file=sys.stderr, flush=True)
+    return out
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--train", action="store_true",
+                   help="time the full quality-recipe PPO update instead")
+    p.add_argument("--shuffle", default="timeperm", choices=["exact", "affine", "timeperm"],
+                   help="shuffle mode for --train (default: timeperm)")
+    p.add_argument("--all", action="store_true", help="print both lines")
+    p.add_argument("--num-envs", type=int, default=NUM_ENVS,
+                   help="env batch for the hot-loop line (the headline default is 4096)")
+    p.add_argument("--chunk", type=int, default=CHUNK_T,
+                   help="steps per timed chunk (default 256)")
+    p.add_argument("--device", default=None, choices=("cuda", "cpu"),
+                   help="where to run; the default is the CUDA card, and the run fails "
+                   "without one ('cpu' runs on the host)")
+    args = p.parse_args(argv)
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        print(f"device: {torch.cuda.get_device_name(dev)}", file=sys.stderr, flush=True)
+    out = {}
+    if args.train or args.all:
+        out["train"] = bench_train(args.shuffle, device=dev)
+        if not args.all:
+            return out
+    out["env"] = bench_env(args.num_envs, args.chunk, device=dev)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -22,3 +22,10 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the host"
         )
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on `device`: eager CUDA launches return
+    before the card has run them.  Nothing to wait for on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,9 +1,11 @@
 """Tracing and phase timing (counterpart of `drone2d_tpu/utils/profiling.py`).
 
-Two tools:
+Three tools:
 * `trace(log_dir)`: a context manager around `torch.profiler` that writes
   a Chrome trace (`chrome://tracing`, Perfetto) of the host's operators and,
   on the card, of every device kernel launched inside.
+* `device_window(fn)`: the device events of one call on the card, for ops
+  a step and the device's busy share.
 * `PhaseTimer`: wall-clock phase accounting for a loop (rollout / GAE /
   update / host IO), printed or written as JSONL.
 
@@ -45,7 +47,7 @@ def trace(log_dir: str) -> Iterator[str]:
     on the card the window opens on a warm-up step, whose events are
     dropped, and then a lead-in of LEAD_KERNELS trivial kernels under the
     range `trace: lead-in`, which takes that loss instead of the block."""
-    from torch.profiler import ProfilerActivity, profile, record_function, schedule
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU]
@@ -59,15 +61,51 @@ def trace(log_dir: str) -> Iterator[str]:
             torch.cuda.synchronize()
         prof.step()
         if cuda:
-            with record_function("trace: lead-in"):
-                x = torch.zeros(1, device="cuda")
-                for _ in range(LEAD_KERNELS):
-                    x.add_(1)
-                torch.cuda.synchronize()
+            _lead_in()
         yield path
         if cuda:
             torch.cuda.synchronize()
     prof.export_chrome_trace(path)
+
+
+def _lead_in() -> None:
+    """LEAD_KERNELS trivial kernels (and the zeros they add to) under the
+    range `trace: lead-in`, synchronized."""
+    from torch.profiler import record_function
+
+    with record_function("trace: lead-in"):
+        x = torch.zeros(1, device="cuda")
+        for _ in range(LEAD_KERNELS):
+            x.add_(1)
+        torch.cuda.synchronize()
+
+
+def device_window(fn):
+    """Run fn() once under torch.profiler on the card, synchronized ->
+    (its device events, their summed device µs, the wall µs of the call).
+
+    The window opens on `trace`'s lead-in, which takes the profiler's loss
+    of a window's first kernel records; the lead-in's kernels ran before
+    the call's range opened (a 1 ms gap apart), and only the device events
+    that start inside that range are returned."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _lead_in()
+        time.sleep(1e-3)
+        with record_function("device_window"):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    start = min(e.time_range.start for e in events
+                if e.name == "device_window" and e.device_type != cuda)
+    # the ranges' own annotations on the device's timeline are no kernels
+    device = [e for e in events if e.device_type == cuda and e.time_range.start >= start
+              and e.name not in ("device_window", "trace: lead-in")]
+    return device, sum(e.time_range.elapsed_us() for e in device), wall_us
 
 
 def _cuda_devices(tree, out: set) -> set:

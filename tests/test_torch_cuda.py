@@ -10,7 +10,9 @@ the card; a checkpoint written on the card resumes on the CPU.  The box
 obstacles' geometry and step, the vector env core and the fresh-draw step
 (`step_batch`) on the card against the CPU.  A world-1 NCCL group's sharded
 update bit-equal to the plain update, and the split-carry step bit-equal to
-the template step over a chunk.
+the template step over a chunk.  The headline bench's chunk on the card
+against the CPU, its launch and device-op counts (the profiler's window
+without its lead-in), and the policy-kernel and split-carry probes.
 
 These need an NVIDIA GPU and nvcc, and skip without one.  This file imports
 no JAX, so on a machine with the card and without JAX it runs alone:
@@ -514,3 +516,55 @@ def test_split_chunk_on_card_bit_exact(dev):
         assert torch.equal(getattr(final, name), getattr(state, name)), name
     assert torch.equal(final.path.table_u, state.path.table_u)
     assert torch.equal(final.body.pos, state.body.pos)
+
+
+def test_device_window_counts_the_call_not_its_lead_in(dev):
+    """`utils.profiling.device_window` opens on the lead-in of trivial
+    kernels and returns the device events of the call alone."""
+    from drone2d_tpu_torch.utils.profiling import device_window
+
+    x = torch.zeros(1024, device=dev)
+    x.add_(1)
+    torch.cuda.synchronize()
+    events, dev_us, wall_us = device_window(lambda: [x.mul_(2) for _ in range(3)])
+    assert len(events) == 3 and dev_us > 0 and wall_us > 0
+
+
+def test_bench_chunk_on_card_matches_cpu(dev):
+    """The bench chunk (policy kernel, clip, template step) on the card
+    against the plain version on the CPU, from identical inputs."""
+    from drone2d_tpu_torch.bench import chunk_from
+
+    n, t = 256, 4
+    cpu_env = Drone2DEnv(EnvConfig(), "cpu")
+    gen = torch.Generator().manual_seed(2)
+    state, obs = cpu_env.reset_batch(gen, n, 3e6)
+    tmpl, tmpl_obs = cpu_env.reset_batch(gen, n, 3e6)
+    noise = torch.randn((t, n, 2), generator=gen)
+    out = {}
+    for d in ("cpu", dev):
+        params = flat_dict_to_params(dict(np.load(AGENT)), device=d)
+        env = Drone2DEnv(EnvConfig(), d)
+        out[str(d)] = chunk_from(params, env, _to(state, d), obs.to(d), _to(tmpl, d),
+                                 tmpl_obs.to(d), noise.to(d))[2]
+    assert _scaled_err(out["cuda"].cpu(), out["cpu"]) <= 1e-4
+
+
+def test_bench_counts_launches_and_device_ops_on_card(dev):
+    from drone2d_tpu_torch import bench
+
+    env = bench.time_env(64, 4, 2)
+    assert env["launches"] == 8 and env["launches_all"] == 3 * 4 + bench.OPS_STEPS
+    assert 100 < env["ops_a_step"] < 2000 and len(env["seconds"]) == 2
+    train = bench.time_train(num_envs=64, ppo=dict(n_steps=8, num_minibatches=4, n_epochs=1),
+                             repeats=1)
+    assert train["launches"] == 9 and train["launches_all"] == 3 * 9
+    assert np.isfinite(train["loss"]) and train["ops_a_step"] > 10
+
+
+def test_fused_policy_probe_and_split_probe_on_card(dev):
+    from drone2d_tpu_torch.scripts import bench_fused_policy, probe_split_carry
+
+    res = bench_fused_policy.run(512, 8, 1)
+    assert max(res["scaled_errors"].values()) <= 1e-5 and res["scaled_errors"]["logp"] == 0.0
+    assert probe_split_carry.run(256, 8, 1)["first_chunk_reward_equal"]

@@ -207,7 +207,13 @@ def test_package_imports_no_jax():
                  "compat.sb3_import", "compat.gym_env", "compat.vector_env", "eval.render",
                  "parallel.mesh", "parallel.multihost", "eval.replay", "eval.curves",
                  "eval.replotting", "utils.profiling", "debug", "scripts.multihost_smoke",
-                 "scripts.ddp_check"):
+                 "scripts.ddp_check", "bench", "scripts.precision_campaign",
+                 "scripts.package_agent", "scripts.zoo", "scripts.stage1_failure_modes",
+                 "scripts.stage1_time_margin", "scripts.aape_survivorship",
+                 "scripts.bench_update_split", "scripts.roofline_probe",
+                 "scripts.roofline_update", "scripts.bench_kernels",
+                 "scripts.bench_fused_policy", "scripts.profile_step",
+                 "scripts.probe_split_carry"):
         assert f"drone2d_tpu_torch.{name}" in loaded, name
 
 
