@@ -41,6 +41,12 @@ survivorship's paired width groups, and the probes at small depth
 (`scripts/bench_update_split`, `roofline_probe`, `roofline_update`,
 `bench_kernels`, `bench_fused_policy`, `profile_step`,
 `probe_split_carry`).
+The training, population, bench and eval paths run as CUDA graphs
+(`PPOLearner.update_jit`, the eval runner's captured chunks, the bench's
+captured chunk); the `graphs` phase holds `update_jit` bit-equal to the
+eager `update` over 3 updates in each shuffle and for a population of 8,
+and the captured eval runner bit-equal to the eager one, and times each
+pair in turn.
 It checks that the paths launched the kernels and that their outputs are
 right (an update, an eval batch and the vector env on the card against the
 same on the CPU, 129 launches an update for one seed or for 8, finite
@@ -122,7 +128,8 @@ from drone2d_tpu_torch.scripts import (
 )
 from drone2d_tpu_torch.train import parse_args, train
 from drone2d_tpu_torch.utils.checkpoint import restore_checkpoint
-from drone2d_tpu_torch.utils.profiling import LEAD_KERNELS, device_window, trace
+from drone2d_tpu_torch.utils import graphs
+from drone2d_tpu_torch.utils.profiling import LEAD_KERNELS, device_window, launch_window, trace
 
 ROOT = Path(__file__).resolve().parent
 AGENT = ROOT / "artifacts" / "agent_s8004" / "new_agent.npz"
@@ -142,6 +149,16 @@ TOL = 1e-5
 # of the weight (the same step added to a weight rounds to its ulp)
 UPDATE_TOL, PARAM_TOL, PARAM_ULPS = 1e-5, 1e-3, 4
 TRAIN_UPDATES = 3  # from scratch, then 1 more after a resume
+# `train`, `train_zoo` and the bench train through `update_jit`: a run's first
+# update captures its CUDA graphs after a warm-up on one update's device
+# work, whose n_steps + 1 kernel launches are real and counted
+WARMUPS = 1
+# the graphs phase: update_jit against update over GRAPH_UPDATES updates in
+# each shuffle and for the population of ZOO_SEEDS; the two timed in turn,
+# GRAPH_TIMING each; the captured eval runner against the eager one on
+# GRAPH_EVAL_SCENARIO x EVAL_EPISODES with agent_s8004, seed GRAPH_EVAL_SEED
+GRAPH_UPDATES, GRAPH_TIMING = 3, 5
+GRAPH_EVAL_SCENARIO, GRAPH_EVAL_SEED = "stage_2", 8004
 # flagship-finetune: 2 updates as published, then PLR_UPDATES with both
 # wall mixes at WALL_MIX and the controller on, then 1 more after a resume.
 # Stage-1 and scheduled episodes of this agent last ~500 steps, so every
@@ -756,10 +773,10 @@ def _train_in(d: str, kernel_row: dict):
         torch.cuda.synchronize()
         launches[name] = fused_sample_action.launches
         log(f"  {name}: {updates} update(s) in {time.perf_counter() - t0:.2f} s, "
-            f"kernel launches {launches[name]}")
-        if launches[name] != updates * (ppo_cfg.n_steps + 1):
+            f"kernel launches {launches[name]} (the capture's warm-up included)")
+        if launches[name] != (updates + WARMUPS) * (ppo_cfg.n_steps + 1):
             raise AssertionError(f"{name}: fused_sample_action launched {launches[name]} "
-                                 f"times, want {updates} x {ppo_cfg.n_steps + 1}")
+                                 f"times, want ({updates} + {WARMUPS}) x {ppo_cfg.n_steps + 1}")
 
     with open(f"{d}/metrics.jsonl") as f:
         rows = [json.loads(line) for line in f]
@@ -796,6 +813,165 @@ def _train_in(d: str, kernel_row: dict):
     return (train_cfg, env_cfg, ppo_cfg), state
 
 
+def _states_equal(a, b) -> dict:
+    """Which parts of two learner states are bit-equal: the weights, Adam's
+    whole state (moments and step counts), the envs with obs and counters."""
+    def same(xs, ys):
+        xs, ys = list(xs), list(ys)
+        return len(xs) == len(ys) and all(
+            (x is None and y is None) or torch.equal(x, y) for x, y in zip(xs, ys))
+
+    return {
+        "weights": same(a.params.parameters(), b.params.parameters()),
+        "adam": same(graphs.optimizer_tensors(a.optimizer), graphs.optimizer_tensors(b.optimizer)),
+        "envs": same(*(graphs.leaves((s.env_state, s.obs, s.global_step, s.episodes_total,
+                                      s.family_counts, s.family_wins)) for s in (a, b))),
+    }
+
+
+def phase_graphs(cfgs, kernel_row: dict):
+    """The compiled programs: `update_jit` against `update` from twin starts
+    over GRAPH_UPDATES consecutive updates at flagship-scratch (1024 envs x
+    128 steps, 64 x 10 SGD) in each shuffle, and for a population of the 8
+    ZOO_SEEDS: weights, Adam's whole state, metrics, envs and counters
+    bit-equal after each update, 2 (n_steps + 1) launches for the capturing
+    call and n_steps + 1 for each later one; the programs' nodes, capture
+    and instantiation seconds and pool bytes; the two updates timed in turn
+    (GRAPH_TIMING each), the rollout and SGD graphs replayed alone, the host
+    launches and device ops of an update each way under the profiler; the
+    captured eval runner against the eager one (agent_s8004 on
+    GRAPH_EVAL_SCENARIO x EVAL_EPISODES, stochastic and deterministic):
+    every field of the results equal, and an eval step's time each way."""
+    train_cfg, env_cfg, ppo_cfg = cfgs
+    n, N = ppo_cfg.n_steps + 1, train_cfg.num_envs
+    torch.cuda.synchronize()
+    fused_sample_action.launches = 0
+    log(f"graphs: update_jit against update, {GRAPH_UPDATES} updates from twin starts "
+        f"(flagship-scratch, {N} envs x {ppo_cfg.n_steps} steps, {ppo_cfg.num_minibatches} x "
+        f"{ppo_cfg.n_epochs} SGD):")
+    runs = [(f"shuffle {sh}", PPOLearner(env_cfg, ppo_cfg.replace(shuffle=sh), N),
+             lambda learner: learner.init(train_cfg.seed))
+            for sh in ("timeperm", "exact", "affine")]
+    runs.append((f"population of {len(ZOO_SEEDS)}", ZooTrainer(env_cfg, ppo_cfg, N),
+                 lambda trainer: trainer.init(ZOO_SEEDS)))
+    timing = None
+    for label, learner, start in runs:
+        a, b = start(learner), start(learner)
+        counts, equal, secs = [], [], []
+        for _ in range(GRAPH_UPDATES):
+            before = fused_sample_action.launches
+            t0 = time.perf_counter()
+            a, ma = learner.update_jit(a)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            counts.append(fused_sample_action.launches - before)
+            b, mb = learner.update(b)
+            eq = _states_equal(a, b)
+            eq["metrics"] = set(ma) == set(mb) and all(torch.equal(ma[k], mb[k]) for k in mb)
+            equal.append(eq)
+        program = next(iter(learner._graphs.entries.values()))
+        st = program.capture_stats
+        log(f"  {label}: bit-equal {equal}; kernel launches {counts} (want "
+            f"{[(1 + WARMUPS) * n] + [n] * (GRAPH_UPDATES - 1)}); update_jit seconds "
+            f"{[round(x, 4) for x in secs]}; nodes {st.nodes} (rollout + GAE, an SGD epoch), "
+            f"warm-up {st.warmup_s:.3f} s, recording {st.capture_s:.3f} s, instantiation "
+            f"{st.instantiate_s:.3f} s, pool {st.pool_bytes / 2**20:.1f} MiB")
+        if not all(all(e.values()) for e in equal) or counts != [(1 + WARMUPS) * n] + [n] * (
+                GRAPH_UPDATES - 1) or learner._graphs.captures != 1:
+            raise AssertionError(f"graphs {label}: {equal}, launches {counts}, "
+                                 f"{learner._graphs.captures} captures")
+        if timing is None:
+            timing = (learner, a, b, program)
+
+    learner, a, b, program = timing
+    secs = {"update_jit": [], "update": []}
+    for _ in range(GRAPH_TIMING):
+        for name, fn in (("update_jit", learner.update_jit), ("update", learner.update)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "update_jit":
+                a, m = fn(a)
+            else:
+                b, m = fn(b)
+            float(m["loss"])
+            secs[name].append(time.perf_counter() - t0)
+    steps = N * ppo_cfg.n_steps
+    for name, v in secs.items():
+        log(f"  {name} (timeperm, in turn): min {min(v):.4f} median {statistics.median(v):.4f} "
+            f"max {max(v):.4f} s; {steps / statistics.median(v):.1f} train_steps_per_s; all "
+            f"{[round(x, 4) for x in v]}")
+    parts = {}
+    for name, g, k in (("rollout + GAE", program.rollout, ppo_cfg.n_steps),
+                       ("SGD epoch", program.epoch, ppo_cfg.num_minibatches)):
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        parts[name] = 1e3 * min(ts) / k
+        log(f"  {name} graph replayed alone: {1e3 * min(ts):.3f} ms (min of 3), "
+            f"{parts[name]:.4f} ms a {'rollout' if k == ppo_cfg.n_steps else 'minibatch'} "
+            f"step")
+    # the profiler over one whole captured update, and over one SGD epoch
+    # each way (an eager update's ~420k events would take it long to read)
+    sgd_steps = ppo_cfg.n_epochs * ppo_cfg.num_minibatches
+    events, host, dev_us, wall_us = launch_window(lambda: float(learner.update_jit(a)[1]["loss"]))
+    steps_an_update = ppo_cfg.n_steps + sgd_steps
+    log(f"  profiler, one update_jit: {len(events)} device ops "
+        f"({len(events) / steps_an_update:.1f} a step of {ppo_cfg.n_steps} rollout + "
+        f"{sgd_steps} SGD), {len(host)} host launches "
+        f"({len(host) / steps_an_update:.2f} a step), device busy "
+        f"{100 * dev_us / wall_us:.1f}% of {wall_us / 1e3:.1f} ms")
+    epoch = PPOLearner(env_cfg, ppo_cfg.replace(n_epochs=1), N)
+    b, batch, last_values, _ = epoch.rollout(b)
+    adv, ret = compute_gae(batch.rewards, batch.values, batch.dones, last_values,
+                           gamma=ppo_cfg.gamma, gae_lambda=ppo_cfg.gae_lambda)
+    perms = epoch.draw_perms(b.generator)
+    for name, fn in (("SGD epoch graph replay", program.epoch),
+                     ("eager SGD epoch", lambda: epoch.sgd(b, batch, adv, ret, perms))):
+        events, host, dev_us, wall_us = launch_window(fn)
+        k = ppo_cfg.num_minibatches
+        log(f"  profiler, one {name}: {len(events) / k:.1f} device ops and {len(host) / k:.2f} "
+            f"host launches a minibatch step, device busy {100 * dev_us / wall_us:.1f}% of "
+            f"{wall_us / 1e3:.1f} ms")
+
+    # the captured eval runner against the same chunks run eagerly
+    cfg = scenario_config(GRAPH_EVAL_SCENARIO)
+    env = Drone2DEnv(cfg)
+    params = load_agent("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(GRAPH_EVAL_SEED)
+    state, obs = env.reset_batch(gen, EVAL_EPISODES)
+    draws = torch.randn((cfg.n_steps, EVAL_EPISODES, 2), generator=gen, device="cuda")
+    for det in (False, True):
+        res, secs = {}, {}
+        for captured in (True, False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[captured] = run_episodes_from(env, params, state, obs, draws, deterministic=det,
+                                              captured=captured)
+            secs.setdefault(captured, []).append(time.perf_counter() - t0)
+        got, want = res[True], res[False]
+        equal = {k: bool(np.array_equal(g, w)) for k, g, w in zip(got._fields, got, want)}
+        # the runner stops at the first check after the last episode latched
+        ran = min(cfg.n_steps, -(-int(want.time_steps.max()) // eval_episode.CHECK_EVERY)
+                  * eval_episode.CHECK_EVERY)
+        log(f"  eval runner ({'deterministic' if det else 'stochastic'}, {GRAPH_EVAL_SCENARIO} x "
+            f"{EVAL_EPISODES}, s8004, seed {GRAPH_EVAL_SEED}): captured vs eager equal in every "
+            f"field: {all(equal.values())}; SR {want.success.mean():.3f}; {ran} steps run; "
+            f"captured {secs[True][1]:.3f} s ({1e3 * secs[True][1] / ran:.3f} ms a step; "
+            f"{secs[True][0]:.3f} s with its capture), eager {secs[False][0]:.3f} s "
+            f"({1e3 * secs[False][0] / ran:.3f} ms a step)")
+        if not all(equal.values()):
+            raise AssertionError(f"graphs: captured eval runner differs from the eager one: "
+                                 f"{equal}")
+    torch.cuda.synchronize()
+    launches = fused_sample_action.launches
+    log(f"graphs: kernel launches {launches}; card {card_line()}")
+    kernel_row["launches_by_path"]["graphs"] = launches
+
+
 def phase_train_timing(cfgs, state):
     """One minibatch step at the recipe by layer, on a fresh rollout's
     batch; one update each with the 'exact' and 'affine' shuffles; the
@@ -816,7 +992,7 @@ def phase_train_timing(cfgs, state):
     for i in range(21):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, _ = learner.loss_fn(params, *mb)
+        loss = learner.loss_fn(params, *mb)[0]
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
@@ -835,20 +1011,26 @@ def phase_train_timing(cfgs, state):
     log(f"  SGD step layers, minibatch {learner.minibatch_size} (host clock, synchronized, "
         f"median ms of 20): " + ", ".join(f"{k} {statistics.median(v):.3f}"
                                           for k, v in layers.items()))
+    # the last eager loss holds its autograd graph (so would its aux
+    # values), whose gradient accumulators stay on this stream: a capture
+    # could not depend on it
+    del loss
 
     for shuffle in ("exact", "affine"):
         other = PPOLearner(env_cfg, ppo_cfg.replace(shuffle=shuffle), train_cfg.num_envs)
         fused_sample_action.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics = other.update(state)
+        state, metrics = other.update_jit(state)
         loss = float(metrics["loss"])
         dt = time.perf_counter() - t0
-        log(f"  shuffle {shuffle}: one update {dt:.4f} s, loss {loss:.4f}, "
-            f"kernel launches {fused_sample_action.launches}")
-        if not math.isfinite(loss) or fused_sample_action.launches != ppo_cfg.n_steps + 1:
+        log(f"  shuffle {shuffle}: one update_jit {dt:.4f} s (its capture included), loss "
+            f"{loss:.4f}, kernel launches {fused_sample_action.launches} (the warm-up's "
+            f"included)")
+        want = (1 + WARMUPS) * (ppo_cfg.n_steps + 1)
+        if not math.isfinite(loss) or fused_sample_action.launches != want:
             raise AssertionError(f"shuffle {shuffle}: loss {loss}, "
-                                 f"{fused_sample_action.launches} launches")
+                                 f"{fused_sample_action.launches} launches, want {want}")
 
     # the device's busy share over one epoch of SGD (64 minibatch steps);
     # the rollout's is in the update split above
@@ -877,7 +1059,7 @@ def phase_weights_live(learner, state):
                            gamma=learner.cfg.gamma, gae_lambda=learner.cfg.gae_lambda)
     mb = [x.reshape((-1,) + x.shape[2:])[: learner.minibatch_size]
           for x in (batch.obs, batch.actions, batch.log_probs, adv, ret)]
-    loss, _ = learner.loss_fn(params, *mb)
+    loss = learner.loss_fn(params, *mb)[0]
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     optim.clip_by_global_norm_([p.grad for p in params.parameters()], learner.cfg.max_grad_norm)
@@ -893,6 +1075,23 @@ def phase_weights_live(learner, state):
         f"outputs moved by up to {moved:.3e}")
     if max(errs) > TOL or moved <= 0.0:
         raise AssertionError(f"the kernel did not read the updated weights: {errs}, {moved}")
+
+    # the captured rollout reads the weights by pointer: after update_jit
+    # (Adam in place, inside the SGD graph) the kernel reads the new ones;
+    # the eager loss's autograd graph goes first (see phase_train_timing)
+    del loss
+    before = fused_sample_action(params, obs, noise)
+    state, _ = learner.update_jit(state)
+    got = fused_sample_action(params, obs, noise)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = fused_sample_action_ref(params, obs, noise)
+    errs = [scaled_err(g, w) for g, w in zip(got, want)]
+    moved = max(float((g - b).abs().max()) for g, b in zip(got, before))
+    log(f"kernel after update_jit: scaled errors against the plain version on the updated "
+        f"weights {', '.join(f'{e:.2e}' for e in errs)}; outputs moved by up to {moved:.3e}")
+    if max(errs) > TOL or moved <= 0.0:
+        raise AssertionError(f"the kernel did not read update_jit's weights: {errs}, {moved}")
 
 
 def _finetune_args(d: str, *extra: str):
@@ -976,10 +1175,11 @@ def _finetune_in(d: str, kernel_row: dict):
         dt = time.perf_counter() - t0
         launches[name] = fused_sample_action.launches
         log(f"  {name}: {updates} update(s) in {dt:.2f} s ({dt / updates:.2f} s an update, "
-            f"setup included), kernel launches {launches[name]}")
-        if launches[name] != updates * (ppo_cfg.n_steps + 1):
+            f"setup and capture included), kernel launches {launches[name]} (the capture's "
+            f"warm-up included)")
+        if launches[name] != (updates + WARMUPS) * (ppo_cfg.n_steps + 1):
             raise AssertionError(f"{name}: fused_sample_action launched {launches[name]} "
-                                 f"times, want {updates} x {ppo_cfg.n_steps + 1}")
+                                 f"times, want ({updates} + {WARMUPS}) x {ppo_cfg.n_steps + 1}")
 
     for name, out in (("finetune", f"{d}/recipe"), ("finetune_plr", f"{d}/plr")):
         with open(f"{out}/metrics.jsonl") as f:
@@ -1051,8 +1251,10 @@ def phase_finetune_timing(scratch: PPOLearner, scratch_state):
     learner = PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs)
     state = learner.init(train_cfg.seed, params=flat_dict_to_params(
         dict(np.load(FINETUNE_AGENT)), device="cuda"))
-    bench_update_split.update_split({"flagship-scratch": (scratch, scratch_state),
-                                     "flagship-finetune": (learner, state)}, reps=1, log=log)
+    runs = {"flagship-scratch": (scratch, scratch_state), "flagship-finetune": (learner, state)}
+    out = bench_update_split.update_split(dict(runs), reps=1, log=log)
+    bench_update_split.update_jit_seconds(
+        {label: (lrn, out[label][0]) for label, (lrn, _) in runs.items()}, reps=1, log=log)
 
 
 def _episode_errors(got, want) -> dict:
@@ -1106,29 +1308,39 @@ def phase_eval_reference():
 
 def phase_eval_breakdown():
     """Where a campaign step's time goes, in the corridor scenario at
-    B=EVAL_EPISODES: host ms a step over 64 steps of the stochastic runner
-    (synchronized, the results' copy to the host included), and the
-    device's busy share and ops a step under the profiler over 8 steps."""
+    B=EVAL_EPISODES: host ms a step over 64 steps of the stochastic runner,
+    eager and captured in turn (synchronized, the results' copy to the host
+    included, the capture made before), and the device's busy share, ops
+    and host launches a step under the profiler over 8 steps of each."""
     params = load_agent("cuda")
+    step_ms, busy = {}, {}
     for cap in (64, 8):
         cfg = scenario_config("corridor").replace(n_steps=cap)
         env = Drone2DEnv(cfg)
         gen = torch.Generator(device="cuda").manual_seed(1)
         state, obs = env.reset_batch(gen, EVAL_EPISODES)
         noise = torch.randn((cap, EVAL_EPISODES, 2), generator=gen, device="cuda")
-        if cap == 64:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run_episodes_from(env, params, state, obs, noise)
-            step_ms = (time.perf_counter() - t0) * 1e3 / cap
-        else:
-            events, dev_us, wall_us = device_window(
-                lambda: run_episodes_from(env, params, state, obs, noise))
-    busy = (f"device busy {dev_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
-            f"({100 * dev_us / wall_us:.1f}%), {len(events) / 8:.0f} device ops a step"
-            if events else "device time not measured (no device events)")
-    log(f"eval step at B={EVAL_EPISODES} (corridor): {step_ms:.3f} ms a step (host clock, "
-        f"64 steps, synchronized); profiler, 8 steps: {busy}")
+        run_episodes_from(env, params, state, obs, noise)  # the capture
+        for captured in ((False, True, True, False) if cap == 64 else (False, True)):
+            label = "captured" if captured else "eager"
+            if cap == 64:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run_episodes_from(env, params, state, obs, noise, captured=captured)
+                step_ms.setdefault(label, []).append((time.perf_counter() - t0) * 1e3 / cap)
+                continue
+            events, host, dev_us, wall_us = launch_window(
+                lambda: run_episodes_from(env, params, state, obs, noise, captured=captured))
+            busy[label] = (f"{label}: device busy {dev_us / 1e3:.3f} ms of "
+                           f"{wall_us / 1e3:.3f} ms wall ({100 * dev_us / wall_us:.1f}%), "
+                           f"{len(events) / 8:.0f} device ops and {len(host) / 8:.1f} host "
+                           f"launches a step" if events
+                           else f"{label}: device time not measured (no device events)")
+    log(f"eval step at B={EVAL_EPISODES} (corridor; host clock, 64 steps, synchronized, "
+        f"in turn): " + ", ".join(
+            f"{k} {min(v):.3f} ms a step ({', '.join(f'{x:.3f}' for x in v)})"
+            for k, v in step_ms.items())
+        + f"; profiler, 8 steps: {'; '.join(busy.values())}")
 
 
 def _z(p1: float, p2: float, n1: int, n2: int) -> float:
@@ -1229,12 +1441,13 @@ def _zoo_in(d: str, kernel_row: dict):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = fused_sample_action.launches
-    log(f"  zoo: {len(ZOO_SEEDS)} seeds x {ZOO_UPDATES} updates in {dt:.2f} s (setup and "
-        f"snapshots included), kernel launches {launches} "
-        f"({launches / ZOO_UPDATES:.0f} a population update)")
-    if launches != ZOO_UPDATES * (ppo_cfg.n_steps + 1):
+    log(f"  zoo: {len(ZOO_SEEDS)} seeds x {ZOO_UPDATES} updates in {dt:.2f} s (setup, "
+        f"capture and snapshots included), kernel launches {launches} "
+        f"({launches / (ZOO_UPDATES + WARMUPS):.0f} a population update, the capture's "
+        f"warm-up included)")
+    if launches != (ZOO_UPDATES + WARMUPS) * (ppo_cfg.n_steps + 1):
         raise AssertionError(f"zoo: fused_sample_action launched {launches} times, want "
-                             f"{ZOO_UPDATES} x {ppo_cfg.n_steps + 1}")
+                             f"({ZOO_UPDATES} + {WARMUPS}) x {ppo_cfg.n_steps + 1}")
     m = re.search(rf"update {ZOO_UPDATES}/{ZOO_UPDATES} .*loss\s+(\S+)", text)
     if not m or not math.isfinite(float(m.group(1))):
         raise AssertionError("zoo: no finite loss in the last update's line")
@@ -1289,7 +1502,15 @@ def phase_zoo_timing(scratch: PPOLearner, scratch_state):
         reps=1, log=log)
     single, pop = out["flagship-scratch"][4], out["flagship-scratch population of 8"][4]
     log(f"population of {len(ZOO_SEEDS)}: {pop:.1f} env steps a second against a single "
-        f"seed's {single:.1f}, taken in turn: {pop / single:.2f}x")
+        f"seed's {single:.1f}, taken in turn: {pop / single:.2f}x (eager)")
+    jit = bench_update_split.update_jit_seconds(
+        {label: (learner, out[label][0]) for label, learner in (
+            ("flagship-scratch", scratch), ("flagship-scratch population of 8", trainer))},
+        reps=1, log=log)
+    single, pop = (min(jit[k][2])
+                   for k in ("flagship-scratch", "flagship-scratch population of 8"))
+    log(f"population of {len(ZOO_SEEDS)} under update_jit: {len(ZOO_SEEDS) * single / pop:.2f}x "
+        f"a single seed's env steps a second, taken in turn")
 
 
 def phase_precision(kernel_row: dict):
@@ -2047,9 +2268,12 @@ def phase_profiling(kernel_row: dict, learner, state):
 def phase_bench(kernel_row: dict):
     """The headline bench: `python -m drone2d_tpu_torch.bench --all` at its
     defaults.  Its stdout is exactly `bench.py`'s two lines; the kernel
-    launched n_steps + 1 times an update run (the warm-up, the timed
-    repeats, and the rollout under the profiler) and 256 a chunk run (the
-    warm-up and the timed repeats), plus the OPS_STEPS profiled steps."""
+    launched n_steps + 1 times an update run (the capture's warm-up, the
+    warm-up update, the timed repeats, the eager rollout and one captured
+    update under the profiler) and 256 a chunk run (the warm-up and the
+    timed repeats), plus the capture's GRAPH_STEPS warm-up steps, the
+    OPS_STEPS eager profiled steps and one replay's GRAPH_STEPS under the
+    profiler."""
     out, err = io.StringIO(), io.StringIO()
     fused_sample_action.launches = 0
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
@@ -2066,8 +2290,17 @@ def phase_bench(kernel_row: dict):
             r["metric"] for r in rows] != ["train_steps_per_s", "env_steps_per_s"]:
         raise AssertionError(f"bench stdout is not bench.py's two lines: {lines}")
     train, env = res["train"], res["env"]
-    want_train = (1 + bench.TRAIN_REPEATS + 1) * (bench.TRAIN_PPO["n_steps"] + 1)
-    want_env = (1 + bench.REPEATS) * bench.CHUNK_T + bench.OPS_STEPS
+    # the capture's warm-up, the warm-up update and the timed ones, the
+    # eager rollout under the profiler, one captured update under it
+    n = bench.TRAIN_PPO["n_steps"] + 1
+    want_train = (WARMUPS + 1 + bench.TRAIN_REPEATS + 2) * n
+    # the capture's warm-up (one graph of GRAPH_STEPS), the warm-up and
+    # timed chunks, the eager profiled steps, one replay under the profiler
+    want_env = (bench.GRAPH_STEPS + (1 + bench.REPEATS) * bench.CHUNK_T + bench.OPS_STEPS
+                + bench.GRAPH_STEPS)
+    if (train["warmup_launches"], env["warmup_launches"]) != (n, bench.GRAPH_STEPS):
+        raise AssertionError(f"bench warm-ups launched {train['warmup_launches']} and "
+                             f"{env['warmup_launches']} times")
     if (train["launches_all"], env["launches_all"]) != (want_train, want_env) or (
             launches != want_train + want_env):
         raise AssertionError(f"bench launched the kernel {train['launches_all']} + "
@@ -2324,6 +2557,7 @@ def main():
     slice_state = (learner, state)
     timed("breakdown", phase_breakdown, learner, state)
     cfgs, state = timed("train", phase_train, row)
+    timed("graphs", phase_graphs, cfgs, row)
     learner, state = timed("train_timing", phase_train_timing, cfgs, state)
     timed("weights_live", phase_weights_live, learner, state)
     timed("bench", phase_bench, row)

@@ -6,19 +6,24 @@
 The env line times the training-relevant hot loop at 4096 envs: per
 256-step chunk one reset template (`reset_batch`), then each step the policy
 sample (`sample_action`, the fused kernel on the card), the clip to [-1, 1]
-and the auto-resetting `step_batch_template`, the rewards summed.  `--train`
-instead times the full quality-recipe PPO update (`PPOLearner.update`:
+and the auto-resetting `step_batch_template`, the rewards summed.  The
+steps run as a captured chunk (`CapturedChunk`: a CUDA graph of GRAPH_STEPS
+steps replayed 8 times a chunk), as `bench.py` jits its chunk.  `--train`
+instead times the full quality-recipe PPO update (`PPOLearner.update_jit`:
 rollout + GAE + 10 epochs x 64 minibatches of SGD at 1024 envs x 128
-steps), as `train.py` runs it; `--all` prints both, the train line first.
+steps, as CUDA graphs), as `train.py` runs it; `--all` prints both, the
+train line first.
 
 Stdout carries exactly `bench.py`'s lines, one JSON object a metric:
 {"metric", "value", "unit", "vs_baseline"}, `value` being the total steps
 over the total seconds of the timed repeats.  The spread (the seconds of
 each repeat, min/median/max), the kernel launches and the device ops a step
-go to stderr.  The kernel is built, and one chunk or update run, before the
-timed window; the host clock is read after `torch.cuda.synchronize()`,
-since eager launches return before the card has run them.  Runs on the CUDA
-card unless `--device cpu`.
+go to stderr, with the host launches (launch calls: one a kernel eager,
+one a graph replayed) a step or an update beside the device ops.  The
+kernel is built, the graphs captured, and one chunk or update run, before
+the timed window; the host clock is read after `torch.cuda.synchronize()`,
+since launches return before the card has run them.  Runs on the CUDA card
+unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ from drone2d_tpu_torch.env.env import ACT_DIM
 from drone2d_tpu_torch.learn.gae import compute_gae
 from drone2d_tpu_torch.learn.ppo import PPOLearner
 from drone2d_tpu_torch.ops.fused_policy import fused_sample_action
-from drone2d_tpu_torch.utils.profiling import device_window
+from drone2d_tpu_torch.utils import graphs
+from drone2d_tpu_torch.utils.profiling import device_window, launch_window
 
 NUM_ENVS = 4096
 CHUNK_T = 256          # steps per timed chunk
@@ -51,8 +57,11 @@ BASELINE_TPU_V5E = 1_000_000.0
 TRAIN_NUM_ENVS = 1024
 TRAIN_PPO = dict(n_steps=128, num_minibatches=64, n_epochs=10)
 TRAIN_REPEATS = 5
-# env steps under the profiler, for the device ops a step
+# env steps under the profiler, for the device ops a step of the eager chunk
 OPS_STEPS = 4
+# steps of the env line's captured chunk graph: 256 steps at 4096 envs would
+# be ~160k graph nodes, slow to capture and instantiate
+GRAPH_STEPS = 32
 
 
 @torch.no_grad()
@@ -72,13 +81,56 @@ def chunk_from(params, env, env_state, obs, reset_state, reset_obs, noise, *,
     return env_state, obs, rewards
 
 
+def draw_chunk(env, n: int, gen: torch.Generator, chunk_t: int, device):
+    """A bench chunk's draws from `gen`: the reset template at global step
+    0, then the (chunk_t, n, 2) noise."""
+    reset_state, reset_obs = env.reset_batch(gen, n, 0.0)
+    noise = torch.randn((chunk_t, n, ACT_DIM), generator=gen, device=device)
+    return reset_state, reset_obs, noise
+
+
 def chunk(params, env, env_state, obs, gen: torch.Generator, chunk_t: int, **kw):
     """One bench chunk drawn from `gen`: the reset template at global step 0,
     then the noise; -> (env_state, obs, rewards (T, N))."""
-    n = obs.shape[0]
-    reset_state, reset_obs = env.reset_batch(gen, n, 0.0)
-    noise = torch.randn((chunk_t, n, ACT_DIM), generator=gen, device=obs.device)
-    return chunk_from(params, env, env_state, obs, reset_state, reset_obs, noise, **kw)
+    draws = draw_chunk(env, obs.shape[0], gen, chunk_t, obs.device)
+    return chunk_from(params, env, env_state, obs, *draws, **kw)
+
+
+class CapturedChunk:
+    """`chunk_from` as a CUDA graph of `steps` steps over static buffers (the
+    envs and obs carried from replay to replay, the template, `steps` steps
+    of noise), replayed T / steps times for a T-step chunk: the kernels of
+    `chunk_from`, so the same results.  On the CPU the graph's body runs
+    directly (`utils/graphs.py`)."""
+
+    def __init__(self, params, env, env_state, obs, reset_state, reset_obs, steps: int):
+        self.steps = steps
+        self.carry = carry = graphs.clone((env_state, obs))
+        self.template = template = graphs.clone((reset_state, reset_obs))
+        self.noise = noise = torch.zeros((steps, obs.shape[0], ACT_DIM), device=obs.device)
+
+        def body():
+            env_state, obs, rewards = chunk_from(params, env, *carry, *template, noise)
+            graphs.copy_(carry, (env_state, obs))
+            return rewards
+
+        self.graph = graphs.Graph(body, obs.device)
+        graphs.capture([self.graph])  # every call copies its start into the carry
+
+    def __call__(self, env_state, obs, reset_state, reset_obs, noise):
+        """The chunk from (env_state, obs) with its template and (T, N, 2)
+        noise -> (env_state, obs, rewards (T, N)), the caller's copies."""
+        T = noise.shape[0]
+        if T % self.steps:
+            raise ValueError(f"a chunk of {T} steps is no multiple of the graph's {self.steps}")
+        graphs.copy_(self.carry, (env_state, obs))
+        graphs.copy_(self.template, (reset_state, reset_obs))
+        rewards = torch.empty(noise.shape[:2], device=obs.device)
+        for i in range(0, T, self.steps):
+            self.noise.copy_(noise[i:i + self.steps])
+            rewards[i:i + self.steps] = self.graph()
+        env_state, obs = graphs.clone(self.carry)
+        return env_state, obs, rewards
 
 
 def _line(metric: str, rate: float) -> str:
@@ -86,11 +138,11 @@ def _line(metric: str, rate: float) -> str:
                        "vs_baseline": round(rate / BASELINE_TPU_V5E, 3)})
 
 
-def _spread(label: str, seconds, launches: int, ops_a_step) -> str:
+def _spread(label: str, seconds, launches: int, ops_a_step, host: str = "") -> str:
     ops = "not measured (no CUDA device)" if ops_a_step is None else f"{ops_a_step:.1f}"
     return (f"{label}: seconds {[round(s, 6) for s in seconds]}; min {min(seconds):.6f} median "
             f"{statistics.median(seconds):.6f} max {max(seconds):.6f}; kernel launches "
-            f"{launches}; device ops a step {ops}")
+            f"{launches}; device ops a step {ops}{host}")
 
 
 def _ops_a_step(fn, steps: int, device: torch.device):
@@ -101,62 +153,90 @@ def _ops_a_step(fn, steps: int, device: torch.device):
     return len(events) / steps
 
 
+def _launches_a_step(fn, steps: int, device: torch.device):
+    """(host launches, device ops) a step of fn() (`steps` steps), or None
+    off the card."""
+    if device.type != "cuda":
+        return None
+    events, host, _, _ = launch_window(fn)
+    return len(host) / steps, len(events) / steps
+
+
+def _host_note(measured, unit: str) -> str:
+    if measured is None:
+        return f"; host launches {unit} not measured (no CUDA device)"
+    host, ops = measured
+    return f"; captured: host launches {unit} {host:.2f}, device ops {unit} {ops:.1f}"
+
+
 def time_env(num_envs: int = NUM_ENVS, chunk_t: int = CHUNK_T, repeats: int = REPEATS,
              device=None) -> dict:
-    """The env line's measurement: seconds of each of `repeats` chunks after
-    a warm-up chunk, synchronized; the kernel launches in them, and in the
-    whole measurement (`launches_all`); the summed reward of the last chunk;
-    the device ops a step over OPS_STEPS steps (OPS_STEPS more launches)."""
+    """The env line's measurement: seconds of each of `repeats` captured
+    chunks (`CapturedChunk`) after a warm-up chunk, synchronized; the kernel
+    launches in them, in the capture's warm-up (`warmup_launches`) and in
+    the whole measurement (`launches_all`); the summed reward of the last
+    chunk; the device ops a step of the eager chunk over OPS_STEPS steps,
+    and the host launches and device ops a step of one replay of the
+    captured graph (OPS_STEPS + GRAPH_STEPS more launches)."""
     dev = resolve_device(device)
     start = fused_sample_action.launches
     learner = PPOLearner(EnvConfig(), PPOConfig(), num_envs, device=dev)
     state = learner.init(0)
     params, env, gen = state.params, learner.env, state.generator
     env_state, obs = state.env_state, state.obs
-    env_state, obs, r = chunk(params, env, env_state, obs, gen, chunk_t)  # warm-up
+    draws = draw_chunk(env, num_envs, gen, chunk_t, dev)
+    before = fused_sample_action.launches
+    run = CapturedChunk(params, env, env_state, obs, *draws[:2], min(GRAPH_STEPS, chunk_t))
+    warmup_launches = fused_sample_action.launches - before
+    env_state, obs, r = run(env_state, obs, *draws)  # warm-up
     float(r.sum())
     seconds, before = [], fused_sample_action.launches
     for _ in range(repeats):
         synchronize(dev)
         t0 = time.perf_counter()
-        env_state, obs, r = chunk(params, env, env_state, obs, gen, chunk_t)
+        env_state, obs, r = run(env_state, obs, *draw_chunk(env, num_envs, gen, chunk_t, dev))
         total = float(r.sum())  # the summed reward, on the host: synchronizes
         seconds.append(time.perf_counter() - t0)
     launches = fused_sample_action.launches - before
     # the steps alone: a chunk's template is drawn once for all its steps
-    reset_state, reset_obs = env.reset_batch(gen, num_envs, 0.0)
-    noise = torch.randn((OPS_STEPS, num_envs, ACT_DIM), generator=gen, device=dev)
+    reset_state, reset_obs, noise = draw_chunk(env, num_envs, gen, chunk_t, dev)
     ops = _ops_a_step(lambda: chunk_from(params, env, env_state, obs, reset_state, reset_obs,
-                                         noise), OPS_STEPS, dev)
+                                         noise[:OPS_STEPS]), OPS_STEPS, dev)
+    captured = _launches_a_step(lambda: run(env_state, obs, reset_state, reset_obs,
+                                            noise[:run.steps]), run.steps, dev)
     return dict(steps=repeats * chunk_t * num_envs, seconds=seconds, launches=launches,
+                warmup_launches=warmup_launches,
                 launches_all=fused_sample_action.launches - start, reward_sum=total,
-                ops_a_step=ops)
+                ops_a_step=ops, captured_a_step=captured)
 
 
 def time_train(shuffle: str = "timeperm", num_envs: int = TRAIN_NUM_ENVS, ppo: dict = TRAIN_PPO,
                repeats: int = TRAIN_REPEATS, device=None) -> dict:
     """The train line's measurement: seconds of each of `repeats`
-    `PPOLearner.update`s after a warm-up update, synchronized; the kernel
-    launches in them (n_steps + 1 an update), and in the whole measurement
-    (`launches_all`); the last loss; the device ops
-    a minibatch step over one epoch of SGD on one more rollout (n_steps + 1
-    more launches)."""
+    `PPOLearner.update_jit` calls after a warm-up one (which captures its
+    graphs), synchronized; the kernel launches in them (n_steps + 1 an
+    update), in the capture's warm-up (`warmup_launches`) and in the whole
+    measurement (`launches_all`); the last loss; the device ops a minibatch
+    step over one eager epoch of SGD on one more rollout, and the host
+    launches and device ops of one more `update_jit` (2 (n_steps + 1) more
+    launches)."""
     dev = resolve_device(device)
     start = fused_sample_action.launches
     cfg = PPOConfig(**ppo, shuffle=shuffle)
     learner = PPOLearner(EnvConfig(), cfg, num_envs, device=dev)
     state = learner.init(0)
-    state, metrics = learner.update(state)  # warm-up
+    state, metrics = learner.update_jit(state)  # warm-up, and the capture
     float(metrics["loss"])
+    warmup_launches = fused_sample_action.launches - start - (cfg.n_steps + 1)
     seconds, before = [], fused_sample_action.launches
     for _ in range(repeats):
         synchronize(dev)
         t0 = time.perf_counter()
-        state, metrics = learner.update(state)
+        state, metrics = learner.update_jit(state)
         loss = float(metrics["loss"])  # on the host: synchronizes
         seconds.append(time.perf_counter() - t0)
     launches = fused_sample_action.launches - before
-    ops = None
+    ops = captured = None
     if dev.type == "cuda":
         epoch = PPOLearner(EnvConfig(), cfg.replace(n_epochs=1), num_envs, device=dev)
         state, batch, last_values, _ = epoch.rollout(state)
@@ -165,22 +245,28 @@ def time_train(shuffle: str = "timeperm", num_envs: int = TRAIN_NUM_ENVS, ppo: d
         perms = epoch.draw_perms(state.generator)
         ops = _ops_a_step(lambda: float(epoch.sgd(state, batch, adv, ret, perms)["loss"]),
                           cfg.num_minibatches, dev)
+        captured = _launches_a_step(lambda: float(learner.update_jit(state)[1]["loss"]), 1, dev)
     return dict(steps=repeats * num_envs * cfg.n_steps, seconds=seconds, launches=launches,
-                launches_all=fused_sample_action.launches - start, loss=loss, ops_a_step=ops)
+                warmup_launches=warmup_launches,
+                launches_all=fused_sample_action.launches - start, loss=loss, ops_a_step=ops,
+                captured_an_update=captured)
 
 
 def bench_train(shuffle: str = "timeperm", device=None, **kw) -> dict:
     out = time_train(shuffle, device=device, **kw)
     print(_line("train_steps_per_s", out["steps"] / sum(out["seconds"])), flush=True)
-    print(_spread("train_steps_per_s", out["seconds"], out["launches"], out["ops_a_step"])
-          + " (a minibatch step)", file=sys.stderr, flush=True)
+    print(_spread("train_steps_per_s", out["seconds"], out["launches"], out["ops_a_step"],
+                  " (a minibatch step, eager)" + _host_note(out["captured_an_update"],
+                                                             "an update")),
+          file=sys.stderr, flush=True)
     return out
 
 
 def bench_env(num_envs: int = NUM_ENVS, chunk_t: int = CHUNK_T, device=None, **kw) -> dict:
     out = time_env(num_envs, chunk_t, device=device, **kw)
     print(_line("env_steps_per_s", out["steps"] / sum(out["seconds"])), flush=True)
-    print(_spread("env_steps_per_s", out["seconds"], out["launches"], out["ops_a_step"]),
+    print(_spread("env_steps_per_s", out["seconds"], out["launches"], out["ops_a_step"],
+                  " (eager)" + _host_note(out["captured_a_step"], "a step")),
           file=sys.stderr, flush=True)
     return out
 

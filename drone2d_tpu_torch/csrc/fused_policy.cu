@@ -83,6 +83,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int ROWS = 32;                       // batch rows a block
@@ -626,12 +628,28 @@ struct Args {
   float *action, *logp, *value;
 };
 
+// The dynamic shared-memory limit is set once an instantiation and device,
+// at its first launch, so that a launch while a stream is being captured
+// into a CUDA graph issues nothing but the kernel itself.  Two threads that
+// race on a first launch both set the same value, which is harmless.
+constexpr int MAX_DEVICES = 64;
+
 template <int HP, int G>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr int bytes = Smem<HP>::BYTES;
-  const cudaError_t e = cudaFuncSetAttribute(
-      fused_sample_action_kernel<HP, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  // 0: not set yet; else 1 + the cudaError_t of the one cudaFuncSetAttribute
+  static std::atomic<int> configured[MAX_DEVICES];
+  int device = 0;
+  const cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return (int)e;
+  if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  int c = configured[device].load();
+  if (c == 0) {
+    c = 1 + (int)cudaFuncSetAttribute(fused_sample_action_kernel<HP, G>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    configured[device].store(c);
+  }
+  if (c != 1) return c - 1;
   const dim3 grid((a.B + ROWS - 1) / ROWS, a.S);
   fused_sample_action_kernel<HP, G><<<grid, THREADS, bytes, stream>>>(
       a.obs, a.B, a.obs_dim, a.H, a.pi, a.vf, a.w_mean, a.b_mean, a.w_value, a.b_value,

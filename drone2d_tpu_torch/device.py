@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -29,3 +31,18 @@ def synchronize(device: torch.device) -> None:
     before the card has run them.  Nothing to wait for on the CPU."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def constant(values, like: torch.Tensor) -> torch.Tensor:
+    """A small constant tensor of `values` (a sequence, or a sequence of
+    sequences) in `like`'s dtype, on its device, made once and then reused.
+    The env step builds its few constants this way: a CUDA graph reads the
+    one kept copy, where a fresh `new_tensor` would copy from the host
+    inside the capture, which CUDA refuses.  Read-only: never write to it."""
+    key = tuple(tuple(v) if isinstance(v, (list, tuple)) else v for v in values)
+    return _constant(key, like.dtype, like.device)
+
+
+@functools.cache
+def _constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)

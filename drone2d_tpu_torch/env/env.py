@@ -30,6 +30,7 @@ from drone2d_tpu_torch.env.types import (
 )
 from drone2d_tpu_torch.ops import geometry, path as tpath, physics
 from drone2d_tpu_torch.ops.transforms import invm1to1, m1to1, ssa
+from drone2d_tpu_torch.utils import graphs
 
 OBS_DIM = 27
 ACT_DIM = 2
@@ -278,6 +279,8 @@ class Drone2DEnv:
         self.device = resolve_device(device)
         self.obs_dim = OBS_DIM
         self.act_dim = ACT_DIM
+        # the eval runner's captured chunks over this env (eval/episode.py)
+        self.graphs = graphs.GraphCache(size=2)
         self._stage_override = None
         if cfg.scenario.startswith("stage_"):
             self._stage_override = int(cfg.scenario.split("_")[1])

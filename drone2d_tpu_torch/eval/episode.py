@@ -23,6 +23,9 @@ generator seeds of a chunked campaign.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import weakref
 import zlib
 from typing import List, NamedTuple, Optional
 
@@ -33,6 +36,7 @@ from drone2d_tpu_torch.config import EnvConfig
 from drone2d_tpu_torch.env.env import ACT_DIM, OBS_DIM, Drone2DEnv
 from drone2d_tpu_torch.env.types import EnvState, cat_states, select_state
 from drone2d_tpu_torch.models.policy import ActorCritic
+from drone2d_tpu_torch.utils import graphs
 
 # how many steps run between the checks whether every episode has latched
 CHECK_EVERY = 64
@@ -72,6 +76,7 @@ def run_episodes_from(
     draws: Optional[torch.Tensor],
     *,
     deterministic: bool = False,
+    captured: bool = True,
 ) -> EpisodeResults:
     """Run the N episodes that start at (state, obs) to their end.
 
@@ -80,10 +85,14 @@ def run_episodes_from(
     themselves when `params` is None (the random policy); the deterministic
     policy takes none (None).  The latch follows `_episode_runner`
     (`drone2d_tpu/eval/episode.py:52-121`): an episode whose reach-end and
-    step cap fire on one step latches both success and fail.  Every
-    CHECK_EVERY steps the loop stops once every episode has latched; the
-    steps it skips would only repeat the frozen positions, so the results
-    equal a run to the cap.
+    step cap fire on one step latches both success and fail.  The steps
+    run in chunks of CHECK_EVERY (the last one shorter when CHECK_EVERY
+    does not divide T), each chunk a CUDA graph on the card (the
+    counterpart of the JAX runner's jitted scan), and after each chunk the
+    loop stops once every episode has latched; the steps it skips would
+    only repeat the frozen positions, so the results equal a run to the
+    cap.  `captured=False` runs the same chunks eagerly on the card: the
+    reference the captured runner is held against, equal bit for bit.
 
     A stack of A agents (`params.members`) flies N = A x n episodes, agent
     a the n of rows [a n, (a + 1) n), and the results come back shaped
@@ -94,28 +103,123 @@ def run_episodes_from(
     if (params is None or not deterministic) and (
             draws is None or tuple(draws.shape) != (T, N, ACT_DIM)):
         raise ValueError(f"this policy needs draws of shape {(T, N, ACT_DIM)}")
-    if draws is not None:
-        draws = draws.contiguous()  # each step's (N, 2) slice feeds the kernel
-    done = torch.zeros(N, dtype=torch.bool, device=dev)
-    success = torch.zeros(N, dtype=torch.bool, device=dev)
-    fail = torch.zeros(N, dtype=torch.bool, device=dev)
-    collision = torch.zeros(N, dtype=torch.int32, device=dev)
-    ape = torch.zeros(N, device=dev)
-    time_steps = torch.zeros(N, dtype=torch.int32, device=dev)
-    total_reward = torch.zeros(N, device=dev)
+    if params is not None and deterministic:
+        draws = None
+    runner = _chunk_runner(env, params, state, obs, draws, captured)
+    carry = runner.start(state, obs)
     traj = torch.empty((T, N, 2), device=dev)
     angles = torch.empty((T, N), device=dev)
-    traj_len = torch.zeros(N, dtype=torch.int32, device=dev)
-
     t = 0
     while t < T:
+        n = min(CHECK_EVERY, T - t)
+        if draws is not None:
+            runner.draws[:n].copy_(draws[t:t + n])
+        runner.chunks[n]()
+        traj[t:t + n] = runner.traj[:n]
+        angles[t:t + n] = runner.angles[:n]
+        t += n
+        if t < T and bool(carry.done.all()):
+            traj[t:] = carry.state.body.pos
+            angles[t:] = carry.state.body.angle
+            break
+
+    # an episode that hit the cap without a terminal is a timeout fail
+    c = carry
+    timeout = ~c.done
+    fail = c.fail | timeout
+    ape = torch.where(timeout, c.state.path_error / T, c.ape)
+    time_steps = torch.where(timeout, T, c.time_steps)
+    total_reward = torch.where(timeout, c.state.total_reward, c.total_reward)
+
+    def host(x):  # (A, n, ...) for a stack of agents
+        return x.cpu().numpy().reshape(*lead, *x.shape[1:])
+
+    return EpisodeResults(
+        success=host(c.success), fail=host(fail), collision=host(c.collision), ape=host(ape),
+        time_steps=host(time_steps), total_reward=host(total_reward),
+        traj=host(traj.transpose(0, 1)), angles=host(angles.transpose(0, 1)),
+        traj_len=host(c.traj_len),
+    )
+
+
+@dataclasses.dataclass
+class _Carry:
+    """The runner's state between steps: the envs, their observations and
+    each episode's latch and first-done metrics."""
+
+    state: EnvState
+    obs: torch.Tensor
+    done: torch.Tensor          # (N,) bool
+    success: torch.Tensor       # (N,) bool
+    fail: torch.Tensor          # (N,) bool
+    collision: torch.Tensor     # (N,) int32
+    ape: torch.Tensor           # (N,)
+    time_steps: torch.Tensor    # (N,) int32
+    total_reward: torch.Tensor  # (N,)
+    traj_len: torch.Tensor      # (N,) int32
+
+
+def _fresh_carry(state: EnvState, obs: torch.Tensor) -> _Carry:
+    N, dev = obs.shape[0], obs.device
+
+    def zeros(dtype=torch.float32):
+        return torch.zeros(N, dtype=dtype, device=dev)
+
+    return _Carry(state=state, obs=obs, done=zeros(torch.bool), success=zeros(torch.bool),
+                  fail=zeros(torch.bool), collision=zeros(torch.int32), ape=zeros(),
+                  time_steps=zeros(torch.int32), total_reward=zeros(),
+                  traj_len=zeros(torch.int32))
+
+
+class _ChunkRunner:
+    """`run_episodes_from`'s chunks for one env, policy and batch: static
+    buffers for the carry, a chunk's draws and its positions and angles, and
+    one graph a chunk length (CHECK_EVERY, and T mod CHECK_EVERY when it is
+    not 0), captured on the card, called directly on the CPU."""
+
+    def __init__(self, env: Drone2DEnv, params: Optional[ActorCritic], state: EnvState,
+                 obs: torch.Tensor, draws: Optional[torch.Tensor], captured: bool = True):
+        T, N, dev = env.cfg.n_steps, obs.shape[0], obs.device
+        self.carry = graphs.clone(_fresh_carry(state, obs))
+        n = min(CHECK_EVERY, T)
+        # contiguous: each step's (N, 2) slice feeds the kernel
+        self.draws = None if draws is None else graphs.clone(draws[:n])
+        self.traj = torch.empty((n, N, 2), device=dev)
+        self.angles = torch.empty((n, N), device=dev)
+        lead = (N,) if params is None or params.members is None else (params.members, -1)
+        # the env holds this runner, and the chunks close over its buffers
+        # and a weak reference to the env: no reference cycle, so the runner
+        # is freed, graphs and all, as soon as the env is
+        env = weakref.proxy(env)
+        self.chunks = {
+            steps: graphs.Graph(functools.partial(
+                _chunk, env, params, lead, steps, self.carry, self.draws, self.traj,
+                self.angles), dev, eager=not captured)
+            for steps in sorted({n, T % CHECK_EVERY} - {0}, reverse=True)}
+        graphs.capture(list(self.chunks.values()))
+
+    def start(self, state: EnvState, obs: torch.Tensor) -> _Carry:
+        """The carry set to a run's start at (state, obs)."""
+        graphs.copy_(self.carry, _fresh_carry(state, obs))
+        return self.carry
+
+
+@torch.no_grad()
+def _chunk(env, params, lead, steps: int, c: _Carry, draws, traj, angles) -> None:
+    """`steps` steps of the runner from the carry `c`, written back into it;
+    step k's positions and angles into traj[k] and angles[k]."""
+    N = c.obs.shape[0]
+    state, obs, done = c.state, c.obs, c.done
+    success, fail, collision = c.success, c.fail, c.collision
+    ape, time_steps, total_reward = c.ape, c.time_steps, c.total_reward
+    for k in range(steps):
         if params is None:
-            action = draws[t]
-        elif deterministic:
+            action = draws[k]
+        elif draws is None:
             action = params.deterministic_action(obs.view(*lead, OBS_DIM)).reshape(N, ACT_DIM)
         else:
             action = params.sample_action(obs.view(*lead, OBS_DIM),
-                                          noise=draws[t].view(*lead, ACT_DIM))[0]
+                                          noise=draws[k].view(*lead, ACT_DIM))[0]
             action = torch.clamp(action.reshape(N, ACT_DIM), -1.0, 1.0)
         out = env.step(state, action)
         info = out.info
@@ -130,32 +234,29 @@ def run_episodes_from(
         # freeze, and the step as live if the episode ran it
         state = select_state(done, out.state, state)
         obs = torch.where(done[:, None], obs, out.obs)
-        traj[t] = state.body.pos
-        angles[t] = state.body.angle
-        traj_len += (~done).to(torch.int32)
+        traj[k] = state.body.pos
+        angles[k] = state.body.angle
+        c.traj_len += (~done).to(torch.int32)
         done = done | out.done
-        t += 1
-        if t % CHECK_EVERY == 0 and t < T and bool(done.all()):
-            traj[t:] = state.body.pos
-            angles[t:] = state.body.angle
-            break
+    graphs.copy_(c, dataclasses.replace(
+        c, state=state, obs=obs, done=done, success=success, fail=fail, collision=collision,
+        ape=ape, time_steps=time_steps, total_reward=total_reward))
 
-    # an episode that hit the cap without a terminal is a timeout fail
-    timeout = ~done
-    fail = fail | timeout
-    ape = torch.where(timeout, state.path_error / T, ape)
-    time_steps = torch.where(timeout, T, time_steps)
-    total_reward = torch.where(timeout, state.total_reward, total_reward)
 
-    def host(x):  # (A, n, ...) for a stack of agents
-        return x.cpu().numpy().reshape(*lead, *x.shape[1:])
-
-    return EpisodeResults(
-        success=host(success), fail=host(fail), collision=host(collision), ape=host(ape),
-        time_steps=host(time_steps), total_reward=host(total_reward),
-        traj=host(traj.transpose(0, 1)), angles=host(angles.transpose(0, 1)),
-        traj_len=host(traj_len),
-    )
+def _chunk_runner(env: Drone2DEnv, params: Optional[ActorCritic], state: EnvState,
+                  obs: torch.Tensor, draws: Optional[torch.Tensor],
+                  captured: bool) -> _ChunkRunner:
+    """The env's runner for this policy and batch, made (and captured) at
+    its first use and kept on the env (`Drone2DEnv.graphs`)."""
+    mode = "random" if params is None else "deterministic" if draws is None else "stochastic"
+    key = (mode, captured, CHECK_EVERY,
+           None if params is None else graphs.storage_key(params.parameters()),
+           graphs.signature((state, obs, draws)))
+    runner = env.graphs.get(key)
+    if runner is None:
+        runner = _ChunkRunner(env, params, state, obs, draws, captured)
+        env.graphs.put(key, runner)
+    return runner
 
 
 def run_episodes(

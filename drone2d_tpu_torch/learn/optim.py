@@ -28,8 +28,31 @@ def adam(params: Iterable[torch.nn.Parameter], lr: float) -> torch.optim.Adam:
     """`optax.adam(lr, eps=1e-5)` over `params`: betas (0.9, 0.999), no
     weight decay, no amsgrad.  Updates the parameters in place, so each
     keeps its own allocation (the fused policy kernel reads them by pointer
-    and checks their alignment)."""
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=ADAM_EPS)
+    and checks their alignment).
+
+    On a CUDA device it is `capturable`: the step count lives on the card
+    and the bias correction is computed there, so that a CUDA graph can
+    capture the step (`PPOLearner.update_jit`), and the eager update runs
+    the same arithmetic as the captured one.  On the CPU it is not (torch
+    refuses a capturable Adam there)."""
+    params = list(params)
+    capturable = bool(params) and params[0].device.type == "cuda"
+    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=ADAM_EPS,
+                           capturable=capturable)
+    # the eager update steps this capturable Adam outside a graph on purpose:
+    # no warning about it
+    opt._warned_capturable_if_run_uncaptured = True
+    return opt
+
+
+def load_state_dict(opt: torch.optim.Adam, state_dict: dict) -> None:
+    """`opt.load_state_dict(state_dict)`, keeping `opt`'s own `capturable`:
+    a state saved on one device type (and loaded to the CPU) then resumes
+    on the other: the step count goes to the card for a capturable Adam
+    and stays where it is for the other."""
+    own = [g["capturable"] for g in opt.param_groups]
+    groups = [{**g, "capturable": c} for g, c in zip(state_dict["param_groups"], own)]
+    opt.load_state_dict({**state_dict, "param_groups": groups})
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,

@@ -37,6 +37,7 @@ SUM divided by the world size).  `group=None` runs no collective.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Dict, Tuple
 
 import torch
@@ -49,6 +50,7 @@ from drone2d_tpu_torch.env.types import N_FAMILIES, EnvState
 from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.gae import compute_gae
 from drone2d_tpu_torch.models.policy import ActorCritic
+from drone2d_tpu_torch.utils import graphs
 
 # Final-step info components averaged over finished episodes
 # (tensorboardlogger.py:101-108).
@@ -294,6 +296,8 @@ class PPOLearner:
         self.step_increment = num_envs if step_increment is None else step_increment
         self.batch_size = batch_size
         self.minibatch_size = batch_size // ppo_cfg.num_minibatches
+        # update_jit's captured programs
+        self._graphs = graphs.GraphCache(size=2)
 
     # -- construction --------------------------------------------------------
 
@@ -395,24 +399,42 @@ class PPOLearner:
         adaptive rehearsal it counts finished episodes and wins per family,
         reading each env's family before its step, so that an auto-reset
         does not replace it."""
+        self._check_noise(state, noise)
+        env_state, obs, batch, last_values, stats = self._rollout_body(
+            state.params, state.env_state, state.obs, reset_state, reset_obs, noise)
+        return self._advance(state, env_state, obs), batch, last_values, stats
+
+    def _check_noise(self, state, noise: torch.Tensor) -> None:
         T, N, S = self.cfg.n_steps, self.num_envs, state.params.members
         lead = (N,) if S is None else (S, N)
         if tuple(noise.shape) != (T, *lead, ACT_DIM):
             raise ValueError(f"noise has shape {tuple(noise.shape)}, want {(T, *lead, ACT_DIM)}")
-        f32 = dict(dtype=torch.float32, device=self.device)
+
+    @torch.no_grad()
+    def _rollout_body(self, params: ActorCritic, env_state: EnvState, obs: torch.Tensor,
+                      reset_state: EnvState, reset_obs: torch.Tensor, noise: torch.Tensor):
+        """The rollout's device work, all of it on the device with no host
+        sync (`update_jit` captures it): the steps, the episode sums and the
+        last values.  Returns (env_state, obs, batch, last_values, stats)."""
+        S = params.members
+        lead = (self.num_envs,) if S is None else (S, self.num_envs)
         env_state, obs, batch, infos, families = collect_steps(
-            state.params, self.env, state.env_state, state.obs, reset_state, reset_obs, noise)
+            params, self.env, env_state, obs, reset_state, reset_obs, noise)
         stats = episode_stats(batch.dones, infos, families, members=S)
         # the kernel's value output with zero noise, so that nothing plain
         # runs on the card's path
-        _, _, last_values = state.params.sample_action(
-            obs.view(*lead, OBS_DIM), noise=torch.zeros((*lead, ACT_DIM), **f32)
-        )
-        global_step = state.global_step + torch.tensor(float(T * self.step_increment), **f32)
-        new_state = dataclasses.replace(
-            state, env_state=env_state, obs=obs, global_step=global_step
-        )
-        return new_state, batch, last_values.reshape(-1), stats
+        _, _, last_values = params.sample_action(
+            obs.view(*lead, OBS_DIM),
+            noise=torch.zeros((*lead, ACT_DIM), dtype=torch.float32, device=obs.device))
+        return env_state, obs, batch, last_values.reshape(-1), stats
+
+    def _advance(self, state, env_state: EnvState, obs: torch.Tensor):
+        """`state` after a rollout that ended at (env_state, obs): the step
+        counter advanced by the rollout's env steps."""
+        step = torch.tensor(float(self.cfg.n_steps * self.step_increment), dtype=torch.float32,
+                            device=self.device)
+        return dataclasses.replace(state, env_state=env_state, obs=obs,
+                                   global_step=state.global_step + step)
 
     # -- loss ----------------------------------------------------------------
 
@@ -512,14 +534,39 @@ class PPOLearner:
             raise ValueError(f"perms has shape {tuple(perms.shape)}, "
                              f"want {(*lead, cfg.n_epochs, n)}")
         perms = perms.to(device=self.device, dtype=torch.int64)
-        params, opt = state.params, state.optimizer
-        leaves = list(params.parameters())
-        # one row of (loss, *aux) a minibatch, averaged at the end
-        rows = torch.empty((cfg.n_epochs * M, 1 + len(_AUX_KEYS), *lead), dtype=torch.float32,
+        data = self._sgd_data((batch.obs, batch.actions, batch.log_probs, advantages, returns),
+                              S)
+        rows = self._rows(S)
+        for e in range(cfg.n_epochs):
+            rows[e * M:(e + 1) * M] = self._epoch(state.params, state.optimizer, data,
+                                                  perms[..., e, :], group=group)
+        return self._means(rows)
+
+    def _rows(self, members: int | None, epochs: int | None = None) -> torch.Tensor:
+        """(loss, *aux) rows, one a minibatch step, for `epochs` epochs (all
+        of an update's by default)."""
+        lead = () if members is None else (members,)
+        steps = (self.cfg.n_epochs if epochs is None else epochs) * self.cfg.num_minibatches
+        return torch.empty((steps, 1 + len(_AUX_KEYS), *lead), dtype=torch.float32,
                            device=self.device)
-        data = (batch.obs, batch.actions, batch.log_probs, advantages, returns)
-        for i, mb_data in enumerate(self._minibatches(data, perms, S)):
-            loss, aux = self.loss_fn(params, *mb_data, group=group)
+
+    @staticmethod
+    def _means(rows: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The SGD metrics: every minibatch's (loss, *aux) averaged."""
+        means = rows.mean(dim=0)
+        return {key: means[i] for i, key in enumerate(("loss",) + _AUX_KEYS)}
+
+    def _epoch(self, params: ActorCritic, opt: torch.optim.Adam, data, perm: torch.Tensor,
+               group=None) -> torch.Tensor:
+        """One epoch of `sgd` over the prepared `data` (`_sgd_data`) with its
+        shuffle `perm` ((n,), or (S, n) for a population), in place on
+        `params` and `opt`, with no host sync (`update_jit` captures it).
+        Returns its (num_minibatches, 1 + aux, ...) rows."""
+        S = params.members
+        leaves = list(params.parameters())
+        rows = self._rows(S, epochs=1)
+        for k, mb in enumerate(self._epoch_minibatches(data, perm, S)):
+            loss, aux = self.loss_fn(params, *mb, group=group)
             opt.zero_grad(set_to_none=True)
             # a population's members share no weight: the sum's gradient is
             # each member's own
@@ -527,47 +574,60 @@ class PPOLearner:
             row = torch.stack([v.detach() for v in (loss, *map(aux.get, _AUX_KEYS))])
             if group is not None:
                 row = _all_reduce_grads_(leaves, row, group)
-            optim.clip_by_global_norm_([p.grad for p in leaves], cfg.max_grad_norm, members=S)
+            optim.clip_by_global_norm_([p.grad for p in leaves], self.cfg.max_grad_norm,
+                                       members=S)
             opt.step()
-            rows[i] = row
-        means = rows.mean(dim=0)
-        return {key: means[i] for i, key in enumerate(("loss",) + _AUX_KEYS)}
+            rows[k] = row
+        return rows
 
-    def _minibatches(self, data, perms: torch.Tensor, members: int | None):
-        """The minibatches of `sgd`, epoch by epoch: each a tuple of `data`'s
-        (T, N, ...) tensors cut to (mb, ...) rows, or, for a population over
-        (T, S * N), to (S, mb, ...), member m's rows cut from its own (T, N)
-        block by its own shuffles."""
+    def _sgd_data(self, data, members: int | None):
+        """`data`'s (T, N, ...) tensors laid out for `_epoch_minibatches`:
+        as they are for 'timeperm', else time-major rows (T * N, ...); for a
+        population over (T, S * N), each member's (T, N) block first (S, T,
+        N, ...), then (S, T * N, ...) rows (a copy)."""
+        if members is not None:
+            T, N = self.cfg.n_steps, self.num_envs
+            data = [x.reshape(T, members, N, *x.shape[2:]).transpose(0, 1) for x in data]
+        if self.cfg.shuffle != "timeperm":
+            lead = 0 if members is None else 1
+            data = [x.flatten(lead, lead + 1) for x in data]
+        return tuple(data)
+
+    def _epoch_minibatches(self, data, perm: torch.Tensor, members: int | None):
+        """One epoch's minibatches of `sgd`: each a tuple of the prepared
+        `data` (`_sgd_data`) cut to (mb, ...) rows by the shuffle `perm`, or,
+        for a population, to (S, mb, ...), member m's rows cut from its own
+        block by its own shuffle."""
         cfg, M, mb = self.cfg, self.cfg.num_minibatches, self.minibatch_size
         lead = () if members is None else (members,)
         if members is None:
             def take(x, index):
                 return x.index_select(0, index)
         else:
-            S, T, N = members, cfg.n_steps, self.num_envs
-            # each member's (T, N) block: (S, T, N, ...)
-            data = [x.reshape(T, S, N, *x.shape[2:]).transpose(0, 1) for x in data]
-            member = torch.arange(S, device=self.device)[:, None]
+            member = torch.arange(members, device=perm.device)[:, None]
 
             def take(x, index):
                 return x[member, index]
-        if cfg.shuffle != "timeperm":
-            # time-major rows (T * N, ...), a copy for a population
-            data = [x.flatten(len(lead), len(lead) + 1) for x in data]
-        for e in range(cfg.n_epochs):
-            if cfg.shuffle == "timeperm":
-                # permute whole timesteps, then slice: minibatch k holds
-                # n_steps/M permuted timesteps x all envs, time-major, as
-                # the JAX package's x[perm].reshape((M, mb, ...)) does
-                xs = [take(x, perms[..., e, :]).reshape(*lead, M, mb, *x.shape[len(lead) + 2:])
-                      .movedim(len(lead), 0) for x in data]
-                yield from (tuple(x[k] for x in xs) for k in range(M))
-            else:
-                # gather each minibatch by its indices; a shuffled copy of
-                # the batch an epoch would move the same bytes and write more
-                idx = perms[..., e, :].view(*lead, M, mb).movedim(len(lead), 0)
-                for k in range(M):
-                    yield tuple(take(x, idx[k]) for x in data)
+        if cfg.shuffle == "timeperm":
+            # permute whole timesteps, then slice: minibatch k holds
+            # n_steps/M permuted timesteps x all envs, time-major, as
+            # the JAX package's x[perm].reshape((M, mb, ...)) does
+            xs = [take(x, perm).reshape(*lead, M, mb, *x.shape[len(lead) + 2:])
+                  .movedim(len(lead), 0) for x in data]
+            yield from (tuple(x[k] for x in xs) for k in range(M))
+        else:
+            # gather each minibatch by its indices; a shuffled copy of
+            # the batch an epoch would move the same bytes and write more
+            idx = perm.view(*lead, M, mb).movedim(len(lead), 0)
+            for k in range(M):
+                yield tuple(take(x, idx[k]) for x in data)
+
+    def _minibatches(self, data, perms: torch.Tensor, members: int | None):
+        """The minibatches of `sgd`, epoch by epoch, from `data`'s (T, N, ...)
+        tensors and the shuffles `perms` (`draw_perms`)."""
+        data = self._sgd_data(data, members)
+        for e in range(self.cfg.n_epochs):
+            yield from self._epoch_minibatches(data, perms[..., e, :], members)
 
     def learn_from(
         self,
@@ -599,6 +659,40 @@ class PPOLearner:
         `update_from`)."""
         return self.update_from(state, *self.draws(state), group=group)
 
+    def update_jit(self, state: TrainState, draws=None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """`update` as compiled programs, the counterpart of the JAX
+        package's `update_jit` (`drone2d_tpu/learn/ppo.py:489-491`): on the
+        card two CUDA graphs (not TorchScript), one of the rollout with GAE
+        and one of an SGD epoch, replayed once and `n_epochs` times.
+
+        The draws stay eager, outside the graphs: `draws(state)`, or
+        `draws` as it returns them, so that it draws exactly what `update`
+        draws from the same generator.  The graphs run the kernels `update`
+        runs, so the results are bit-equal to `update`'s.  The first call
+        for a (weights, optimizer, shapes) triple captures them (a warm-up
+        update's device work, undone, then the recording; a state whose
+        weights or optimizer are other tensors captures anew); the learner
+        keeps the last two.  The returned state and metrics are the
+        caller's: no later call writes them.  A failed capture raises; so
+        does one while the caller still holds an eager autograd graph over
+        these weights (a loss it back-propagated): its gradient
+        accumulators stay on the stream they were made on, which a capture
+        may not depend on, so drop such a loss first.
+
+        On the CPU the same bodies run directly over the same static
+        buffers.  Takes no `group`, as the JAX function takes no axis: a
+        data-parallel update is `update(state, group=...)`."""
+        draws = self.draws(state) if draws is None else draws
+        program = self._graphs.get(_UpdateProgram.key(state, draws))
+        new = program is None
+        if new:
+            program = _UpdateProgram(self, state, draws)
+        env_state, obs, stats, rows = program(state, draws)
+        if new:  # keyed once Adam's lazily made state exists
+            self._graphs.put(_UpdateProgram.key(state, draws), program)
+        return self._finish(self._advance(state, env_state, obs), stats, self._means(rows))
+
     def update_from(
         self,
         state: TrainState,
@@ -621,6 +715,14 @@ class PPOLearner:
         metrics = self.learn_from(state, batch, last_values, perms, group=group)
         if group is not None:
             stats = sum_stats(stats, group)
+        return self._finish(state, stats, metrics)
+
+    @staticmethod
+    def _finish(state, stats: EpisodeStats, metrics: Dict[str, torch.Tensor]):
+        """(state', metrics) of an update from the state after its rollout,
+        the rollout's episode stats and the SGD metrics: the episode
+        counters and family counts added, the episode means and the
+        counters put into the metrics."""
         episodes_total = state.episodes_total + stats.n_episodes
         metrics.update({f"episodes/{k}": v for k, v in stats.summary().items()})
         metrics["episodes/total"] = episodes_total
@@ -630,6 +732,69 @@ class PPOLearner:
             family_counts=state.family_counts + stats.family_counts,
             family_wins=state.family_wins + stats.family_wins,
         ), metrics
+
+
+class _UpdateProgram:
+    """`update_jit`'s captured program for one learner, weights, optimizer
+    and shapes: the rollout with GAE as one graph, an SGD epoch as another.
+
+    Static buffers hold the state's envs and obs, the draws' template and
+    noise (copied in every call) and one epoch's shuffle (copied in before
+    each epoch's replay).  The epoch graph reads the rollout graph's batch,
+    advantages and returns where that graph writes them, and updates the
+    weights and Adam's state in place, as `update` does."""
+
+    def __init__(self, learner: PPOLearner, state, draws):
+        reset_state, reset_obs, noise, perms = draws
+        learner._check_noise(state, noise)
+        params, opt, S = state.params, state.optimizer, state.params.members
+        # the learner holds this program: a weak reference back, so that the
+        # pair is freed, graphs and all, without waiting for a collection
+        learner = weakref.proxy(learner)
+        self.learner = learner
+        # the bodies close over the buffers, not over this program, so that
+        # nothing here is a reference cycle
+        self.inputs = inputs = graphs.clone(
+            (state.env_state, state.obs, reset_state, reset_obs, noise))
+        self.perm = perm = torch.empty(perms[..., 0, :].shape, dtype=torch.int64,
+                                       device=learner.device)
+        perm.copy_(perms[..., 0, :])
+
+        def rollout():
+            env_state, obs, batch, last_values, stats = learner._rollout_body(params, *inputs)
+            advantages, returns = compute_gae(
+                batch.rewards, batch.values, batch.dones, last_values,
+                gamma=learner.cfg.gamma, gae_lambda=learner.cfg.gae_lambda)
+            data = learner._sgd_data(
+                (batch.obs, batch.actions, batch.log_probs, advantages, returns), S)
+            return env_state, obs, stats, data
+
+        self.rollout = first = graphs.Graph(rollout, learner.device)
+        self.epoch = graphs.Graph(
+            lambda: learner._epoch(params, opt, first.outputs[3], perm), learner.device)
+        self.capture_stats = graphs.capture(
+            [self.rollout, self.epoch], restore=list(params.parameters()), optimizers=[opt])
+
+    @staticmethod
+    def key(state, draws) -> tuple:
+        """What a program depends on: the storages of the weights and of the
+        optimizer's state, and the shapes of the envs and the draws."""
+        return (graphs.storage_key(list(state.params.parameters())
+                                   + graphs.optimizer_tensors(state.optimizer)),
+                graphs.signature((state.env_state, state.obs, draws)))
+
+    def __call__(self, state, draws):
+        """Replay on `state` with `draws`: -> (env_state, obs, stats, rows),
+        the caller's own copies."""
+        reset_state, reset_obs, noise, perms = draws
+        learner, M = self.learner, self.learner.cfg.num_minibatches
+        graphs.copy_(self.inputs, (state.env_state, state.obs, reset_state, reset_obs, noise))
+        env_state, obs, stats = graphs.clone(self.rollout()[:3])
+        rows = learner._rows(state.params.members)
+        for e in range(learner.cfg.n_epochs):
+            self.perm.copy_(perms[..., e, :])
+            rows[e * M:(e + 1) * M] = self.epoch()
+        return env_state, obs, stats, rows
 
 
 def _all_reduce_grads_(leaves, row: torch.Tensor, group) -> torch.Tensor:

@@ -71,8 +71,11 @@ class ZooTrainer(PPOLearner):
     """Binds (EnvConfig, PPOConfig, num_envs per member) to a device (the
     card unless device="cpu").  `init(seeds)` -> ZooState; `update(state)`
     -> (state', metrics), every metric shaped (S,) under the JAX package's
-    keys.  The rollout, GAE and SGD are `PPOLearner`'s, which take the
-    member axis; this class draws for each member from its own generator."""
+    keys; `update_jit(state)` the same as CUDA graphs on the card, one
+    program for all S members (one kernel launch a step through the agent
+    axis), the counterpart of `jax.jit(jax.vmap(update))`.  The rollout,
+    GAE and SGD are `PPOLearner`'s, which take the member axis; this class
+    draws for each member from its own generator."""
 
     def init(self, seeds: Sequence[int], params: ActorCritic | None = None) -> ZooState:
         """One member per seed, each started as `PPOLearner.init(seed)` starts
@@ -212,7 +215,9 @@ def train_zoo(
     plr_last = (state.family_counts.cpu().numpy(), state.family_wins.cpu().numpy())
     t0 = time.perf_counter()
     for u in range(1, n_updates + 1):
-        state, metrics = trainer.update(state)
+        # the captured update (CUDA graphs on the card), the counterpart of
+        # jit(vmap(update)); a rank's block trains alone, with no collective
+        state, metrics = trainer.update_jit(state)
         if adaptive and u % log_every == 0:
             # each member reweights its own families by its own failure
             # rates since the last tick (learn/plr.py broadcasts over members)

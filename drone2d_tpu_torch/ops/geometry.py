@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from drone2d_tpu_torch.device import constant
 from drone2d_tpu_torch.ops.transforms import rotate
 
 
@@ -18,9 +19,8 @@ def frame_vertices(
     pos: torch.Tensor, angle: torch.Tensor, half_w: float, half_h: float
 ) -> torch.Tensor:
     """World corners of the frame box: pos (N, 2), angle (N,) -> (N, 4, 2)."""
-    corners = pos.new_tensor(
-        [[-half_w, -half_h], [-half_w, half_h], [half_w, half_h], [half_w, -half_h]]
-    )
+    corners = constant(
+        ((-half_w, -half_h), (-half_w, half_h), (half_w, half_h), (half_w, -half_h)), pos)
     return pos[:, None, :] + rotate(angle[:, None], corners[None])
 
 
@@ -39,7 +39,7 @@ def any_collision(
     """
     rel = centers - pos[:, None, :]
     local = rotate(-angle[:, None], rel)                  # world -> body
-    q = local.abs() - pos.new_tensor([half_w, half_h])
+    q = local.abs() - constant((half_w, half_h), pos)
     outside = torch.sqrt(torch.sum(torch.clamp(q, min=0.0) ** 2, dim=-1))
     inside = torch.clamp(torch.maximum(q[..., 0], q[..., 1]), max=0.0)
     hit = (outside + inside < radii) & mask
@@ -72,7 +72,7 @@ def box_circle_sdf(
     negative inside: pos (N, 2), angle (N,), centers (N, K, 2) -> (N, K)."""
     rel = centers - pos[:, None, :]
     local = rotate(-angle[:, None], rel)                  # world -> body
-    q = local.abs() - pos.new_tensor([half_w, half_h])
+    q = local.abs() - constant((half_w, half_h), pos)
     outside = torch.sqrt(torch.sum(torch.clamp(q, min=0.0) ** 2, dim=-1))
     inside = torch.clamp(torch.maximum(q[..., 0], q[..., 1]), max=0.0)
     return outside + inside

@@ -12,6 +12,8 @@ import dataclasses
 
 import torch
 
+from drone2d_tpu_torch.device import constant
+
 
 @dataclasses.dataclass
 class BodyState:
@@ -46,7 +48,7 @@ def step_body(
     pos = body.pos + body.vel * dt
     angle = body.angle + body.omega * dt
 
-    g = body.vel.new_tensor([0.0, gravity_y])
+    g = constant((0.0, gravity_y), body.vel)
     vel = body.vel + (g + f_world / mass) * dt
     omega = body.omega + (torque / inertia) * dt
     return BodyState(pos=pos, vel=vel, angle=angle, omega=omega)
@@ -56,6 +58,6 @@ def free_step_body(body: BodyState, *, dt: float, gravity_y: float) -> BodyState
     """A force-free settle step (drone_2d_env.py:937-943)."""
     pos = body.pos + body.vel * dt
     angle = body.angle + body.omega * dt
-    g = body.vel.new_tensor([0.0, gravity_y])
+    g = constant((0.0, gravity_y), body.vel)
     vel = body.vel + g * dt
     return BodyState(pos=pos, vel=vel, angle=angle, omega=body.omega)

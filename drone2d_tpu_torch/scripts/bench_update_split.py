@@ -4,12 +4,15 @@ the port's counterpart of `scripts/bench_update_split.py`.
     python -m drone2d_tpu_torch.scripts.bench_update_split \\
         [NUM_ENVS] [N_STEPS] [MINIBATCHES] [--device cpu]
 
-Times updates of NUM_ENVS envs x N_STEPS steps with MINIBATCHES minibatches
-x 10 epochs split into the reset templates' draws, the rollout's steps, GAE
-and SGD (host clock, each part synchronized), and prints the rollout's and
-the update's env steps a second and the optimizer phase's share.  On the
-card it also counts the device ops a rollout step and the device's busy
-share under the profiler.  Runs on the CUDA card unless `--device cpu`.
+Times eager updates of NUM_ENVS envs x N_STEPS steps with MINIBATCHES
+minibatches x 10 epochs split into the reset templates' draws, the
+rollout's steps, GAE and SGD (host clock, each part synchronized), and the
+whole update through `PPOLearner.update_jit` (CUDA graphs on the card), as
+the JAX script times its `update_jit`; prints the rollout's and the
+update's env steps a second and the optimizer phase's share of the eager
+update.  On the card it also counts the device ops a rollout step and the
+device's busy share under the profiler.  Runs on the CUDA card unless
+`--device cpu`.
 """
 
 from __future__ import annotations
@@ -93,6 +96,36 @@ def update_split(runs: dict, reps: int = 3, log=print) -> dict:
     return out
 
 
+def update_jit_seconds(runs: dict, reps: int = 3, log=print) -> dict:
+    """For each label -> (learner or population trainer, state): the
+    seconds of a first `update_jit` call (it captures the graphs, unless
+    the learner holds them for these weights already), then of `reps` more
+    (host clock, synchronized), the labels taken in turn.  Returns label ->
+    (state, first call's seconds, [seconds])."""
+    first, seconds = {}, {label: [] for label in runs}
+    for rep in range(1 + reps):
+        for label, (learner, state) in runs.items():
+            synchronize(learner.device)
+            t0 = time.perf_counter()
+            state, metrics = learner.update_jit(state)
+            if not bool(torch.isfinite(metrics["loss"]).all()):
+                raise AssertionError(f"{label}: non-finite loss")
+            synchronize(learner.device)
+            dt = time.perf_counter() - t0
+            runs[label] = (learner, state)
+            if rep:
+                seconds[label].append(dt)
+            else:
+                first[label] = dt
+    for label, (learner, state) in runs.items():
+        members, med = state.params.members or 1, statistics.median(seconds[label])
+        log(f"{label} update_jit (host clock, synchronized): the first call (with its "
+            f"capture, if any) {first[label]:.4f} s, then min {min(seconds[label]):.4f} median {med:.4f} max "
+            f"{max(seconds[label]):.4f} s of {reps}; train_steps_per_s "
+            f"{members * learner.cfg.n_steps * learner.num_envs / med:.1f}")
+    return {label: (runs[label][1], first[label], seconds[label]) for label in runs}
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -108,20 +141,23 @@ def main(argv=None) -> dict:
     learner = PPOLearner(EnvConfig(),
                          PPOConfig(n_steps=n_steps, num_minibatches=num_mb, n_epochs=10),
                          num_envs, device=dev)
-    out = update_split({"update": (learner, learner.init(0))})["update"]
-    draws_s, steps_s, _, _, total_s = out[-1]
+    state = learner.init(0)
+    out = update_split({"update": (learner, state)})["update"]
+    draws_s, steps_s, _, _, eager_s = out[-1]
+    seconds = update_jit_seconds({"update": (learner, out[0])})["update"][2]
     steps_per_update = num_envs * n_steps
-    t_roll, t_upd = draws_s + steps_s, total_s
-    sgd = t_upd - t_roll
+    t_roll, t_upd = draws_s + steps_s, statistics.median(seconds)
+    sgd = eager_s - t_roll
     print(f"config: {num_envs} envs x {n_steps} steps, {num_mb} mb x 10 epochs "
           f"({num_mb * 10} SGD steps/update)")
     print(f"rollout:      {t_roll*1e3:8.2f} ms/update "
-          f"({steps_per_update / t_roll / 1e3:,.0f}k env-steps/s)")
+          f"({steps_per_update / t_roll / 1e3:,.0f}k env-steps/s, eager)")
     print(f"full update:  {t_upd*1e3:8.2f} ms/update "
-          f"({steps_per_update / t_upd / 1e3:,.0f}k env-steps/s)")
-    print(f"gae+sgd share: {sgd*1e3:8.2f} ms/update ({100*sgd/t_upd:.0f}%)  "
-          f"~{sgd / (num_mb * 10) * 1e6:.0f} us per SGD minibatch step")
-    return dict(rollout_s=t_roll, update_s=t_upd, sgd_s=sgd)
+          f"({steps_per_update / t_upd / 1e3:,.0f}k env-steps/s, update_jit); eager "
+          f"{eager_s*1e3:.2f} ms/update")
+    print(f"gae+sgd share: {sgd*1e3:8.2f} ms/update ({100*sgd/eager_s:.0f}% of the eager "
+          f"update)  ~{sgd / (num_mb * 10) * 1e6:.0f} us per SGD minibatch step")
+    return dict(rollout_s=t_roll, update_s=t_upd, sgd_s=sgd, eager_update_s=eager_s)
 
 
 if __name__ == "__main__":

@@ -13,9 +13,12 @@ goes:
   - the global-norm clip (0.5) and the Adam step (eps 1e-5) (640x),
 
 each timed on its own (host clock, synchronized, `iters` calls), then held
-against the measured SGD phase (`bench_update_split.update_split`; the
-remainder is what the components do not explain) and against analytic FLOP
-and byte floors for the MLP on the H100's float32 peaks.
+against the measured SGD phase of the eager update
+(`bench_update_split.update_split`; the remainder is what the components
+do not explain) and against analytic FLOP and byte floors for the MLP on
+the H100's float32 peaks.  `full_update` is the whole update through
+`PPOLearner.update_jit` (CUDA graphs on the card), as the JAX script times
+its `update_jit`; the shares are of the eager update.
 
     python -m drone2d_tpu_torch.scripts.roofline_update [NUM_ENVS] [N_STEPS] \\
         [MINIBATCHES] [--out PATH] [--device cpu]
@@ -28,6 +31,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import time
 
 import numpy as np
@@ -38,7 +42,7 @@ from drone2d_tpu_torch.device import resolve_device, synchronize
 from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.gae import compute_gae
 from drone2d_tpu_torch.learn.ppo import PPOLearner
-from drone2d_tpu_torch.scripts.bench_update_split import update_split
+from drone2d_tpu_torch.scripts.bench_update_split import update_jit_seconds, update_split
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): float32 on the CUDA
 # cores (the SGD's products run in float32, TF32 off) and HBM3
@@ -71,11 +75,14 @@ def decompose(num_envs: int = 1024, n_steps: int = 128, num_mb: int = 64, *, rep
     mbs = B // num_mb
     n_sgd = num_mb * cfg.n_epochs
 
-    # --- end-to-end phase split ---
-    *_, (draws_s, steps_s, _, _, total_s) = update_split(
+    # --- end-to-end phase split: the eager update's parts, and the whole
+    # update through update_jit, as the JAX script times its update_jit ---
+    state, *_, (draws_s, steps_s, _, _, eager_s) = update_split(
         {"update": (learner, state)}, reps=reps)["update"]
-    t_roll, t_upd = draws_s + steps_s, total_s
-    t_phase = t_upd - t_roll
+    t_upd = statistics.median(update_jit_seconds({"update": (learner, state)}, reps=reps)[
+        "update"][2])
+    t_roll = draws_s + steps_s
+    t_phase = eager_s - t_roll
 
     # --- components, on their own ---
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -142,7 +149,7 @@ def decompose(num_envs: int = 1024, n_steps: int = 128, num_mb: int = 64, *, rep
         env_steps_per_s=dict(rollout=B / t_roll, full_update=B / t_upd),
         floors_us=dict(grad_compute=floor_compute * 1e6, grad_bytes=floor_bytes * 1e6),
         shares=dict(
-            sgd_of_update=t_phase / t_upd,
+            sgd_of_update=t_phase / eager_s,
             grad_of_sgd=n_sgd * t_grad / max(t_phase, 1e-12),
             opt_of_sgd=n_sgd * t_opt / max(t_phase, 1e-12),
             perm_of_sgd=cfg.n_epochs * t_perm / max(t_phase, 1e-12),

@@ -176,7 +176,9 @@ def train(
             state = shard_init(group, learner, train_cfg.seed, params=params)
         if init_params:
             log(f"warm-started params from {init_params}")
-    update = learner.update if group is None else shard_update(group, learner)
+    # one process: the captured update (CUDA graphs on the card), as the JAX
+    # package's train runs its compiled update
+    update = learner.update_jit if group is None else shard_update(group, learner)
 
     writer = None
     if lead:

@@ -28,6 +28,7 @@ from typing import Callable, List, Tuple
 import torch
 
 from drone2d_tpu_torch.env.env import ACT_DIM, OBS_DIM
+from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState
 from drone2d_tpu_torch.models.policy import ActorCritic
 
@@ -85,7 +86,8 @@ def restore_checkpoint(directory: str, learner: PPOLearner, env_generator: Calla
     `env_generator(restored generator)` when given (a rank's own slice).  A checkpoint without the PLR fields restores
     the initial probabilities and zero counts.  On another device type than
     the one that saved it, the generator is seeded from the stored seed; a
-    checkpoint without one (written before the seed was stored) raises."""
+    checkpoint without one (written before the seed was stored) raises.
+    Adam's state loads onto either device type (`optim.load_state_dict`)."""
     steps = checkpoint_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {directory!r}")
@@ -114,5 +116,5 @@ def restore_checkpoint(directory: str, learner: PPOLearner, env_generator: Calla
     if "family_counts" in payload:
         state = dataclasses.replace(state, **{
             k: payload[k].to(learner.device) for k in ("family_counts", "family_wins")})
-    state.optimizer.load_state_dict(payload["optimizer"])
+    optim.load_state_dict(state.optimizer, payload["optimizer"])
     return state, int(payload["global_step"])

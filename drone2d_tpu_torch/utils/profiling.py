@@ -5,7 +5,9 @@ Three tools:
   a Chrome trace (`chrome://tracing`, Perfetto) of the host's operators and,
   on the card, of every device kernel launched inside.
 * `device_window(fn)`: the device events of one call on the card, for ops
-  a step and the device's busy share.
+  a step and the device's busy share; `launch_window(fn)` also the host's
+  launch calls, for host launches a step (one a kernel eager, one a graph
+  under replay).
 * `PhaseTimer`: wall-clock phase accounting for a loop (rollout / GAE /
   update / host IO), printed or written as JSONL.
 
@@ -80,14 +82,21 @@ def _lead_in() -> None:
         torch.cuda.synchronize()
 
 
-def device_window(fn):
+# the host's launch calls in a trace: kernels, graphs, copies and fills
+_HOST_LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset")
+
+
+def launch_window(fn):
     """Run fn() once under torch.profiler on the card, synchronized ->
-    (its device events, their summed device µs, the wall µs of the call).
+    (its device events, the host's launch calls in it, their summed device
+    µs, the wall µs of the call).
 
     The window opens on `trace`'s lead-in, which takes the profiler's loss
     of a window's first kernel records; the lead-in's kernels ran before
-    the call's range opened (a 1 ms gap apart), and only the device events
-    that start inside that range are returned."""
+    the call's range opened (a 1 ms gap apart), and only the events that
+    start inside that range are returned.  A launch call is a CUDA runtime
+    or libcuda call that puts work on a stream (`_HOST_LAUNCHES`): one a
+    kernel in eager mode, one for a whole replayed CUDA graph."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -105,7 +114,17 @@ def device_window(fn):
     # the ranges' own annotations on the device's timeline are no kernels
     device = [e for e in events if e.device_type == cuda and e.time_range.start >= start
               and e.name not in ("device_window", "trace: lead-in")]
-    return device, sum(e.time_range.elapsed_us() for e in device), wall_us
+    host = [e for e in events if e.device_type != cuda and e.time_range.start >= start
+            and e.name.startswith(_HOST_LAUNCHES)]
+    return device, host, sum(e.time_range.elapsed_us() for e in device), wall_us
+
+
+def device_window(fn):
+    """Run fn() once under torch.profiler on the card, synchronized ->
+    (its device events, their summed device µs, the wall µs of the call);
+    see `launch_window`."""
+    device, _, dev_us, wall_us = launch_window(fn)
+    return device, dev_us, wall_us
 
 
 def _cuda_devices(tree, out: set) -> set:

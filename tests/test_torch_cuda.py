@@ -12,7 +12,12 @@ obstacles' geometry and step, the vector env core and the fresh-draw step
 update bit-equal to the plain update, and the split-carry step bit-equal to
 the template step over a chunk.  The headline bench's chunk on the card
 against the CPU, its launch and device-op counts (the profiler's window
-without its lead-in), and the policy-kernel and split-carry probes.
+without its lead-in), and the policy-kernel and split-carry probes.  The
+compiled programs: `update_jit` bit-equal to `update` over 3 updates (one
+learner in each shuffle, a population of 8), the captured eval runner
+bit-equal to the eager one, launch counts under replay, a capture that
+meets a host sync raises, and a checkpoint written after `update_jit`
+resumes on the CPU.
 
 These need an NVIDIA GPU and nvcc, and skip without one.  This file imports
 no JAX, so on a machine with the card and without JAX it runs alone:
@@ -205,7 +210,9 @@ def test_eval_runner_on_card_matches_cpu(dev, scen):
     """The stochastic eval runner (the kernel a step) on the card against the
     CPU from the same CPU-made states and noise, a 32-step cap, every third
     episode started 5 px from its target: latched flags and lengths equal,
-    APE, return and trajectories to 1e-4 of scale (chip_smoke.py's bounds)."""
+    APE, return and trajectories to 1e-4 of scale (chip_smoke.py's bounds).
+    The card's runner launches the kernel once a step of its captured
+    chunk's warm-up, then once a step of the replay."""
     n, cap = 96, 32
     cfg = scenario_config(scen).replace(n_steps=cap)
     gen = torch.Generator().manual_seed(3)
@@ -219,7 +226,7 @@ def test_eval_runner_on_card_matches_cpu(dev, scen):
                                 flat_dict_to_params(dict(np.load(AGENT)), device=d),
                                 _to(state, d), obs.to(d), noise.to(d))
            for d in ("cpu", dev)}
-    assert fused_sample_action.launches - before == cap
+    assert fused_sample_action.launches - before == 2 * cap
     got, want = out[dev], out["cpu"]
     for k in ("success", "fail", "collision", "time_steps", "traj_len"):
         np.testing.assert_array_equal(getattr(got, k), getattr(want, k), err_msg=k)
@@ -551,15 +558,172 @@ def test_bench_chunk_on_card_matches_cpu(dev):
 
 
 def test_bench_counts_launches_and_device_ops_on_card(dev):
+    """The env line's captured chunk (a 4-step graph here) and the train
+    line's update_jit: each capture warms up once (4 launches; one update's
+    9), then the warm-up chunk or update, the timed ones, the eager
+    profiled steps or rollout, and one more captured chunk or update under
+    the profiler; a replay issues far fewer host launches than device ops."""
     from drone2d_tpu_torch import bench
 
     env = bench.time_env(64, 4, 2)
-    assert env["launches"] == 8 and env["launches_all"] == 3 * 4 + bench.OPS_STEPS
+    assert env["warmup_launches"] == 4 and env["launches"] == 8
+    assert env["launches_all"] == 4 + 3 * 4 + bench.OPS_STEPS + 4
     assert 100 < env["ops_a_step"] < 2000 and len(env["seconds"]) == 2
+    host, ops = env["captured_a_step"]
+    assert 100 < ops and host < ops / 10  # a 4-step graph: the copies in and out dominate
     train = bench.time_train(num_envs=64, ppo=dict(n_steps=8, num_minibatches=4, n_epochs=1),
                              repeats=1)
-    assert train["launches"] == 9 and train["launches_all"] == 3 * 9
+    assert train["warmup_launches"] == 9 and train["launches"] == 9
+    assert train["launches_all"] == 9 + 2 * 9 + 9 + 9
     assert np.isfinite(train["loss"]) and train["ops_a_step"] > 10
+    host, ops = train["captured_an_update"]
+    assert host < ops
+
+
+# -- the compiled programs: CUDA graphs of update_jit and the eval runner ------
+
+GRAPH_PPO = dict(n_steps=8, num_minibatches=4, n_epochs=2, hidden_sizes=(128, 128))
+
+
+def _assert_same_state(a, b):
+    for x, y in zip(a.params.parameters(), b.params.parameters()):
+        assert torch.equal(x, y)
+    xs, ys = optim_tensors(a.optimizer), optim_tensors(b.optimizer)
+    assert len(xs) == len(ys) > 0 and all(torch.equal(x, y) for x, y in zip(xs, ys))
+    from drone2d_tpu_torch.utils import graphs
+
+    for x, y in zip(graphs.leaves((a.env_state, a.obs, a.global_step, a.episodes_total,
+                                   a.family_counts, a.family_wins)),
+                    graphs.leaves((b.env_state, b.obs, b.global_step, b.episodes_total,
+                                   b.family_counts, b.family_wins))):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+def optim_tensors(opt):
+    from drone2d_tpu_torch.utils import graphs
+
+    return graphs.optimizer_tensors(opt)
+
+
+@pytest.mark.parametrize("shuffle", ["exact", "affine", "timeperm"])
+def test_update_jit_bit_equal_to_update(dev, shuffle):
+    """update_jit and update from twin states, 3 updates each in turn at
+    curriculum stage 5 (64 envs, every other one near the cap): weights,
+    Adam's whole state, metrics, envs and counters bit-equal after each;
+    the kernel launched 2 (n_steps + 1) times by the capturing call (its
+    warm-up's update, then the replay) and n_steps + 1 by each later one."""
+    learner = PPOLearner(EnvConfig(), PPOConfig(**GRAPH_PPO, shuffle=shuffle), 64, device=dev)
+    cap, i = EnvConfig().n_steps, torch.arange(64, device=dev)
+    t = torch.where(i % 2 == 0, cap - 1 - i % 6, 0).to(torch.int32)
+
+    def start():
+        s = learner.init(3, global_step=3e6)
+        return dataclasses.replace(s, env_state=dataclasses.replace(s.env_state, t=t))
+
+    a, b = start(), start()
+    finished = 0.0
+    for u in range(3):
+        before = fused_sample_action.launches
+        a, ma = learner.update_jit(a)
+        torch.cuda.synchronize()
+        assert fused_sample_action.launches - before == (2 if u == 0 else 1) * 9
+        b, mb = learner.update(b)
+        assert set(ma) == set(mb) and all(torch.equal(ma[k], mb[k]) for k in ma)
+        _assert_same_state(a, b)
+        finished += float(ma["episodes/episodes"])
+    assert finished > 0 and learner._graphs.captures == 1
+
+
+def test_population_update_jit_bit_equal_to_update(dev):
+    """A population of 8 through update_jit and update, 3 updates in turn:
+    bit-equal; one launch a step for all 8 members under replay."""
+    trainer = ZooTrainer(EnvConfig(), PPOConfig(**GRAPH_PPO), 32, device=dev)
+    a, b = trainer.init(list(range(8))), trainer.init(list(range(8)))
+    for u in range(3):
+        before = fused_sample_action.launches
+        a, ma = trainer.update_jit(a)
+        torch.cuda.synchronize()
+        assert fused_sample_action.launches - before == (2 if u == 0 else 1) * 9
+        b, mb = trainer.update(b)
+        assert all(torch.equal(ma[k], mb[k]) for k in ma)
+        _assert_same_state(a, b)
+
+
+@pytest.mark.parametrize("policy", ["stochastic", "deterministic", "random"])
+def test_captured_eval_runner_bit_equal_to_eager(dev, policy):
+    """agent_s8004 on stage_2 at a 100-step cap (a 64-step graph and a
+    36-step one) and 256 episodes: every field of the results equal between
+    the captured runner and the same chunks run eagerly."""
+    cfg = scenario_config("stage_2").replace(n_steps=100)
+    env = Drone2DEnv(cfg, device=dev)
+    params = None if policy == "random" else flat_dict_to_params(dict(np.load(AGENT)), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    state, obs = env.reset_batch(gen, 256)
+    draws = torch.randn((100, 256, 2), generator=gen, device=dev).clamp(-1, 1)
+    det = policy == "deterministic"
+    got = run_episodes_from(env, params, state, obs, draws, deterministic=det)
+    want = run_episodes_from(env, params, state, obs, draws, deterministic=det, captured=False)
+    for k, g, w in zip(got._fields, got, want):
+        np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+def test_replay_counts_its_captured_launches(dev):
+    """A graph of two kernel launches: its capture counts none, each replay
+    counts two, and its outputs are static (the next replay overwrites
+    them)."""
+    from drone2d_tpu_torch.utils import graphs
+
+    params = flat_dict_to_params(dict(np.load(AGENT)), device=dev)
+    obs = torch.randn(64, 27, device=dev)
+    noise = torch.randn(64, 2, device=dev)
+    g = graphs.Graph(lambda: [params.sample_action(obs, noise=noise)[0] for _ in range(2)], dev)
+    before = fused_sample_action.launches
+    graphs.capture([g])
+    assert fused_sample_action.launches - before == 2  # the warm-up's, which ran
+    assert g.launches == 2 and g.nodes >= 2
+    for k in range(3):
+        out = g()
+        assert fused_sample_action.launches - before == 2 + 2 * (k + 1)
+    torch.cuda.synchronize()
+    want = fused_sample_action(params, obs, noise)[0]
+    assert torch.equal(out[0], want) and out[0] is g()[0]
+
+
+def test_capture_with_a_host_sync_raises(dev):
+    """A body that reads a value on the host cannot be captured: capture
+    raises, and nothing runs in its place; the card works afterwards."""
+    from drone2d_tpu_torch.utils import graphs
+
+    x = torch.ones(8, device=dev)
+    g = graphs.Graph(lambda: x * float(x.sum()), dev)
+    with pytest.raises(RuntimeError):
+        graphs.capture([g])
+    torch.cuda.synchronize()
+    assert float((x + 1).sum()) == 16.0
+
+
+def test_checkpoint_after_update_jit_resumes_on_cpu(dev, tmp_path, capsys):
+    """After update_jit, Adam's step count is a card tensor (a capturable
+    Adam); the checkpoint restores on the CPU with the same weights and
+    Adam state, a CPU step count, and trains on there."""
+    ppo = PPOConfig(n_steps=8, num_minibatches=4, n_epochs=2)
+    card = PPOLearner(EnvConfig(), ppo, 16, device=dev)
+    state, _ = card.update_jit(card.init(0))
+    state, _ = card.update_jit(state)
+    steps = [s["step"] for s in state.optimizer.state.values()]
+    assert all(t.device.type == "cuda" and float(t) == 16 for t in steps)
+    save_checkpoint(str(tmp_path), state)
+    host_learner = PPOLearner(EnvConfig(), ppo, 16, device="cpu")
+    host, _ = restore_checkpoint(str(tmp_path), host_learner)
+    for a, b in zip(host.params.parameters(), state.params.parameters()):
+        assert torch.equal(a, b.cpu())
+    for a, b in zip(optim_tensors(host.optimizer), optim_tensors(state.optimizer)):
+        assert a.device.type == "cpu" and torch.equal(a, b.cpu())
+    host, metrics = host_learner.update_jit(host)
+    assert np.isfinite(float(metrics["loss"]))
+    assert all(float(s["step"]) == 24 for s in host.optimizer.state.values())
+    again, _ = restore_checkpoint(str(tmp_path), card)
+    assert all(s["step"].device.type == "cuda" for s in again.optimizer.state.values())
 
 
 def test_fused_policy_probe_and_split_probe_on_card(dev):

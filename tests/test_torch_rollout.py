@@ -206,7 +206,7 @@ def test_package_imports_no_jax():
                  "scripts.sweep", "scripts.select_agents", "compat.from_jax",
                  "compat.sb3_import", "compat.gym_env", "compat.vector_env", "eval.render",
                  "parallel.mesh", "parallel.multihost", "eval.replay", "eval.curves",
-                 "eval.replotting", "utils.profiling", "debug", "scripts.multihost_smoke",
+                 "eval.replotting", "utils.profiling", "utils.graphs", "debug", "scripts.multihost_smoke",
                  "scripts.ddp_check", "bench", "scripts.precision_campaign",
                  "scripts.package_agent", "scripts.zoo", "scripts.stage1_failure_modes",
                  "scripts.stage1_time_margin", "scripts.aape_survivorship",
