@@ -26,9 +26,12 @@ campaigns through `eval.episode.run_episodes_multi`: s8004 + s22307 on the
 12 scenarios at 1000 episodes each (through `scripts/precision_campaign`),
 the four imported reference agents on 4 of them at 200.
 Data parallelism (`drone2d_tpu_torch.parallel`) at flagship-scratch: a
-world-1 NCCL group's update bit-equal to the plain update, and two gloo
-ranks on the one card (2 x 512 envs) against the union batch replayed in
-one process, with the population split over them; the split-carry step
+world-1 NCCL group's captured update (`update_jit` with the group, NCCL's
+collectives inside the CUDA graphs) bit-equal to the eager data-parallel
+update, the plain update and the plain `update_jit`, the four timed in
+turn; and two gloo ranks on the one card (2 x 512 envs, eager: gloo cannot
+be captured) against the union batch replayed in one process, with the
+population split over them; the split-carry step
 against the template step at 4096 envs; a corridor campaign's flight
 paths replayed through `eval.replay` on the card and on the CPU; and one
 rollout step traced by `utils.profiling.trace`.  The system's last entry
@@ -41,9 +44,10 @@ survivorship's paired width groups, and the probes at small depth
 (`scripts/bench_update_split`, `roofline_probe`, `roofline_update`,
 `bench_kernels`, `bench_fused_policy`, `profile_step`,
 `probe_split_carry`).
-The training, population, bench and eval paths run as CUDA graphs
-(`PPOLearner.update_jit`, the eval runner's captured chunks, the bench's
-captured chunk); the `graphs` phase holds `update_jit` bit-equal to the
+The training, population, data-parallel, bench, probe, eval and gym and
+vector env paths run as CUDA graphs (`PPOLearner.update_jit`, the eval
+runner's captured chunks, the bench's captured chunks, the adapters'
+captured steps, each adapter also timed eagerly in turn); the `graphs` phase holds `update_jit` bit-equal to the
 eager `update` over 3 updates in each shuffle and for a population of 8,
 and the captured eval runner bit-equal to the eager one, and times each
 pair in turn.
@@ -67,6 +71,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -157,7 +162,7 @@ WARMUPS = 1
 # each shuffle and for the population of ZOO_SEEDS; the two timed in turn,
 # GRAPH_TIMING each; the captured eval runner against the eager one on
 # GRAPH_EVAL_SCENARIO x EVAL_EPISODES with agent_s8004, seed GRAPH_EVAL_SEED
-GRAPH_UPDATES, GRAPH_TIMING = 3, 5
+GRAPH_UPDATES, GRAPH_TIMING = 3, 3
 GRAPH_EVAL_SCENARIO, GRAPH_EVAL_SEED = "stage_2", 8004
 # flagship-finetune: 2 updates as published, then PLR_UPDATES with both
 # wall mixes at WALL_MIX and the controller on, then 1 more after a resume.
@@ -210,6 +215,9 @@ GRAFT_ENVS, GRAFT_STEPS = 256, 128
 # union-batch tolerance is the JAX package's (tests/test_parallel.py:206)
 DDP_ENVS, DDP_SEED, DDP_POP_SEEDS = 1024, 5, (11, 12, 13, 14)
 DDP_RTOL, DDP_ATOL = 2e-5, 2e-6
+# the world-1 group's updates from twin states, each path in turn: the
+# first captures, the later ones replay
+DDP_UPDATES = 2
 # ddp2's depth cut: 2 of the recipe's 10 epochs (128 SGD steps an update,
 # its widths and minibatches as published), to hold the script's time
 DDP2_EPOCHS = 2
@@ -841,11 +849,21 @@ def phase_graphs(cfgs, kernel_row: dict):
     launches and device ops of an update each way under the profiler; the
     captured eval runner against the eager one (agent_s8004 on
     GRAPH_EVAL_SCENARIO x EVAL_EPISODES, stochastic and deterministic):
-    every field of the results equal, and an eval step's time each way."""
+    every field of the results equal, and an eval step's time each way.
+    The path's launches are those of the captured calls: the eager
+    references' are counted apart."""
     train_cfg, env_cfg, ppo_cfg = cfgs
     n, N = ppo_cfg.n_steps + 1, train_cfg.num_envs
     torch.cuda.synchronize()
     fused_sample_action.launches = 0
+    others = [0]  # the eager references' launches: not the path's own
+
+    def reference(fn, *args, **kw):
+        before = fused_sample_action.launches
+        out = fn(*args, **kw)
+        others[0] += fused_sample_action.launches - before
+        return out
+
     log(f"graphs: update_jit against update, {GRAPH_UPDATES} updates from twin starts "
         f"(flagship-scratch, {N} envs x {ppo_cfg.n_steps} steps, {ppo_cfg.num_minibatches} x "
         f"{ppo_cfg.n_epochs} SGD):")
@@ -865,7 +883,7 @@ def phase_graphs(cfgs, kernel_row: dict):
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             counts.append(fused_sample_action.launches - before)
-            b, mb = learner.update(b)
+            b, mb = reference(learner.update, b)
             eq = _states_equal(a, b)
             eq["metrics"] = set(ma) == set(mb) and all(torch.equal(ma[k], mb[k]) for k in mb)
             equal.append(eq)
@@ -892,7 +910,7 @@ def phase_graphs(cfgs, kernel_row: dict):
             if name == "update_jit":
                 a, m = fn(a)
             else:
-                b, m = fn(b)
+                b, m = reference(fn, b)
             float(m["loss"])
             secs[name].append(time.perf_counter() - t0)
     steps = N * ppo_cfg.n_steps
@@ -925,12 +943,13 @@ def phase_graphs(cfgs, kernel_row: dict):
         f"({len(host) / steps_an_update:.2f} a step), device busy "
         f"{100 * dev_us / wall_us:.1f}% of {wall_us / 1e3:.1f} ms")
     epoch = PPOLearner(env_cfg, ppo_cfg.replace(n_epochs=1), N)
-    b, batch, last_values, _ = epoch.rollout(b)
+    b, batch, last_values, _ = reference(epoch.rollout, b)
     adv, ret = compute_gae(batch.rewards, batch.values, batch.dones, last_values,
                            gamma=ppo_cfg.gamma, gae_lambda=ppo_cfg.gae_lambda)
     perms = epoch.draw_perms(b.generator)
     for name, fn in (("SGD epoch graph replay", program.epoch),
-                     ("eager SGD epoch", lambda: epoch.sgd(b, batch, adv, ret, perms))):
+                     ("eager SGD epoch",
+                      lambda: reference(epoch.sgd, b, batch, adv, ret, perms))):
         events, host, dev_us, wall_us = launch_window(fn)
         k = ppo_cfg.num_minibatches
         log(f"  profiler, one {name}: {len(events) / k:.1f} device ops and {len(host) / k:.2f} "
@@ -949,8 +968,10 @@ def phase_graphs(cfgs, kernel_row: dict):
         for captured in (True, False, True):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res[captured] = run_episodes_from(env, params, state, obs, draws, deterministic=det,
-                                              captured=captured)
+            run = run_episodes_from if captured else functools.partial(reference,
+                                                                       run_episodes_from)
+            res[captured] = run(env, params, state, obs, draws, deterministic=det,
+                                captured=captured)
             secs.setdefault(captured, []).append(time.perf_counter() - t0)
         got, want = res[True], res[False]
         equal = {k: bool(np.array_equal(g, w)) for k, g, w in zip(got._fields, got, want)}
@@ -967,8 +988,9 @@ def phase_graphs(cfgs, kernel_row: dict):
             raise AssertionError(f"graphs: captured eval runner differs from the eager one: "
                                  f"{equal}")
     torch.cuda.synchronize()
-    launches = fused_sample_action.launches
-    log(f"graphs: kernel launches {launches}; card {card_line()}")
+    launches = fused_sample_action.launches - others[0]
+    log(f"graphs: kernel launches {launches} (and {others[0]} of the eager references); card "
+        f"{card_line()}")
     kernel_row["launches_by_path"]["graphs"] = launches
 
 
@@ -1695,6 +1717,28 @@ def _check_equal_steps(label, got, want):
     return errs
 
 
+def _eager_device_step(env):
+    """Have `env` (a VectorEnvCore or a Drone2dGymEnv) run the device part
+    of its steps eagerly, as it did before it was captured: the core's
+    `device_step`, the gym env's `Drone2DEnv.step` of the batch of one.  The
+    rest of `step` (the draws, the host copy) stays as it is.  The
+    reference the captured step is timed and checked against."""
+    if isinstance(env, VectorEnvCore):
+        def step(tree):
+            state, prev_done, action, templates = tree
+            new, obs, reward, terminated, truncated, info = env.device_step(
+                state, prev_done, action, *templates)
+            return ((obs, reward, terminated, truncated, prev_done, info),
+                    (new, terminated | truncated, action, templates))
+    else:
+        def step(tree):
+            state, action = tree
+            out = env._env.step(state, action.clamp(-1.0, 1.0))
+            return (out.obs, out.done, out.info), (out.state, action)
+    env._step = step
+    return env
+
+
 def phase_compat(kernel_row: dict):
     """The reference's own surface on the card.  (1) An SB3 zip written from
     agent_17_90.npz imports onto the card with every leaf bit-equal, and
@@ -1703,10 +1747,13 @@ def phase_compat(kernel_row: dict):
     agent_s8004 through `sample_action` for VEC_STEPS steps, templates every
     VEC_REFRESH; one kernel launch a step; the NEXT_STEP rule on the rows
     that end; env steps a second with the host copies against the same
-    steps kept on the card; then VEC_CHECK_STEPS steps of the core on the
-    card against the CPU from CPU-made state, templates and actions.
-    (3) Drone2dGymEnv at B=1, GYM_STEPS steps of agent_17_90 through the
-    kernel.  (4) The graft entry's step: `sample_action` + `step_batch` at
+    steps kept on the card; the run twice with the device step captured
+    (the main path: a CUDA graph) and twice eager (`_eager_device_step`),
+    in turn, their steps a second and last obs bit-equal; then
+    VEC_CHECK_STEPS steps of the core on the card against the CPU from
+    CPU-made state, templates and actions.  (3) Drone2dGymEnv at B=1,
+    GYM_STEPS steps of agent_17_90 through the kernel, captured and eager
+    in turn as the vector env.  (4) The graft entry's step: `sample_action` + `step_batch` at
     GRAFT_ENVS envs for GRAFT_STEPS steps, every ended env restarting at
     t = 0 on a fresh path of its own; ms a step against
     `step_batch_template`.  (5) The initial throw: the reset at NUM_ENVS
@@ -1736,31 +1783,47 @@ def phase_compat(kernel_row: dict):
     if not same or max(errs.values()) > TOL:
         raise AssertionError(f"sb3 import: leaves equal {same}, errors {errs}")
 
-    # (2) the vector env core, driven by the flagship through the kernel
+    # (2) the vector env core, driven by the flagship through the kernel,
+    # its device step captured (the main path) and eager, in turn
     params = load_agent(dev)
-    core = VectorEnvCore(VEC_ENVS, seed=3, global_step=int(START_STEP),
-                         template_refresh_steps=VEC_REFRESH)
-    obs_np, _ = core.reset()
-    torch.cuda.synchronize()
+
+    def drive_vector(captured: bool):
+        core = VectorEnvCore(VEC_ENVS, seed=3, global_step=int(START_STEP),
+                             template_refresh_steps=VEC_REFRESH)
+        if not captured:
+            _eager_device_step(core)
+        obs_np, _ = core.reset()
+        g = torch.Generator(device=dev).manual_seed(22)
+        torch.cuda.synchronize()
+        before = fused_sample_action.launches
+        t0 = time.perf_counter()
+        pending, checked, ended = np.zeros(0, np.int64), 0, 0
+        for t in range(VEC_STEPS):
+            with torch.no_grad():
+                a = params.sample_action(torch.as_tensor(obs_np, device=dev), g)[0]
+            obs_np, reward, terminated, truncated, infos = core.step(
+                a.clamp(-1, 1).cpu().numpy())
+            if len(pending):  # the rows that ended on the last step reset now
+                tmpl_obs = core._templates[1][pending].cpu().numpy()
+                if ((reward[pending] != 0).any() or (terminated | truncated)[pending].any()
+                        or not np.array_equal(obs_np[pending], tmpl_obs)
+                        or infos["_APE"][pending].any()):
+                    raise AssertionError(f"vector env step {t}: the NEXT_STEP reset rows are "
+                                         f"wrong")
+                checked += len(pending)
+            pending = np.flatnonzero(terminated | truncated)
+            ended += len(pending)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, fused_sample_action.launches - before, ended, checked,
+                obs_np, core)
+
     fused_sample_action.launches = 0
-    t0 = time.perf_counter()
-    pending, checked, ended = np.zeros(0, np.int64), 0, 0
-    for t in range(VEC_STEPS):
-        with torch.no_grad():
-            a = params.sample_action(torch.as_tensor(obs_np, device=dev), gen)[0]
-        obs_np, reward, terminated, truncated, infos = core.step(a.clamp(-1, 1).cpu().numpy())
-        if len(pending):  # the rows that ended on the last step reset now
-            tmpl_obs = core._templates[1][pending].cpu().numpy()
-            if ((reward[pending] != 0).any() or (terminated | truncated)[pending].any()
-                    or not np.array_equal(obs_np[pending], tmpl_obs)
-                    or infos["_APE"][pending].any()):
-                raise AssertionError(f"vector env step {t}: the NEXT_STEP reset rows are wrong")
-            checked += len(pending)
-        pending = np.flatnonzero(terminated | truncated)
-        ended += len(pending)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = fused_sample_action.launches
+    runs = {True: [], False: []}
+    for captured in (True, False, True, False):  # in turn
+        runs[captured].append(drive_vector(captured))
+    dt, launches, ended, checked, obs_np, core = runs[True][0]
+    same = all(np.array_equal(r[4], runs[False][0][4]) for r in runs[True] + runs[False])
+    vec_rate = {k: [VEC_ENVS * VEC_STEPS / r[0] for r in v] for k, v in runs.items()}
     # the same steps kept on the card: the policy and the template step
     state, tmpl = core._state, core._templates
     obs_d = torch.as_tensor(obs_np, device=dev)
@@ -1772,14 +1835,19 @@ def phase_compat(kernel_row: dict):
 
     card_ms = statistics.median(_synced(on_card) for _ in range(11))
     log(f"vector env core: {VEC_ENVS} envs at stage 5 x {VEC_STEPS} steps (templates every "
-        f"{VEC_REFRESH}), agent_s8004 through sample_action: {dt:.3f} s, "
-        f"{VEC_ENVS * VEC_STEPS / dt:.1f} env steps a second with the host copies "
+        f"{VEC_REFRESH}), agent_s8004 through sample_action, the device step captured: "
+        f"{dt:.3f} s, {VEC_ENVS * VEC_STEPS / dt:.1f} env steps a second with the host copies "
         f"({1e3 * dt / VEC_STEPS:.3f} ms a step) against {card_ms:.3f} ms a step kept on the "
         f"card (host clock, synchronized, median of 11); {ended} ends, the next step of "
         f"{checked} reset rows checked (reward 0, not done, the template's obs, info masked); "
         f"kernel launches {launches}")
-    if launches != VEC_STEPS or checked == 0:
-        raise AssertionError(f"vector env: {launches} launches, {checked} reset rows checked")
+    log(f"  vector env steps a second, captured vs eager device step, in turn (captured, "
+        f"eager, captured, eager): captured {[round(x, 1) for x in vec_rate[True]]}, eager "
+        f"{[round(x, 1) for x in vec_rate[False]]} ({max(vec_rate[True]) / max(vec_rate[False]):.2f}x"
+        f" best to best); the four runs' last obs bit-equal: {same}")
+    if launches != VEC_STEPS or checked == 0 or not same:
+        raise AssertionError(f"vector env: {launches} launches, {checked} reset rows checked, "
+                             f"captured and eager runs equal {same}")
 
     # the core on the card against the CPU from the same CPU-made inputs
     cpu_env = Drone2DEnv(EnvConfig(), device="cpu")
@@ -1805,27 +1873,44 @@ def phase_compat(kernel_row: dict):
     if ends == 0:
         raise AssertionError("vector env check: no env ended")
 
-    # (3) the single gym env, B = 1
-    env = make_gym_env("corridor", seed=4)
-    obs_np = env.reset()
+    # (3) the single gym env, B = 1, its device step captured (the main
+    # path) and eager, in turn
+    def drive_gym(captured: bool):
+        env = make_gym_env("corridor", seed=4)
+        if not captured:
+            _eager_device_step(env)
+        obs_np = env.reset()
+        g = torch.Generator(device=dev).manual_seed(23)
+        before = fused_sample_action.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        episodes = 0
+        for _ in range(GYM_STEPS):
+            with torch.no_grad():
+                a = agent17.sample_action(torch.as_tensor(obs_np, device=dev)[None], g)[0]
+            obs_np, reward, done, info = env.step(a[0].clamp(-1, 1).cpu().numpy())
+            if done:
+                episodes += 1
+                obs_np = env.reset()
+        return time.perf_counter() - t0, fused_sample_action.launches - before, episodes, obs_np
+
     fused_sample_action.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    episodes = 0
-    for _ in range(GYM_STEPS):
-        with torch.no_grad():
-            a = agent17.sample_action(torch.as_tensor(obs_np, device=dev)[None], gen)[0]
-        obs_np, reward, done, info = env.step(a[0].clamp(-1, 1).cpu().numpy())
-        if done:
-            episodes += 1
-            obs_np = env.reset()
-    dt = time.perf_counter() - t0
-    gym_launches = fused_sample_action.launches
-    log(f"gym env (Drone2dGymEnv, corridor) at B=1, agent_17_90 through sample_action: "
-        f"{GYM_STEPS} steps in {dt:.3f} s, {GYM_STEPS / dt:.1f} steps a second, {episodes} "
-        f"episodes ended; kernel launches {gym_launches}")
-    if gym_launches != GYM_STEPS or not np.isfinite(obs_np).all():
-        raise AssertionError(f"gym env: {gym_launches} launches")
+    gyms = {True: [], False: []}
+    for captured in (True, False, True, False):  # in turn
+        gyms[captured].append(drive_gym(captured))
+    dt, gym_launches, episodes, obs_np = gyms[True][0]
+    gym_same = all(np.array_equal(r[3], gyms[False][0][3]) for r in gyms[True] + gyms[False])
+    gym_rate = {k: [GYM_STEPS / r[0] for r in v] for k, v in gyms.items()}
+    log(f"gym env (Drone2dGymEnv, corridor) at B=1, agent_17_90 through sample_action, the "
+        f"device step captured: {GYM_STEPS} steps in {dt:.3f} s, {GYM_STEPS / dt:.1f} steps a "
+        f"second, {episodes} episodes ended; kernel launches {gym_launches}")
+    log(f"  gym env steps a second, captured vs eager device step, in turn: captured "
+        f"{[round(x, 1) for x in gym_rate[True]]}, eager {[round(x, 1) for x in gym_rate[False]]}"
+        f" ({max(gym_rate[True]) / max(gym_rate[False]):.2f}x best to best); the four runs' "
+        f"last obs bit-equal: {gym_same}")
+    if gym_launches != GYM_STEPS or not np.isfinite(obs_np).all() or not gym_same:
+        raise AssertionError(f"gym env: {gym_launches} launches, captured and eager runs "
+                             f"equal {gym_same}")
 
     # (4) the graft entry's step: the fresh draw per reset, at its shapes
     # (a fresh 128-128 actor-critic, curriculum stage 1), whose random
@@ -1925,54 +2010,84 @@ def _copy_state(state: TrainState, generator: torch.Generator) -> TrainState:
 
 def phase_ddp(kernel_row: dict):
     """The data-parallel update at flagship-scratch on a world-1 NCCL group
-    (`parallel.make_group`; no other backend is tried): `shard_init` +
-    `shard_update` for one update against the plain `PPOLearner.update` from
-    a copy of the same state with the rank's generator, the weights, Adam's
-    state and every metric bit-equal, the two updates timed in turn; and
-    the collectives' share of an SGD step (an epoch's SGD with and without
-    the group, in turn, and the NCCL kernels' device time under the
-    profiler)."""
+    (`parallel.make_group`; no other backend is tried), DDP_UPDATES updates
+    each from twin states, taken in turn: the captured `shard_update` (the
+    main path: `update_jit` with the group, NCCL's collectives inside the
+    CUDA graphs), the eager `PPOLearner.update(..., group=group)`, and the
+    plain `PPOLearner.update` and `update_jit`, the three with the rank's
+    generators (`mesh.rank_drawn`); the
+    weights, Adam's state and every metric bit-equal to all three, n_steps
+    + 1 launches a replayed update (twice that for the capturing one), the
+    four updates' seconds in turn; and the collectives' share of an eager
+    SGD step (an epoch's SGD with and without the group, in turn, and the
+    NCCL kernels' device time under the profiler)."""
     _, train_cfg, env_cfg, ppo_cfg = parse_args(["--preset", "flagship-scratch"])
     group, dev = mesh.make_group("cuda:0", backend="nccl")
+    n = ppo_cfg.n_steps + 1
     try:
         log(f"ddp: world-1 group, backend {dist.get_backend(group)}, flagship-scratch "
             f"{train_cfg.num_envs} envs")
         learner = PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs, device=dev)
         state = mesh.shard_init(group, learner, DDP_SEED)
-        twin = torch.Generator(device=dev)
-        twin.set_state(state.generator.get_state())
-        plain = _copy_state(state, mesh.rank_generator(twin, 0))
-        update = mesh.shard_update(group, learner)
+        gen = state.generator.get_state()
+
+        # the references, each with the rank's draws (`mesh.rank_drawn`)
+        paths = {"captured": mesh.shard_update(group, learner),
+                 "eager": mesh.rank_drawn(functools.partial(learner.update, group=group), 0),
+                 "update": mesh.rank_drawn(learner.update, 0),
+                 "update_jit": mesh.rank_drawn(learner.update_jit, 0)}
+        states = {k: _copy_state(state, torch.Generator(device=dev).set_state(gen))
+                  for k in paths}
+        metrics = {k: [] for k in paths}
+        secs = {k: [] for k in paths}
+        counts = []
         torch.cuda.synchronize()
         fused_sample_action.launches = 0
-        t0 = time.perf_counter()
-        sharded_state, sharded = update(state)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        launches = fused_sample_action.launches
-        plain_state, want = learner.update(plain)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        equal = {
-            "weights": all(torch.equal(a, b) for a, b in zip(
-                sharded_state.params.parameters(), plain_state.params.parameters())),
-            "adam": all(torch.equal(sa[k], sb[k]) for sa, sb in zip(
-                sharded_state.optimizer.state.values(), plain_state.optimizer.state.values())
-                for k in sa),
-            "metrics": set(sharded) == set(want) and all(
-                torch.equal(sharded[k], want[k]) for k in want),
-        }
-        log(f"  one update, sharded (world 1) vs plain from the same state and draws: "
-            f"bit-equal {equal}; loss {float(sharded['loss']):.6f}, episodes "
-            f"{float(sharded['episodes/episodes']):.0f}; kernel launches {launches}")
-        if not all(equal.values()) or launches != ppo_cfg.n_steps + 1:
-            raise AssertionError(f"ddp: world-1 update vs plain {equal}, {launches} launches")
+        for _ in range(DDP_UPDATES):  # the four in turn, update by update
+            for name, fn in paths.items():
+                before = fused_sample_action.launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                states[name], m = fn(states[name])
+                torch.cuda.synchronize()
+                secs[name].append(time.perf_counter() - t0)
+                metrics[name].append(m)
+                if name == "captured":
+                    counts.append(fused_sample_action.launches - before)
+        launches = sum(counts)
+        got = states["captured"]
+        equal = {}
+        for ref in ("eager", "update", "update_jit"):
+            want = states[ref]
+            equal[ref] = {
+                "weights": all(torch.equal(a, b) for a, b in zip(
+                    got.params.parameters(), want.params.parameters())),
+                "adam": all(torch.equal(a, b) for a, b in zip(
+                    graphs.optimizer_tensors(got.optimizer),
+                    graphs.optimizer_tensors(want.optimizer))),
+                "metrics": all(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in b)
+                               for a, b in zip(metrics["captured"], metrics[ref])),
+            }
+        sharded = metrics["captured"][-1]
+        log(f"  {DDP_UPDATES} updates each from twin states, the captured shard_update "
+            f"(update_jit with the NCCL group) against: "
+            + "; ".join(f"{k} bit-equal {v}" for k, v in equal.items())
+            + f"; loss {float(sharded['loss']):.6f}, episodes "
+            f"{float(sharded['episodes/episodes']):.0f}; kernel launches {counts} (a replayed "
+            f"update {n}, the capturing one {2 * n})")
+        if not all(all(v.values()) for v in equal.values()) or counts != [2 * n] + [n] * (
+                DDP_UPDATES - 1):
+            raise AssertionError(f"ddp: captured world-1 update {equal}, launches {counts}")
 
         steps = ppo_cfg.n_steps * train_cfg.num_envs
-        log(f"  train_steps_per_s (host clock, synchronized, those two updates in turn): ddp "
-            f"{steps / (t1 - t0):.1f} ({t1 - t0:.4f} s), plain {steps / (t2 - t1):.1f} "
-            f"({t2 - t1:.4f} s)")
-
+        log("  seconds an update (host clock, synchronized, the four in turn; the first "
+            "of captured and update_jit includes its capture): " + "; ".join(
+                f"{k} {[round(x, 4) for x in v]}" for k, v in secs.items()))
+        log("  train_steps_per_s from the last update of each: " + ", ".join(
+            f"{k} {steps / v[-1]:.1f}" for k, v in secs.items())
+            + f"; captured / eager {secs['eager'][-1] / secs['captured'][-1]:.2f}x; card "
+            f"{card_line()}")
+        sharded_state = got
         # an SGD epoch with and without the group, in turn, on one batch
         epoch = PPOLearner(env_cfg, ppo_cfg.replace(n_epochs=1), train_cfg.num_envs, device=dev)
         st, batch, last_values, _ = epoch.rollout(sharded_state)
@@ -2038,7 +2153,10 @@ def _ddp2_rank(rank: int, port: int, out_dir: str) -> None:
 
 def phase_ddp2(kernel_row: dict):
     """Two ranks on the one card (spawned processes, each given cuda:0,
-    gloo passed explicitly: NCCL refuses two ranks on one device): one
+    gloo passed explicitly: NCCL refuses two ranks on one device), eager:
+    gloo's collectives cannot be recorded into a CUDA graph, so
+    `shard_update` runs `update(group=...)` for gloo on the card
+    (`parallel.mesh.captures`), as the train CLI does: one
     sharded update of flagship-scratch over 2 x 512 envs against
     `union_update`, the world-1 replay of the union batch with matched
     minibatch composition (rtol DDP_RTOL, atol DDP_ATOL); then one
@@ -2494,7 +2612,10 @@ def phase_probes(kernel_row: dict):
     `bench_kernels` at 4096 x 512, `bench_fused_policy` at B=4096, H=128
     (its kernel within TOL of the plain version's scale, log-prob equal),
     `profile_step` (its trace names the fused kernel at every launch) and
-    `probe_split_carry` (rewards bit-equal)."""
+    `probe_split_carry` (rewards bit-equal).  The chunk probes time the
+    bench's captured chunks (`bench.CapturedChunk`, `CapturedSplitChunk`);
+    `roofline_probe`'s at 4096 envs is timed against the eager chunk, in
+    turn, after the probes' launches are read."""
     torch.cuda.synchronize()
     fused_sample_action.launches = 0
     t0 = time.perf_counter()
@@ -2520,18 +2641,42 @@ def phase_probes(kernel_row: dict):
             events = json.load(f)["traceEvents"]
     named = [e["name"] for e in events
              if e.get("cat") == "kernel" and "fused_sample_action" in e["name"]]
-    # a warm-up chunk, then the traced one
-    log(f"  profile_step: {len(named)} fused kernel events in the trace for {traced - 4} traced "
-        f"launches ({named[:1]})")
+    # the capture's warm-up and a warm-up chunk, then the traced one
+    traced -= 2 * 4
+    log(f"  profile_step (the captured chunk): {len(named)} fused kernel events in the trace "
+        f"for {traced} traced launches ({named[:1]})")
+    # the probes' own launches: the comparison below is not counted
     torch.cuda.synchronize()
     launches = fused_sample_action.launches
+
+    # the captured chunk the probes time against the eager chunk they timed
+    # before this slice, at 4096 envs and table 512, in turn
+    def eager_ns():
+        env = Drone2DEnv(EnvConfig(), "cuda")
+        params = ActorCritic(27, 2, generator=torch.Generator().manual_seed(0), device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        state, obs = env.reset_batch(torch.Generator(device="cuda").manual_seed(1), 4096, 0.0)
+        state, obs, r = bench.chunk(params, env, state, obs, gen, PROBE_CHUNK)
+        float(r.sum())
+        t0 = time.perf_counter()
+        state, obs, r = bench.chunk(params, env, state, obs, gen, PROBE_CHUNK)
+        float(r.sum())
+        return (time.perf_counter() - t0) / (PROBE_CHUNK * 4096) * 1e9
+
+    ns = {"captured": [], "eager": []}
+    for _ in range(2):
+        ns["captured"].append(roofline_probe.measure(4096, 512, chunk_t=PROBE_CHUNK, repeats=1))
+        ns["eager"].append(eager_ns())
+    log(f"  roofline_probe's chunk at 4096 envs, table 512, {PROBE_CHUNK} steps, in turn: "
+        f"captured {[round(x, 2) for x in ns['captured']]} ns an env step, eager chunk "
+        f"{[round(x, 2) for x in ns['eager']]} ({min(ns['eager']) / min(ns['captured']):.2f}x)")
     log(f"probes: {time.perf_counter() - t0:.2f} s, kernel launches {launches}; roofline rows "
         f"{[(r['probe'], r['num_envs'], r['table_n'], r['ns_per_env_step']) for r in rows]}")
     errs = fused["scaled_errors"]
     if max(errs.values()) > TOL or errs["logp"] != 0.0:
         raise AssertionError(f"bench_fused_policy: kernel vs plain {errs}")
-    if len(named) != traced - 4 or not named:
-        raise AssertionError(f"profile_step: {len(named)} fused events, {traced - 4} launches")
+    if len(named) != traced or not named:
+        raise AssertionError(f"profile_step: {len(named)} fused events, {traced} launches")
     if not split["first_chunk_reward_equal"] or launches <= 0:
         raise AssertionError(f"probe_split_carry: {split}")
     kernel_row["launches_by_path"]["probes"] = launches

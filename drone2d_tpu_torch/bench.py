@@ -39,6 +39,7 @@ import torch
 from drone2d_tpu_torch.config import EnvConfig, PPOConfig
 from drone2d_tpu_torch.device import resolve_device, synchronize
 from drone2d_tpu_torch.env.env import ACT_DIM
+from drone2d_tpu_torch.env.types import finalize_split, split_state
 from drone2d_tpu_torch.learn.gae import compute_gae
 from drone2d_tpu_torch.learn.ppo import PPOLearner
 from drone2d_tpu_torch.ops.fused_policy import fused_sample_action
@@ -96,26 +97,50 @@ def chunk(params, env, env_state, obs, gen: torch.Generator, chunk_t: int, **kw)
     return chunk_from(params, env, env_state, obs, *draws, **kw)
 
 
+def graph_steps(chunk_t: int) -> int:
+    """The steps of a captured chunk's graph for `chunk_t`-step chunks."""
+    return min(GRAPH_STEPS, chunk_t)
+
+
 class CapturedChunk:
     """`chunk_from` as a CUDA graph of `steps` steps over static buffers (the
     envs and obs carried from replay to replay, the template, `steps` steps
     of noise), replayed T / steps times for a T-step chunk: the kernels of
-    `chunk_from`, so the same results.  On the CPU the graph's body runs
-    directly (`utils/graphs.py`)."""
+    `chunk_from`, so the same results.  `autoreset` goes to `chunk_from`.
+    On the CPU the graph's body runs directly (`utils/graphs.py`).
 
-    def __init__(self, params, env, env_state, obs, reset_state, reset_obs, steps: int):
+    A subclass records another step by its three hooks: `enter` (a chunk's
+    start -> the carry and the template it reads), `run` (the steps over
+    them) and `leave` (the carry and template -> (env_state, obs))."""
+
+    def __init__(self, params, env, env_state, obs, reset_state, reset_obs, steps: int, **kw):
         self.steps = steps
-        self.carry = carry = graphs.clone((env_state, obs))
-        self.template = template = graphs.clone((reset_state, reset_obs))
+        carry, template = self.enter(env_state, obs, reset_state, reset_obs)
+        self.carry = carry = graphs.clone(carry)
+        self.template = template = graphs.clone(template)
         self.noise = noise = torch.zeros((steps, obs.shape[0], ACT_DIM), device=obs.device)
+        run = self.run
 
         def body():
-            env_state, obs, rewards = chunk_from(params, env, *carry, *template, noise)
-            graphs.copy_(carry, (env_state, obs))
+            new, rewards = run(params, env, carry, template, noise, **kw)
+            graphs.copy_(carry, new)
             return rewards
 
         self.graph = graphs.Graph(body, obs.device)
         graphs.capture([self.graph])  # every call copies its start into the carry
+
+    @staticmethod
+    def enter(env_state, obs, reset_state, reset_obs):
+        return (env_state, obs), (reset_state, reset_obs)
+
+    @staticmethod
+    def run(params, env, carry, template, noise, **kw):
+        env_state, obs, rewards = chunk_from(params, env, *carry, *template, noise, **kw)
+        return (env_state, obs), rewards
+
+    @staticmethod
+    def leave(carry, template):
+        return carry
 
     def __call__(self, env_state, obs, reset_state, reset_obs, noise):
         """The chunk from (env_state, obs) with its template and (T, N, 2)
@@ -123,14 +148,57 @@ class CapturedChunk:
         T = noise.shape[0]
         if T % self.steps:
             raise ValueError(f"a chunk of {T} steps is no multiple of the graph's {self.steps}")
-        graphs.copy_(self.carry, (env_state, obs))
-        graphs.copy_(self.template, (reset_state, reset_obs))
+        carry, template = self.enter(env_state, obs, reset_state, reset_obs)
+        graphs.copy_(self.carry, carry)
+        graphs.copy_(self.template, template)
         rewards = torch.empty(noise.shape[:2], device=obs.device)
         for i in range(0, T, self.steps):
             self.noise.copy_(noise[i:i + self.steps])
             rewards[i:i + self.steps] = self.graph()
-        env_state, obs = graphs.clone(self.carry)
+        env_state, obs = graphs.clone(self.leave(self.carry, self.template))
         return env_state, obs, rewards
+
+
+class CapturedSplitChunk(CapturedChunk):
+    """`chunk_split_from` as a captured chunk: the split-carry step
+    (`Drone2DEnv.step_batch_split`) in the graph, its carry the episodes'
+    dynamic leaves, the auto-reset flags and the obs; the template the
+    chunk's initial statics and the reset template's two halves, split
+    before the first replay and merged (`finalize_split`) after the last,
+    as the eager split chunk does once a chunk."""
+
+    @staticmethod
+    def enter(env_state, obs, reset_state, reset_obs):
+        tmpl_static, tmpl_dyn = split_state(reset_state)
+        init_static, dyn = split_state(env_state)
+        fresh = torch.zeros(obs.shape[0], dtype=torch.bool, device=obs.device)
+        return (dyn, fresh, obs), (init_static, tmpl_static, tmpl_dyn, reset_obs)
+
+    @staticmethod
+    @torch.no_grad()
+    def run(params, env, carry, template, noise):
+        dyn, fresh, obs = carry
+        rewards = torch.empty(noise.shape[:2], device=obs.device)
+        for t in range(noise.shape[0]):
+            action = torch.clamp(params.sample_action(obs, noise=noise[t])[0], -1.0, 1.0)
+            dyn, fresh, obs, rewards[t], _, _ = env.step_batch_split(dyn, fresh, action,
+                                                                     *template)
+        return (dyn, fresh, obs), rewards
+
+    @staticmethod
+    def leave(carry, template):
+        dyn, fresh, obs = carry
+        return finalize_split(template[0], template[1], fresh, dyn), obs
+
+
+def chunk_split_from(params, env, env_state, obs, reset_state, reset_obs, noise):
+    """`chunk_from` through the split-carry step, eagerly: the statics split
+    off once, the steps, then `finalize_split` -> (env_state, obs, rewards
+    (T, N)), bit-equal to `chunk_from`'s."""
+    cls = CapturedSplitChunk
+    carry, template = cls.enter(env_state, obs, reset_state, reset_obs)
+    carry, rewards = cls.run(params, env, carry, template, noise)
+    return (*cls.leave(carry, template), rewards)
 
 
 def _line(metric: str, rate: float) -> str:
@@ -186,7 +254,7 @@ def time_env(num_envs: int = NUM_ENVS, chunk_t: int = CHUNK_T, repeats: int = RE
     env_state, obs = state.env_state, state.obs
     draws = draw_chunk(env, num_envs, gen, chunk_t, dev)
     before = fused_sample_action.launches
-    run = CapturedChunk(params, env, env_state, obs, *draws[:2], min(GRAPH_STEPS, chunk_t))
+    run = CapturedChunk(params, env, env_state, obs, *draws[:2], graph_steps(chunk_t))
     warmup_launches = fused_sample_action.launches - before
     env_state, obs, r = run(env_state, obs, *draws)  # warm-up
     float(r.sum())

@@ -11,6 +11,13 @@ gymnasium 5-tuple; `register_gym_envs` registers `drone2d_tpu_torch/<scenario>-v
 ids with gymnasium, the single env and the vector env (`compat/vector_env.py`)
 behind `gymnasium.make_vec`.
 
+The device step (`Drone2DEnv.step` of the batch of one) runs as a CUDA
+graph over a static state and action, as the JAX adapter jits it, behind
+`step`, `step_gymnasium` and the gymnasium wrapper alike; made at the first
+step after a reset that brings new shapes, reused after every other reset.
+The reset and the copy of a step's results to the host stay eager.  On the
+CPU the graph's body runs directly (`utils/graphs.py`).
+
 For throughput use the batched API (`Drone2DEnv`, `Drone2dVectorEnv` or
 the learner): every step here copies its results to the host.
 """
@@ -24,6 +31,7 @@ import torch
 
 from drone2d_tpu_torch.config import EnvConfig
 from drone2d_tpu_torch.env.env import ACT_DIM, OBS_DIM, Drone2DEnv
+from drone2d_tpu_torch.utils import graphs
 
 
 class _Box:
@@ -63,14 +71,15 @@ class Drone2dGymEnv:
 
     metadata = {"render.modes": ["human", "rgb_array"]}
 
-    def __init__(self, seed: int = 0, global_step: int = 0, device=None,
-                 **config_overrides):
+    def __init__(self, seed: int = 0, global_step: int = 0, device=None, **config_overrides):
         self.cfg = EnvConfig(**config_overrides)
         self._env = Drone2DEnv(self.cfg, device)
         self.device = self._env.device
         self.global_step = float(global_step)
         self.seed(seed)
         self._state = None
+        # the device step over a static (state, action)
+        self._step = graphs.ShapeGraph(self._step_body, lambda inputs: inputs[0], self.device)
         self._renderer = None
         self._screen = None
         self._trail: list = []
@@ -88,19 +97,31 @@ class Drone2dGymEnv:
         self._trail = []
         return obs[0].cpu().numpy()
 
+    def _step_body(self, inputs):
+        """The captured step over the static `inputs` (state, action): the
+        env step of the batch of one, the new state written back into the
+        inputs -> (obs, done, info)."""
+        state, action = inputs
+
+        def body():
+            out = self._env.step(state, action.clamp(-1.0, 1.0))
+            graphs.copy_(state, out.state)
+            return out.obs, out.done, out.info
+        return body
+
     def step(self, action) -> Tuple[np.ndarray, float, bool, dict]:
         if self._state is None:
             raise RuntimeError("call reset() before step()")
         a = torch.as_tensor(np.asarray(action, np.float32).reshape(1, ACT_DIM),
-                            device=self.device).clamp(-1.0, 1.0)
-        out = self._env.step(self._state, a)
-        self._state = out.state
+                            device=self.device)
+        # the graph writes the next state into its static state, kept here
+        (obs, done, out_info), (self._state, _) = self._step((self._state, a))
         # one copy to the host for the whole step (float64 holds every
         # float32 and int32 value exactly)
-        keys = list(out.info)
-        host = torch.cat([out.obs[0].double(), out.done.double(),
-                          *(out.info[k].double() for k in keys)]).cpu().numpy()
-        info = {k: float(x) if out.info[k].is_floating_point() else int(x)
+        keys = list(out_info)
+        host = torch.cat([obs[0].double(), done.double(),
+                          *(out_info[k].double() for k in keys)]).cpu().numpy()
+        info = {k: float(x) if out_info[k].is_floating_point() else int(x)
                 for k, x in zip(keys, host[OBS_DIM + 1:])}
         return (host[:OBS_DIM].astype(np.float32), info["reward"], bool(host[OBS_DIM]),
                 info)

@@ -15,6 +15,15 @@ does (`Drone2DEnv.step_batch_template`); the templates are drawn anew every
 that has an env to reset (a fresh draw per reset, at the cost of drawing a
 whole batch).
 
+The device part of a step (the env step and the NEXT_STEP select) runs as a
+CUDA graph over static buffers, as the JAX adapter jits it: made at the
+first step after a reset that brings new shapes, reused by every other step
+and reset.  The action is copied in every step and the templates whenever
+they are drawn anew; the draws (the reset, the templates) stay eager, and so
+does the one copy of a step's results to the host.  On the CPU the graph's
+body runs directly (`utils/graphs.py`); `device_step` is the same step
+run eagerly.
+
 Two layers, so that the card's work needs no gymnasium:
 - `VectorEnvCore` holds the state and the templates, steps them and returns
   numpy; it imports no gym;
@@ -34,6 +43,7 @@ from drone2d_tpu_torch.compat.gym_env import scenario_overrides
 from drone2d_tpu_torch.config import EnvConfig
 from drone2d_tpu_torch.env.env import ACT_DIM, OBS_DIM, Drone2DEnv
 from drone2d_tpu_torch.env.types import EnvState, select_state
+from drone2d_tpu_torch.utils import graphs
 
 
 class VectorEnvCore:
@@ -67,6 +77,8 @@ class VectorEnvCore:
         self._prev_done = None
         self._templates = None
         self._steps_since_refresh = 0
+        # the device step over static (state, prev_done, action, templates)
+        self._step = graphs.ShapeGraph(self._step_body, lambda inputs: inputs[:2], self.device)
 
     def device_step(self, state: EnvState, prev_done: torch.Tensor, action: torch.Tensor,
                     reset_state: EnvState, reset_obs: torch.Tensor):
@@ -83,6 +95,22 @@ class VectorEnvCore:
         terminated = done & out.info["terminal"].bool()
         truncated = done & ~terminated
         return state, obs, reward, terminated, truncated, out.info
+
+    def _step_body(self, inputs):
+        """The captured step over the static `inputs` (state, prev_done,
+        action, (reset_state, reset_obs)): `device_step`, the new state and
+        done flags written back into the inputs -> (obs, reward, terminated,
+        truncated, the rows reset by this step, info)."""
+        state, prev_done, action, templates = inputs
+
+        def body():
+            new, obs, reward, terminated, truncated, info = self.device_step(
+                state, prev_done, action, *templates)
+            was_reset = prev_done.clone()
+            graphs.copy_(state, new)
+            prev_done.copy_(terminated | truncated)
+            return obs, reward, terminated, truncated, was_reset, info
+        return body
 
     # -- the gymnasium.vector.VectorEnv surface --------------------------------
 
@@ -116,11 +144,14 @@ class VectorEnvCore:
             self._steps_since_refresh = 0
         self._steps_since_refresh += 1
 
-        a = torch.as_tensor(actions, dtype=torch.float32, device=self.device)
-        state, obs, reward, terminated, truncated, info = self.device_step(
-            self._state, self._prev_done, a.reshape(self.num_envs, ACT_DIM), *self._templates)
-        was_reset = self._prev_done
-        self._state, self._prev_done = state, terminated | truncated
+        a = torch.as_tensor(actions, dtype=torch.float32,
+                            device=self.device).reshape(self.num_envs, ACT_DIM)
+        (obs, reward, terminated, truncated, was_reset, info), inputs = self._step(
+            (self._state, self._prev_done, a, self._templates))
+        # the graph wrote the next state and done flags into its inputs; the
+        # static templates, which hold this step's, are copied anew only
+        # when drawn anew
+        self._state, self._prev_done, _, self._templates = inputs
 
         # one copy to the host for the whole step (float64 holds every
         # float32 and int32 value exactly); the gymnasium vector info

@@ -27,11 +27,12 @@ member's minibatches cut from its own rows, its loss, clip and metrics its
 own.  A single learner is the case with no member axis.
 
 Where the JAX package takes `axis_name` (inside `shard_map`), `update`,
-`update_from`, `learn_from`, `sgd` and `loss_fn` take `group`, a
-`torch.distributed` process group (`parallel/mesh.py`): the advantage
-moments, each minibatch's gradients, loss and aux, and the rollout's
-episode stats are reduced over the ranks with `all_reduce` (a mean is the
-SUM divided by the world size).  `group=None` runs no collective.
+`update_jit`, `update_from`, `learn_from`, `sgd` and `loss_fn` take
+`group`, a `torch.distributed` process group (`parallel/mesh.py`): the
+advantage moments, each minibatch's gradients, loss and aux, and the
+rollout's episode stats are reduced over the ranks with `all_reduce` (a
+mean is the SUM divided by the world size); `update_jit` records them
+into its CUDA graphs.  `group=None` runs no collective.
 """
 
 from __future__ import annotations
@@ -560,8 +561,9 @@ class PPOLearner:
                group=None) -> torch.Tensor:
         """One epoch of `sgd` over the prepared `data` (`_sgd_data`) with its
         shuffle `perm` ((n,), or (S, n) for a population), in place on
-        `params` and `opt`, with no host sync (`update_jit` captures it).
-        Returns its (num_minibatches, 1 + aux, ...) rows."""
+        `params` and `opt`, with no host sync (`update_jit` captures it,
+        with `group`'s collectives too).  Returns its (num_minibatches, 1 +
+        aux, ...) rows."""
         S = params.members
         leaves = list(params.parameters())
         rows = self._rows(S, epochs=1)
@@ -659,7 +661,7 @@ class PPOLearner:
         `update_from`)."""
         return self.update_from(state, *self.draws(state), group=group)
 
-    def update_jit(self, state: TrainState, draws=None
+    def update_jit(self, state: TrainState, draws=None, *, group=None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """`update` as compiled programs, the counterpart of the JAX
         package's `update_jit` (`drone2d_tpu/learn/ppo.py:489-491`): on the
@@ -670,27 +672,39 @@ class PPOLearner:
         `draws` as it returns them, so that it draws exactly what `update`
         draws from the same generator.  The graphs run the kernels `update`
         runs, so the results are bit-equal to `update`'s.  The first call
-        for a (weights, optimizer, shapes) triple captures them (a warm-up
-        update's device work, undone, then the recording; a state whose
-        weights or optimizer are other tensors captures anew); the learner
-        keeps the last two.  The returned state and metrics are the
+        for a (weights, optimizer, shapes, group) key captures them (a
+        warm-up update's device work, undone, then the recording; a state
+        whose weights or optimizer are other tensors captures anew); the
+        learner keeps the last two.  The returned state and metrics are the
         caller's: no later call writes them.  A failed capture raises; so
         does one while the caller still holds an eager autograd graph over
         these weights (a loss it back-propagated): its gradient
         accumulators stay on the stream they were made on, which a capture
         may not depend on, so drop such a loss first.
 
+        With `group`, one rank's share of a data-parallel update, as
+        `update(state, group=...)`: the graphs record its collectives (the
+        advantage moments and each minibatch's flat gradient buffer in the
+        epoch graph, the episode stats' sum in the rollout graph), as the
+        JAX package compiles its `shard_update` with them.  Every rank must
+        make the same calls, so that each captures on the same call and
+        replays its collectives in the same order as the others; a program
+        made with a group never serves a call without one, nor the reverse.
+        NCCL's collectives can be recorded; gloo's cannot, so a gloo group
+        on the card takes `update(group=...)` (`parallel.mesh.shard_update`
+        decides by the backend).
+
         On the CPU the same bodies run directly over the same static
-        buffers.  Takes no `group`, as the JAX function takes no axis: a
-        data-parallel update is `update(state, group=...)`."""
+        buffers, collectives included."""
         draws = self.draws(state) if draws is None else draws
-        program = self._graphs.get(_UpdateProgram.key(state, draws))
+        key = _UpdateProgram.key(state, draws, group)
+        program = self._graphs.get(key)
         new = program is None
         if new:
-            program = _UpdateProgram(self, state, draws)
+            program = _UpdateProgram(self, state, draws, group)
         env_state, obs, stats, rows = program(state, draws)
         if new:  # keyed once Adam's lazily made state exists
-            self._graphs.put(_UpdateProgram.key(state, draws), program)
+            self._graphs.put(_UpdateProgram.key(state, draws, group), program)
         return self._finish(self._advance(state, env_state, obs), stats, self._means(rows))
 
     def update_from(
@@ -735,16 +749,19 @@ class PPOLearner:
 
 
 class _UpdateProgram:
-    """`update_jit`'s captured program for one learner, weights, optimizer
-    and shapes: the rollout with GAE as one graph, an SGD epoch as another.
+    """`update_jit`'s captured program for one learner, weights, optimizer,
+    shapes and process group (or none): the rollout with GAE as one graph,
+    an SGD epoch as another.
 
     Static buffers hold the state's envs and obs, the draws' template and
     noise (copied in every call) and one epoch's shuffle (copied in before
     each epoch's replay).  The epoch graph reads the rollout graph's batch,
     advantages and returns where that graph writes them, and updates the
-    weights and Adam's state in place, as `update` does."""
+    weights and Adam's state in place, as `update` does.  With a group the
+    rollout graph ends with the episode stats' sum over the ranks and the
+    epoch graph holds each minibatch's collectives (`_epoch`)."""
 
-    def __init__(self, learner: PPOLearner, state, draws):
+    def __init__(self, learner: PPOLearner, state, draws, group=None):
         reset_state, reset_obs, noise, perms = draws
         learner._check_noise(state, noise)
         params, opt, S = state.params, state.optimizer, state.params.members
@@ -762,6 +779,8 @@ class _UpdateProgram:
 
         def rollout():
             env_state, obs, batch, last_values, stats = learner._rollout_body(params, *inputs)
+            if group is not None:
+                stats = sum_stats(stats, group)
             advantages, returns = compute_gae(
                 batch.rewards, batch.values, batch.dones, last_values,
                 gamma=learner.cfg.gamma, gae_lambda=learner.cfg.gae_lambda)
@@ -771,17 +790,19 @@ class _UpdateProgram:
 
         self.rollout = first = graphs.Graph(rollout, learner.device)
         self.epoch = graphs.Graph(
-            lambda: learner._epoch(params, opt, first.outputs[3], perm), learner.device)
+            lambda: learner._epoch(params, opt, first.outputs[3], perm, group=group),
+            learner.device)
         self.capture_stats = graphs.capture(
             [self.rollout, self.epoch], restore=list(params.parameters()), optimizers=[opt])
 
     @staticmethod
-    def key(state, draws) -> tuple:
+    def key(state, draws, group=None) -> tuple:
         """What a program depends on: the storages of the weights and of the
-        optimizer's state, and the shapes of the envs and the draws."""
+        optimizer's state, the shapes of the envs and the draws, and the
+        process group whose collectives it holds (None: none)."""
         return (graphs.storage_key(list(state.params.parameters())
                                    + graphs.optimizer_tensors(state.optimizer)),
-                graphs.signature((state.env_state, state.obs, draws)))
+                graphs.signature((state.env_state, state.obs, draws)), group)
 
     def __call__(self, state, draws):
         """Replay on `state` with `draws`: -> (env_state, obs, stats, rows),

@@ -6,7 +6,8 @@ driving one device.  Every rank runs the whole PPO update (rollout, GAE,
 minibatch SGD) on its own slice of `num_envs / world` envs; the advantage
 moments, the gradients, the loss and aux of each minibatch, and the
 rollout's episode stats are reduced over the group inside
-`PPOLearner.update` (`group=`), so the weights and the optimizer stay
+`PPOLearner.update_jit` (`group=`; CUDA graphs that hold NCCL's
+collectives on the card), so the weights and the optimizer stay
 replicated and the math is large-batch PPO whose k-th minibatch is the
 union of the ranks' k-th local minibatches.  `union_update` replays that in
 one process, and the tests hold `shard_update` against it.
@@ -24,6 +25,7 @@ exact, so a world-1 update equals `PPOLearner.update` bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import socket
 from typing import Callable, Dict, List, Sequence, Tuple
@@ -156,24 +158,44 @@ def rank_generator(parent: torch.Generator, rank: int) -> torch.Generator:
     return seeded(fold_in(draw_seed(parent), rank), parent.device)
 
 
+def captures(group, device) -> bool:
+    """Whether `shard_update` runs the captured update for `group` on
+    `device`: always on the CPU, where the graphs' bodies run directly, and
+    on the card with NCCL, whose collectives a CUDA graph can record.  gloo
+    on the card cannot be recorded, so it takes the eager update: a choice
+    by the backend, not a fallback."""
+    return resolve_device(device).type == "cpu" or dist.get_backend(group) == "nccl"
+
+
+def rank_drawn(update: Callable, rank: int
+               ) -> Callable[[TrainState], Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """`update` (TrainState -> (TrainState, metrics), one process's) with
+    the draws of rank `rank`: it runs from `rank_generator(parent, rank)`,
+    and the returned state keeps the parent generator, advanced by one
+    draw."""
+    def run(state: TrainState):
+        parent = state.generator
+        new_state, metrics = update(
+            dataclasses.replace(state, generator=rank_generator(parent, rank)))
+        return dataclasses.replace(new_state, generator=parent), metrics
+
+    return run
+
+
 def shard_update(group, learner: PPOLearner
                  ) -> Callable[[TrainState], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """The data-parallel PPO update: TrainState -> (TrainState, metrics).
 
-    Each rank draws from `rank_generator(parent, rank)` and rolls out its
-    own envs; the reductions run inside `PPOLearner.update(group=...)`.  The
-    returned state keeps the parent generator, advanced by one draw."""
+    Each rank draws from `rank_generator(parent, rank)` (eagerly, with the
+    one host sync of an update; `rank_drawn`) and rolls out its own envs;
+    the reductions run inside the update.  That update is
+    `PPOLearner.update_jit(..., group=group)`, the collectives recorded into
+    its CUDA graphs with NCCL on the card, as the JAX package jits its
+    `shard_update`; a failed capture raises.  gloo on the card runs
+    `PPOLearner.update(..., group=group)` instead (`captures`)."""
     local = local_learner(learner, dist.get_world_size(group))
-    rank = dist.get_rank(group)
-
-    def update(state: TrainState):
-        parent = state.generator
-        child = rank_generator(parent, rank)
-        new_state, metrics = local.update(dataclasses.replace(state, generator=child),
-                                          group=group)
-        return dataclasses.replace(new_state, generator=parent), metrics
-
-    return update
+    run = local.update_jit if captures(group, local.device) else local.update
+    return rank_drawn(functools.partial(run, group=group), dist.get_rank(group))
 
 
 def union_update(learner: PPOLearner, states: Sequence[TrainState]) -> List[TrainState]:

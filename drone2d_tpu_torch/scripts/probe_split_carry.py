@@ -1,12 +1,15 @@
 """A/B probe on the card: the template-carry against the split-carry hot
 loop; the port's counterpart of `scripts/probe_split_carry.py`.
 
-Times the bench chunk (policy sample + env step + auto-reset) both ways at
-the headline shape (4096 envs x 256-step chunks) and prints ns per env step
-of each and the speedup.  It also asserts that the two loops agree bit for
-bit on the whole (T, n) reward arrays of the first chunk, drawn from one
-seed each way (`torch.equal` on the card's tensors; the whole state is held
-bit-equal in `tests/test_torch_split.py`).
+Times the bench's captured chunk (policy sample + env step + auto-reset, a
+CUDA graph of `bench.GRAPH_STEPS` steps replayed, each chunk's draws eager)
+both ways at the headline shape (4096 envs x 256-step chunks), as the JAX
+probe jits both chunks: `bench.CapturedChunk` with the template carry and
+`bench.CapturedSplitChunk` with the split carry.  Prints ns per env step of
+each and the speedup.  It also asserts that the two captured loops agree
+bit for bit on the whole (T, n) reward arrays of the first chunk, drawn
+from one seed each way (`torch.equal` on the card's tensors; the whole
+state is held bit-equal in `tests/test_torch_split.py`).
 
     python -m drone2d_tpu_torch.scripts.probe_split_carry [--num-envs 4096] \\
         [--chunk 256] [--repeats 8] [--device cpu]
@@ -22,45 +25,27 @@ import time
 
 import torch
 
-from drone2d_tpu_torch.bench import chunk
+from drone2d_tpu_torch.bench import CapturedChunk, CapturedSplitChunk, draw_chunk, graph_steps
 from drone2d_tpu_torch.config import EnvConfig, PPOConfig
-from drone2d_tpu_torch.env.env import ACT_DIM
-from drone2d_tpu_torch.env.types import finalize_split, split_state
 from drone2d_tpu_torch.learn.ppo import PPOLearner
-
-
-@torch.no_grad()
-def chunk_split(params, env, env_state, obs, gen: torch.Generator, chunk_t: int):
-    """The bench chunk through the split-carry step, drawn from `gen` as
-    `bench.chunk` draws: -> (env_state, obs, rewards (T, N))."""
-    n = obs.shape[0]
-    reset_state, reset_obs = env.reset_batch(gen, n, 0.0)
-    noise = torch.randn((chunk_t, n, ACT_DIM), generator=gen, device=obs.device)
-    tmpl_static, tmpl_dyn = split_state(reset_state)
-    init_static, dyn = split_state(env_state)
-    fresh = torch.zeros(n, dtype=torch.bool, device=obs.device)
-    rewards = torch.empty((chunk_t, n), device=obs.device)
-    for t in range(chunk_t):
-        action = torch.clamp(params.sample_action(obs, noise=noise[t])[0], -1.0, 1.0)
-        dyn, fresh, obs, rewards[t], _, _ = env.step_batch_split(
-            dyn, fresh, action, init_static, tmpl_static, tmpl_dyn, reset_obs)
-    return finalize_split(init_static, tmpl_static, fresh, dyn), obs, rewards
 
 
 def run(num_envs: int = 4096, chunk_t: int = 256, repeats: int = 8, device=None) -> dict:
     learner = PPOLearner(EnvConfig(), PPOConfig(), num_envs, device=device)
     state = learner.init(0)
-    dev = learner.device
+    dev, env = learner.device, learner.env
     results, rewards = {}, {}
-    for name, fn in (("template", chunk), ("split", chunk_split)):
+    for name, cls in (("template", CapturedChunk), ("split", CapturedSplitChunk)):
         gen = torch.Generator(device=dev).manual_seed(1)
         env_state, obs = state.env_state, state.obs
-        env_state, obs, rewards[name] = fn(state.params, learner.env, env_state, obs, gen,
-                                           chunk_t)
+        draws = draw_chunk(env, num_envs, gen, chunk_t, dev)
+        chunk = cls(state.params, env, env_state, obs, *draws[:2], graph_steps(chunk_t))
+        env_state, obs, rewards[name] = chunk(env_state, obs, *draws)
         float(rewards[name].sum())  # the first chunk, synchronized
         t0 = time.perf_counter()
         for _ in range(repeats):
-            env_state, obs, r = fn(state.params, learner.env, env_state, obs, gen, chunk_t)
+            env_state, obs, r = chunk(env_state, obs, *draw_chunk(env, num_envs, gen, chunk_t,
+                                                                  dev))
         float(r.sum())
         dt = time.perf_counter() - t0
         results[name] = dt / (repeats * chunk_t * num_envs) * 1e9

@@ -3,17 +3,20 @@ counterpart of `scripts/profile_step.py`.
 
     python -m drone2d_tpu_torch.scripts.profile_step [outdir] [--device cpu]
 
-Writes a Chrome trace (`chrome://tracing`, Perfetto) of a few bench chunks
-(`drone2d_tpu_torch.bench.chunk`, 4096 envs x 64 steps, 3 chunks) through
-`utils.profiling.trace` to `<outdir>/trace.json` (default logs/profile) and
-prints where it went.  Runs on the CUDA card unless `--device cpu`.
+Writes a Chrome trace (`chrome://tracing`, Perfetto) of a few chunks of the
+bench's env line (`drone2d_tpu_torch.bench.CapturedChunk`, a CUDA graph of
+`bench.GRAPH_STEPS` steps replayed, each chunk's draws eager as the bench
+makes them; 4096 envs x 64 steps, 3 chunks) through `utils.profiling.trace`
+to `<outdir>/trace.json` (default logs/profile) and prints where it went.
+The capture and a warm-up chunk come before the trace.  Runs on the CUDA
+card unless `--device cpu`.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from drone2d_tpu_torch.bench import chunk
+from drone2d_tpu_torch.bench import CapturedChunk, draw_chunk, graph_steps
 from drone2d_tpu_torch.config import EnvConfig, PPOConfig
 from drone2d_tpu_torch.learn.ppo import PPOLearner
 from drone2d_tpu_torch.utils.profiling import trace
@@ -23,16 +26,19 @@ NUM_ENVS, T, CHUNKS = 4096, 64, 3
 
 def profile(out: str, num_envs: int = NUM_ENVS, chunk_t: int = T, chunks: int = CHUNKS,
             device=None) -> str:
-    """Trace `chunks` bench chunks after a warm-up chunk; returns the trace's
-    path."""
+    """Trace `chunks` captured bench chunks after the capture and a warm-up
+    chunk; returns the trace's path."""
     learner = PPOLearner(EnvConfig(), PPOConfig(), num_envs, device=device)
     state = learner.init(0)
-    params, env, gen = state.params, learner.env, state.generator
-    env_state, obs, r = chunk(params, env, state.env_state, state.obs, gen, chunk_t)
+    params, env, gen, dev = state.params, learner.env, state.generator, learner.device
+    draws = draw_chunk(env, num_envs, gen, chunk_t, dev)
+    run = CapturedChunk(params, env, state.env_state, state.obs, *draws[:2],
+                        graph_steps(chunk_t))
+    env_state, obs, r = run(state.env_state, state.obs, *draws)
     float(r.sum())
     with trace(out) as path:
         for _ in range(chunks):
-            env_state, obs, r = chunk(params, env, env_state, obs, gen, chunk_t)
+            env_state, obs, r = run(env_state, obs, *draw_chunk(env, num_envs, gen, chunk_t, dev))
         float(r.sum())
     return path
 

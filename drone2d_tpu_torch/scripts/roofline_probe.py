@@ -1,10 +1,13 @@
 """Roofline measurements for the env hot loop on the card: the port's
 counterpart of `scripts/roofline_probe.py`.
 
-Times the bench chunk (`drone2d_tpu_torch.bench.chunk`: the policy sample,
-the env step and the masked auto-reset) across a grid of (num_envs,
-path_table_n) to attribute the cost of an env step to its candidate
-bottlenecks:
+Times the bench's env line chunk across a grid of (num_envs, path_table_n)
+to attribute the cost of an env step to its candidate bottlenecks: the
+captured chunk (`drone2d_tpu_torch.bench.CapturedChunk`: the policy sample,
+the env step and the masked auto-reset as a CUDA graph of `bench.GRAPH_STEPS`
+steps, replayed), each chunk's template and noise drawn eagerly
+(`bench.draw_chunk`), as the bench's env line times it and as the JAX probe
+jits its chunk:
 
 * num_envs scaling separates launch-bound (flat time against batch) from
   throughput-bound (time ~ linear in batch);
@@ -30,7 +33,7 @@ import time
 
 import torch
 
-from drone2d_tpu_torch.bench import chunk
+from drone2d_tpu_torch.bench import CapturedChunk, draw_chunk, graph_steps
 from drone2d_tpu_torch.config import EnvConfig
 from drone2d_tpu_torch.device import resolve_device
 from drone2d_tpu_torch.env.env import ACT_DIM, OBS_DIM, Drone2DEnv
@@ -42,19 +45,23 @@ TABLE_GRID = (128, 256, 512, 1024, 2048)
 
 def measure(num_envs: int, table_n: int, *, chunk_t: int, repeats: int, autoreset: bool = True,
             device=None) -> float:
-    """ns per env step of the bench chunk at this shape: `repeats` chunks
-    after a warm-up chunk, synchronized before each clock read."""
+    """ns per env step of the bench's captured chunk at this shape, its
+    draws included: `repeats` chunks after a warm-up chunk (the capture
+    before it), synchronized before each clock read."""
     dev = resolve_device(device)
     env = Drone2DEnv(EnvConfig(path_table_n=table_n), dev)
     params = ActorCritic(OBS_DIM, ACT_DIM, generator=torch.Generator().manual_seed(0),
                          device=dev)
     env_state, obs = env.reset_batch(torch.Generator(device=dev).manual_seed(1), num_envs, 0.0)
     gen = torch.Generator(device=dev).manual_seed(2)
-    env_state, obs, r = chunk(params, env, env_state, obs, gen, chunk_t, autoreset=autoreset)
+    draws = draw_chunk(env, num_envs, gen, chunk_t, dev)
+    run = CapturedChunk(params, env, env_state, obs, *draws[:2], graph_steps(chunk_t),
+                        autoreset=autoreset)
+    env_state, obs, r = run(env_state, obs, *draws)
     float(r.sum())  # warm-up, synchronized
     t0 = time.perf_counter()
     for _ in range(repeats):
-        env_state, obs, r = chunk(params, env, env_state, obs, gen, chunk_t, autoreset=autoreset)
+        env_state, obs, r = run(env_state, obs, *draw_chunk(env, num_envs, gen, chunk_t, dev))
     float(r.sum())
     dt = time.perf_counter() - t0
     return dt / (repeats * chunk_t * num_envs) * 1e9

@@ -9,7 +9,8 @@ Runs on the CUDA card unless `--device cpu`.  Under torchrun,
 
 it trains one learner over K ranks, one card each (`parallel/mesh.py`:
 each rank rolls out num_envs / K envs, the gradients are averaged over the
-ranks; NCCL on the cards, gloo with `--device cpu`), and rank 0 alone
+ranks; NCCL on the cards, its collectives inside the update's CUDA graphs,
+gloo with `--device cpu`), and rank 0 alone
 writes the metrics, the checkpoints and new_agent.npz.  It maps the
 reference pipeline as the JAX package does:
   PPO("MlpPolicy", ent_coef=0.01)     -> drone2d_tpu_torch.learn.PPOLearner
@@ -46,7 +47,13 @@ from drone2d_tpu_torch.eval.run import load_params
 from drone2d_tpu_torch.learn.plr import family_report, reweight_rehearsal
 from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState
 from drone2d_tpu_torch.models.policy import params_to_flat_dict
-from drone2d_tpu_torch.parallel.mesh import make_group, shard_init, shard_restore, shard_update
+from drone2d_tpu_torch.parallel.mesh import (
+    captures,
+    make_group,
+    shard_init,
+    shard_restore,
+    shard_update,
+)
 from drone2d_tpu_torch.parallel.multihost import host_info, launched
 from drone2d_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from drone2d_tpu_torch.utils.metrics import MetricsWriter
@@ -176,9 +183,17 @@ def train(
             state = shard_init(group, learner, train_cfg.seed, params=params)
         if init_params:
             log(f"warm-started params from {init_params}")
-    # one process: the captured update (CUDA graphs on the card), as the JAX
-    # package's train runs its compiled update
-    update = learner.update_jit if group is None else shard_update(group, learner)
+    # the captured update (CUDA graphs on the card), in one process or over
+    # the ranks, as the JAX package's train runs one compiled update either
+    # way; gloo on the card cannot be captured and runs the eager update
+    if group is None:
+        update = learner.update_jit
+    else:
+        update = shard_update(group, learner)
+        log(f"data-parallel update over {dist.get_world_size(group)} ranks "
+            f"({dist.get_backend(group)} on {learner.device.type}): "
+            + ("captured (update_jit with the group)" if captures(group, learner.device)
+               else "eager (update with the group: gloo on the card cannot be captured)"))
 
     writer = None
     if lead:

@@ -25,7 +25,8 @@ capture recorded.
 
 `GraphCache` holds a few captured programs by key and releases the oldest
 when full, so that many configurations in one process do not pile up
-memory pools.
+memory pools; `ShapeGraph` holds one graph, made anew when the shapes of
+its inputs change (the adapters' steps).
 """
 
 from __future__ import annotations
@@ -188,7 +189,12 @@ def capture(graphs: Sequence[Graph], *, restore: Sequence[torch.Tensor] = (),
     were, so that the capture leaves the caller's state as it found it.
     Raises if a body cannot be captured (a host sync, say).  Graphs that run
     eagerly (on the CPU, or asked to) are not captured: then it does
-    nothing and returns None."""
+    nothing and returns None.
+
+    A body may run NCCL collectives: the warm-up then also makes NCCL's
+    communicator, which it creates lazily at the first collective, and the
+    recording holds the collectives of every body in order, so every rank
+    must capture the same bodies on the same call."""
     if any(g.eager for g in graphs):
         if not all(g.eager for g in graphs):
             raise ValueError("capture() takes graphs that all run eagerly or none")
@@ -250,6 +256,35 @@ def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
     if err != 0:
         raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
     return int(n.value)
+
+
+class ShapeGraph:
+    """One graph over static copies of a tree of inputs, made (on the card:
+    captured) at the first call and anew whenever the tree's shapes change,
+    the old one released first: a step that resets may give new shapes, and
+    that every other call replays.
+
+    `make_body(inputs)` returns the body over the static copies `inputs`;
+    `stepped(inputs)` the tensors of `inputs` that the body changes in
+    place, which the capture's warm-up puts back."""
+
+    def __init__(self, make_body: Callable, stepped: Callable, device: torch.device):
+        self.make_body, self.stepped, self.device = make_body, stepped, torch.device(device)
+        self.shapes = self.graph = self.inputs = None
+
+    def __call__(self, tree):
+        """Copy `tree` into the static inputs (a leaf that already is one is
+        not copied) and run the graph -> (its outputs, the static inputs)."""
+        shapes = signature(tree)
+        if self.graph is None or shapes != self.shapes:
+            self.graph = self.inputs = None  # release the old graph's pool first
+            inputs = clone(tree)
+            graph = Graph(self.make_body(inputs), self.device)
+            capture([graph], restore=[t for t in leaves(self.stepped(inputs)) if t is not None])
+            self.shapes, self.graph, self.inputs = shapes, graph, inputs
+        else:
+            copy_(self.inputs, tree)
+        return self.graph(), self.inputs
 
 
 class GraphCache:

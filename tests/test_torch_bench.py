@@ -1,10 +1,12 @@
 """The port's headline bench (`drone2d_tpu_torch/bench.py`) on the CPU: its
 chunk against the JAX composition that `bench.py` times (`sample_action`,
 the clip to [-1, 1], `step_batch_template`, the rewards summed) with JAX's
-template and noise injected, its CLI's stdout against `bench.py`'s keys, and
-the train line's measurement at a small config.
+template and noise injected, the captured chunks (template and split carry)
+against it and bit-equal to the eager ones, its CLI's stdout against
+`bench.py`'s keys, and the train line's measurement at a small config.
 """
 
+import functools
 import importlib.util
 import json
 import os
@@ -23,6 +25,7 @@ from drone2d_tpu_torch import bench
 from drone2d_tpu_torch.compat.from_jax import env_state_from_numpy, params_from_flat
 from drone2d_tpu_torch.config import EnvConfig
 from drone2d_tpu_torch.env.env import Drone2DEnv
+from drone2d_tpu_torch.utils import graphs
 
 torch.set_num_threads(1)
 
@@ -38,11 +41,12 @@ def _jax_bench():
     return mod
 
 
-def test_chunk_matches_jax_composition():
-    """8 envs x 4 steps of `bench.py`'s chunk (its key splits, template and
-    per-step composition, each piece jitted), from a JAX reset state; the
-    port's chunk with the same state, template and per-step noise: the
-    summed reward within 1e-5 relative."""
+@functools.cache
+def _jax_chunk():
+    """`bench.py`'s chunk of 8 envs x 4 steps (its key splits, template and
+    per-step composition, each piece jitted) from a JAX reset state -> the
+    port's inputs (the weights, the state, obs, template and per-step
+    noise, on the CPU) and JAX's summed reward."""
     env_cfg = JEnvConfig()
     jl = JPPOLearner(env_cfg, JPPOConfig(), N)
     reset = jax.jit(jl.env.reset_batch, static_argnums=1)
@@ -63,15 +67,44 @@ def test_chunk_matches_jax_composition():
         noise.append(np.asarray(jax.random.normal(k_act, (N, 2), jnp.float32)))
         env_state, obs = out.state, out.obs
     want = float(jnp.sum(jnp.stack(rewards)))
+    inputs = (params_from_flat(flat, device="cpu"),
+              env_state_from_numpy(start, device="cpu"), torch.tensor(start_obs),
+              env_state_from_numpy(jax.tree.map(np.asarray, reset_state), device="cpu"),
+              torch.tensor(np.asarray(reset_obs)), torch.tensor(np.stack(noise)))
+    return inputs, want
 
+
+def test_chunk_matches_jax_composition():
+    """8 envs x 4 steps of `bench.py`'s chunk (its key splits, template and
+    per-step composition, each piece jitted), from a JAX reset state; the
+    port's chunk with the same state, template and per-step noise: the
+    summed reward within 1e-5 relative."""
+    (params, state, obs, reset_state, reset_obs, noise), want = _jax_chunk()
     env = Drone2DEnv(EnvConfig(), "cpu")
-    _, _, got = bench.chunk_from(
-        params_from_flat(flat, device="cpu"), env,
-        env_state_from_numpy(start, device="cpu"), torch.tensor(start_obs),
-        env_state_from_numpy(jax.tree.map(np.asarray, reset_state), device="cpu"),
-        torch.tensor(np.asarray(reset_obs)), torch.tensor(np.stack(noise)))
+    _, _, got = bench.chunk_from(params, env, state, obs, reset_state, reset_obs, noise)
     assert got.shape == (T, N)
     assert abs(float(got.sum()) - want) <= 1e-5 * abs(want), (float(got.sum()), want)
+
+
+@pytest.mark.parametrize("cls", [bench.CapturedChunk, bench.CapturedSplitChunk])
+def test_captured_chunks_match_jax_composition(cls):
+    """The captured chunks the bench and the probes time, a 2-step graph
+    replayed twice (its body run directly on the CPU), with the inputs of
+    the test above: bit-equal to the eager chunk (`chunk_from`, and
+    `chunk_split_from` for the split carry), so within 1e-5 of JAX's
+    summed reward."""
+    (params, state, obs, reset_state, reset_obs, noise), want = _jax_chunk()
+    env = Drone2DEnv(EnvConfig(), "cpu")
+    run = cls(params, env, state, obs, reset_state, reset_obs, 2)
+    assert run.graph.eager
+    got = run(state, obs, reset_state, reset_obs, noise)
+    assert abs(float(got[2].sum()) - want) <= 1e-5 * abs(want), (float(got[2].sum()), want)
+    eager = (bench.chunk_from, bench.chunk_split_from)[cls is bench.CapturedSplitChunk]
+    ref = eager(params, env, state, obs, reset_state, reset_obs, noise)
+    for a, b in zip(graphs.leaves(got), graphs.leaves(ref)):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert torch.equal(got[2], bench.chunk_from(params, env, state, obs, reset_state, reset_obs,
+                                                noise)[2])
 
 
 def test_chunk_draws_template_then_noise_from_generator():

@@ -3,7 +3,9 @@
 The cases of tests/test_compat.py run on the port's adapters (`device="cpu"`);
 the vector env's step is held against JAX's `device_step` on identical state,
 templates and actions, and a sequence of steps against JAX's vector env;
-its template refresh is counted.  SB3 zips are built from the shipped
+its template refresh is counted.  Both adapters' steps run their step
+graph's body (called directly on the CPU), one graph across resets, bit
+for bit the eager step.  SB3 zips are built from the shipped
 agent files (`save_sb3_zip`, weights transposed to (out, in)) and imported
 by both packages; the import CLI's `.npz` loads through the JAX package.
 """
@@ -26,6 +28,7 @@ from drone2d_tpu_torch.compat import sb3_import
 from drone2d_tpu_torch.compat.from_jax import env_state_from_numpy, flatten_fields
 from drone2d_tpu_torch.compat.vector_env import VectorEnvCore
 from drone2d_tpu_torch.models.policy import params_to_flat_dict
+from drone2d_tpu_torch.utils import graphs
 from tests.test_torch_env import _assert_obs_close
 
 torch.set_num_threads(1)
@@ -148,6 +151,69 @@ def test_gym_env_step_matches_the_batched_env():
     assert reward == float(out.reward[0]) and done == bool(out.done[0])
     for k, v in out.info.items():
         assert info[k] == v.item(), k
+
+
+def _count_calls(graph):
+    """Count the calls of a graph's body from now on."""
+    calls, body = [], graph.body
+    graph.body = lambda: calls.append(1) or body()
+    return calls
+
+
+def test_gym_steps_run_one_step_graph():
+    """`step`, `step_gymnasium` and the gymnasium wrapper's `step` all run
+    the one step graph (its body called directly on the CPU), which a reset
+    keeps; each step bit-equal to the eager env step of the batch of one
+    with the action clipped, from the same state."""
+    gym = pytest.importorskip("gymnasium")
+    register_gym_envs()
+    wrapped = gym.make("drone2d_tpu_torch/S_corridor-v0", **SMALL)
+    env = wrapped.unwrapped._e
+    wrapped.reset(seed=2)
+    state = env._state
+    actions = [[0.5, -0.25], [0.1, 0.2], [-1.5, 2.0], [0.3, 0.0]]
+    got = [env.step(actions[0])[0]]
+    graph = env._step.graph
+    assert isinstance(graph, graphs.Graph) and graph.eager and graph.graph is None
+    calls = _count_calls(graph)
+    got.append(env.step_gymnasium(actions[1])[0])
+    got.append(wrapped.step(np.asarray(actions[2], np.float32))[0])
+    for a, obs in zip(actions, got):
+        out = env._env.step(state, torch.tensor([a]).clamp(-1.0, 1.0))
+        np.testing.assert_array_equal(obs, out.obs[0].numpy())
+        state = out.state
+    wrapped.reset(seed=3)
+    env.step(actions[3])
+    assert env._step.graph is graph and len(calls) == 3
+
+
+def test_vector_steps_run_one_step_graph(jax_vector):
+    """The core's steps from JAX's state and templates run its step graph
+    (the body called directly on the CPU), made at the first step and kept
+    by a reset and a template refresh: each step bit-equal to the eager
+    `device_step` chain, and within the tolerances of the test below of
+    JAX's vector env."""
+    core = _core_from(jax_vector)
+    state, prev_done = core._state, core._prev_done
+    calls = None
+    for t, (a, want) in enumerate(zip(jax_vector["actions"], jax_vector["outs"])):
+        got = core.step(a)
+        if calls is None:
+            graph = core._step.graph
+            assert isinstance(graph, graphs.Graph) and graph.eager
+            calls = _count_calls(graph)
+        ref = core.device_step(state, prev_done, torch.as_tensor(a), *core._templates)
+        state, prev_done = ref[0], ref[3] | ref[4]
+        np.testing.assert_array_equal(got[0], ref[1].numpy())
+        np.testing.assert_array_equal(got[1], ref[2].numpy())
+        np.testing.assert_array_equal(got[2] | got[3], prev_done.numpy())
+        _assert_obs_close(got[0], want[0])
+        np.testing.assert_allclose(got[1], want[1], rtol=1e-4, atol=3e-3)
+    for g, w in zip(graphs.leaves(core._state), graphs.leaves(state)):
+        assert (g is None and w is None) or torch.equal(g, w)
+    core.reset(seed=1)
+    core.step(jax_vector["actions"][0])
+    assert core._step.graph is graph and len(calls) == len(jax_vector["actions"])
 
 
 def test_gym_registration():

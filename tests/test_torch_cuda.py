@@ -12,7 +12,10 @@ obstacles' geometry and step, the vector env core and the fresh-draw step
 update bit-equal to the plain update, and the split-carry step bit-equal to
 the template step over a chunk.  The headline bench's chunk on the card
 against the CPU, its launch and device-op counts (the profiler's window
-without its lead-in), and the policy-kernel and split-carry probes.  The
+without its lead-in), and the policy-kernel and split-carry probes, the
+probes' captured chunks bit-equal to the eager ones.  The captured
+data-parallel update over a world-1 NCCL group bit-equal to the eager one,
+and the captured vector and gym env steps bit-equal to the eager ones.  The
 compiled programs: `update_jit` bit-equal to `update` over 3 updates (one
 learner in each shuffle, a population of 8), the captured eval runner
 bit-equal to the eager one, launch counts under replay, a capture that
@@ -26,6 +29,7 @@ no JAX, so on a machine with the card and without JAX it runs alone:
 """
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -56,6 +60,28 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _eager_device_step(env):
+    """Have `env` (a VectorEnvCore or a Drone2dGymEnv) run the device part
+    of its steps eagerly, as before it was captured: the core's
+    `device_step`, the gym env's `Drone2DEnv.step`; the rest of `step`
+    stays as it is."""
+    from drone2d_tpu_torch.compat.vector_env import VectorEnvCore
+
+    if isinstance(env, VectorEnvCore):
+        def step(tree):
+            state, prev_done, action, templates = tree
+            new, obs, reward, terminated, truncated, info = env.device_step(
+                state, prev_done, action, *templates)
+            return ((obs, reward, terminated, truncated, prev_done, info),
+                    (new, terminated | truncated, action, templates))
+    else:
+        def step(tree):
+            state, action = tree
+            out = env._env.step(state, action.clamp(-1.0, 1.0))
+            return (out.obs, out.done, out.info), (out.state, action)
+    env._step = step
 
 
 def _scaled_err(got, want):
@@ -403,7 +429,8 @@ def test_mixed_collision_on_card_matches_cpu(dev):
 def test_vector_core_on_card_matches_cpu(dev):
     """The vector env core from CPU-made state and templates, 32 steps of
     CPU-made actions on both devices: the flags exact, obs and reward to
-    1e-4 of scale."""
+    1e-4 of scale; on the card the captured step (a CUDA graph) bit-equal
+    to the same step run eagerly (`_eager_device_step`) in every output."""
     from drone2d_tpu_torch.compat.vector_env import VectorEnvCore
 
     n, cfg = 512, EnvConfig(path_table_n=128)
@@ -413,11 +440,23 @@ def test_vector_core_on_card_matches_cpu(dev):
     tmpl = env.reset_batch(g, n, 3e6)
     actions = torch.randn((32, n, 2), generator=g).clamp(-1, 1).numpy()
     runs = {}
-    for d in ("cpu", dev):
+    for d, captured in (("cpu", True), (dev, False), (dev, True)):
         core = VectorEnvCore(n, global_step=3_000_000, device=d, template_refresh_steps=10**9,
                              path_table_n=128)
+        if not captured:
+            _eager_device_step(core)
         core.start_from(_to(start, d), (_to(tmpl[0], d), tmpl[1].to(d)))
-        runs[str(d)] = [core.step(a) for a in actions]
+        runs[(str(d), captured)] = [core.step(a) for a in actions]
+        if d == dev and captured:
+            assert core._step.graph.graph is not None
+    # the captured step on the card bit-equal to the same step run eagerly
+    for got, want in zip(runs[("cuda", True)], runs[("cuda", False)]):
+        for g, w in zip(got[:4], want[:4]):
+            np.testing.assert_array_equal(g, w)
+        assert set(got[4]) == set(want[4])
+        for k in want[4]:
+            np.testing.assert_array_equal(got[4][k], want[4][k], err_msg=k)
+    runs = {str(d): runs[(str(d), True)] for d in ("cpu", dev)}
     ends = 0
     for got, want in zip(runs[str(dev)], runs["cpu"]):
         np.testing.assert_array_equal(got[2], want[2])
@@ -426,6 +465,39 @@ def test_vector_core_on_card_matches_cpu(dev):
             assert _scaled_err(torch.as_tensor(a), torch.as_tensor(b)) <= 1e-4
         ends += int((want[2] | want[3]).sum())
     assert ends > 0
+
+
+def test_gym_env_captured_step_bit_equal_to_eager(dev):
+    """Drone2dGymEnv on the card, captured (a CUDA graph of the B=1 step)
+    and eager (`_eager_device_step`), from one seed over 40 steps of one action
+    sequence, through `step` and `step_gymnasium` and across a reset (the
+    graph kept): every obs, reward, flag and info value bit-equal."""
+    from drone2d_tpu_torch.compat import make
+
+    actions = np.random.default_rng(0).uniform(-1.2, 1.2, (40, 2)).astype(np.float32)
+    runs = {}
+    for captured in (True, False):
+        env = make("stage_3", seed=4, device=dev, n_steps=16, path_table_n=128)
+        if not captured:
+            _eager_device_step(env)
+        env.reset()
+        out = []
+        for t, a in enumerate(actions):
+            if t % 2:
+                obs, reward, terminated, truncated, info = env.step_gymnasium(a)
+                done = terminated or truncated
+            else:
+                obs, reward, done, info = env.step(a)
+            out.append((obs, reward, done, info))
+            if done:
+                env.reset()
+        runs[captured] = out
+        if captured:
+            assert env._step.graph.graph is not None
+    assert sum(o[2] for o in runs[False]) >= 2  # the 16-step cap ends episodes
+    for got, want in zip(runs[True], runs[False]):
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1:3] == want[1:3] and got[3] == want[3]
 
 
 def test_graft_step_on_card_matches_cpu(dev, monkeypatch):
@@ -493,6 +565,62 @@ def test_world_one_nccl_shard_update_bit_equal_to_plain(dev):
     for sa, sb in zip(got_state.optimizer.state.values(), want_state.optimizer.state.values()):
         assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+def test_world_one_nccl_captured_update_bit_equal_to_eager(dev):
+    """Over a world-1 NCCL group, two `shard_update`s from twin states: the
+    captured update (`update_jit` with the group: NCCL's collectives inside
+    the CUDA graphs) against the eager one (`update(..., group=group)`) and
+    the plain `update_jit`, each with the rank's generators (`rank_drawn`): weights, Adam's state
+    and every metric bit-equal; a replayed update launches the kernel
+    n_steps + 1 times, the capturing one twice that."""
+    import copy
+
+    import torch.distributed as dist
+
+    from drone2d_tpu_torch.parallel import mesh
+
+    group, d = mesh.make_group("cuda:0", backend="nccl")
+    try:
+        learner = PPOLearner(EnvConfig(path_table_n=128),
+                             PPOConfig(n_steps=8, num_minibatches=4, n_epochs=2,
+                                       hidden_sizes=(32, 32)), 64, device=d)
+        state = mesh.shard_init(group, learner, 3)
+        gen = state.generator.get_state()
+
+        def twin():
+            params = copy.deepcopy(state.params)
+            opt = optim.adam(params.parameters(), 3e-4)
+            opt.load_state_dict(state.optimizer.state_dict())
+            g = torch.Generator(device=d)
+            g.set_state(gen)
+            return dataclasses.replace(state, params=params, optimizer=opt, generator=g)
+
+        runs, launches = {}, []
+        for name, fn in (
+                ("captured", mesh.shard_update(group, learner)),
+                ("eager", mesh.rank_drawn(functools.partial(learner.update, group=group), 0)),
+                ("jit", mesh.rank_drawn(learner.update_jit, 0))):
+            s, ms = twin(), []
+            for _ in range(2):
+                before = fused_sample_action.launches
+                s, m = fn(s)
+                ms.append(m)
+                if name == "captured":
+                    launches.append(fused_sample_action.launches - before)
+            runs[name] = (s, ms)
+    finally:
+        dist.destroy_process_group()
+    assert launches == [2 * 9, 9]
+    got_state, got = runs["captured"]
+    for name in ("eager", "jit"):
+        want_state, want = runs[name]
+        for a, b in zip(got_state.params.parameters(), want_state.params.parameters()):
+            assert torch.equal(a, b), name
+        assert all(torch.equal(a, b) for a, b in zip(optim_tensors(got_state.optimizer),
+                                                     optim_tensors(want_state.optimizer)))
+        for m, w in zip(got, want):
+            assert all(torch.equal(m[k], w[k]) for k in w), name
 
 
 def test_split_chunk_on_card_bit_exact(dev):
@@ -732,3 +860,33 @@ def test_fused_policy_probe_and_split_probe_on_card(dev):
     res = bench_fused_policy.run(512, 8, 1)
     assert max(res["scaled_errors"].values()) <= 1e-5 and res["scaled_errors"]["logp"] == 0.0
     assert probe_split_carry.run(256, 8, 1)["first_chunk_reward_equal"]
+
+
+@pytest.mark.parametrize("variant", ["template", "no_autoreset", "split"])
+def test_captured_probe_chunks_bit_equal_to_eager(dev, variant):
+    """The probes' captured chunks on the card (an 8-step graph replayed 4
+    times for a 32-step chunk): `CapturedChunk`, with and without the
+    auto-reset, and `CapturedSplitChunk`, each bit-equal to its eager chunk
+    (`chunk_from`, `chunk_split_from`) in its rewards, obs and state."""
+    from drone2d_tpu_torch import bench
+    from drone2d_tpu_torch.utils import graphs
+
+    n, t = 512, 32
+    env = Drone2DEnv(EnvConfig(path_table_n=128), dev)
+    params = flat_dict_to_params(dict(np.load(AGENT)), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    state, obs = env.reset_batch(gen, n, 3e6)
+    state.t = torch.where(torch.arange(n, device=dev) % 2 == 0, 1090, state.t).to(torch.int32)
+    draws = bench.draw_chunk(env, n, gen, t, dev)
+    cls, eager, kw = {
+        "template": (bench.CapturedChunk, bench.chunk_from, {}),
+        "no_autoreset": (bench.CapturedChunk, bench.chunk_from, {"autoreset": False}),
+        "split": (bench.CapturedSplitChunk, bench.chunk_split_from, {}),
+    }[variant]
+    run = cls(params, env, state, obs, *draws[:2], 8, **kw)
+    assert run.graph.graph is not None
+    got = run(state, obs, *draws)
+    want = eager(params, env, state, obs, *draws, **kw)
+    assert bool(want[2].ne(0).any())
+    for a, b in zip(graphs.leaves(got), graphs.leaves(want)):
+        assert (a is None and b is None) or torch.equal(a, b)

@@ -4,7 +4,10 @@ Ranks are separate processes (`tests/torch_dist_workers.py`, joined by a
 rendezvous file), so every collective really crosses processes:
 - a world-1 `shard_update` is bit-equal to the plain `PPOLearner.update`
   from the same state and draws (the collectives still run: a sum over
-  one rank and a division by 1.0 are exact);
+  one rank and a division by 1.0 are exact); so is `update_jit(...,
+  group=...)`, the captured update `shard_update` runs (its bodies called
+  directly on the CPU), to `update(..., group=...)` and the plain update,
+  and its programs are keyed by the group;
 - 2 and 4 ranks equal `union_update`, the same update replayed in one
   process over the union batch with matched minibatch composition, at the
   JAX package's tolerance (`tests/test_parallel.py`: rtol 2e-5, atol 2e-6);
@@ -12,7 +15,8 @@ rendezvous file), so every collective really crosses processes:
   conftest's virtual CPU mesh, with JAX's per-shard draws injected as
   `tests/test_torch_ppo.py` injects them for one device (its bounds: the
   weights to 1e-3 of the lr x SGD-steps budget, the metrics to 1e-4 of
-  max(|value|, 1), the counts exactly);
+  max(|value|, 1), the counts exactly), eagerly and through `update_jit`,
+  the two bit-equal;
 - `shard_population` over 2 ranks is bit-equal, member by member, to the
   one-process population of each rank's block, and equal to the whole
   one-process population at the tolerance above;
@@ -166,12 +170,13 @@ def jax_two_shards(tmp_path_factory):
 def two_ranks(jax_two_shards):
     """One 2-rank gloo group running every 2-rank job."""
     d, _ = jax_two_shards
-    return run_ranks(2, ("shard", "jax", "population", "train_zoo", "raises"), d)
+    return run_ranks(2, ("shard", "shard_eager", "jax", "jax_jit", "population", "train_zoo",
+                         "raises"), d)
 
 
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
-    return run_ranks(4, ("shard",), str(tmp_path_factory.mktemp("four")))
+    return run_ranks(4, ("shard", "shard_eager"), str(tmp_path_factory.mktemp("four")))
 
 
 # -- the tests ---------------------------------------------------------------
@@ -216,18 +221,117 @@ def test_world_one_shard_update_bit_equal_to_plain(tmp_path):
     assert torch.equal(sharded_state.generator.get_state(), twin.get_state())
 
 
-@pytest.mark.parametrize("world", [2, 4])
-def test_shard_update_matches_union_batch(world, two_ranks, four_ranks):
-    """UPDATES sharded updates over `world` gloo ranks against the union
-    batch replayed in one process: every rank's weights to rtol 2e-5, atol
-    2e-6, and the counters exact."""
-    runs = {2: two_ranks, 4: four_ranks}[world]["shard"]
+def _twin(state, generator_state):
+    """A copy of `state` with weights, Adam and a generator of its own."""
+    params = ActorCritic(27, 2, W.PPO_KW["hidden_sizes"], device="cpu")
+    params.load_state_dict(state.params.state_dict())
+    opt = optim.adam(params.parameters(), 3e-4)
+    opt.load_state_dict(state.optimizer.state_dict())
+    gen = torch.Generator()
+    gen.set_state(generator_state)
+    return dataclasses.replace(state, params=params, optimizer=opt, generator=gen)
+
+
+def _world_one(tmp_path):
+    return mesh.make_group("cpu", backend="gloo",
+                           init_method=f"file://{tmp_path / 'rendezvous'}", world_size=1, rank=0)
+
+
+def test_world_one_update_jit_with_group_bit_equal(tmp_path):
+    """Over a 1-rank gloo group, two updates each way from twin states with
+    twin generators: `update_jit(state, group=...)` (its bodies run
+    directly on the CPU, collectives included) against `update(state,
+    group=...)` and the plain `update`: the weights, Adam's moments, the
+    envs, the counters and every metric bit-equal."""
+    group, _ = _world_one(tmp_path)
+    try:
+        learner = _learner(8)
+        start = learner.init(3)
+        gen = start.generator.get_state()
+        runs = {}
+        for name, fn in (("jit", lambda s: learner.update_jit(s, group=group)),
+                         ("group", lambda s: learner.update(s, group=group)),
+                         ("plain", learner.update)):
+            state, metrics = _twin(start, gen), []
+            for _ in range(2):
+                state, m = fn(state)
+                metrics.append(m)
+            runs[name] = (state, metrics)
+    finally:
+        dist.destroy_process_group()
+    got_state, got = runs["jit"]
+    for name in ("group", "plain"):
+        want_state, want = runs[name]
+        for a, b in zip(got_state.params.parameters(), want_state.params.parameters()):
+            assert torch.equal(a, b), name
+        for sa, sb in zip(got_state.optimizer.state.values(),
+                          want_state.optimizer.state.values()):
+            assert all(torch.equal(sa[k], sb[k]) for k in sa), name
+        for field in ("obs", "global_step", "episodes_total", "family_counts"):
+            assert torch.equal(getattr(got_state, field), getattr(want_state, field)), field
+        for m, w in zip(got, want):
+            assert set(m) == set(w) and all(torch.equal(m[k], w[k]) for k in w), name
+
+
+def test_update_jit_keys_its_program_by_group(tmp_path, monkeypatch):
+    """A program made with a group is never reused without one, nor the
+    reverse: the same state and draws with and without the group make two
+    programs, the one without runs no collective, and each call after that
+    reuses its own."""
+    group, _ = _world_one(tmp_path)
+    reduced = []
+    all_reduce = dist.all_reduce
+    monkeypatch.setattr(dist, "all_reduce",
+                        lambda *a, **k: reduced.append(1) or all_reduce(*a, **k))
+    try:
+        learner = _learner(8)
+        state = learner.init(3)
+        counts = []
+        for g in (group, None, group, None):
+            before = len(reduced)
+            learner.update_jit(state, learner.draws(state), group=g)
+            counts.append(len(reduced) - before)
+        keys = [key[-1] for key in learner._graphs.entries]
+    finally:
+        dist.destroy_process_group()
+    steps = W.PPO_KW["n_epochs"] * W.PPO_KW["num_minibatches"]
+    # the advantage mean and variance and the flat buffer a minibatch, the
+    # episode stats once
+    assert counts == [3 * steps + 1, 0, 3 * steps + 1, 0]
+    assert learner._graphs.captures == 2 and keys == [group, None]
+
+
+def _assert_matches_union(runs, world):
+    """Every rank's weights to rtol 2e-5, atol 2e-6 of the union replay,
+    and the counters exact."""
     want = _union_params(world)
     for r, run in enumerate(runs):
         for k, v in want.items():
             np.testing.assert_allclose(run["params"][k], v, rtol=RTOL, atol=ATOL,
                                        err_msg=f"rank {r} {k}")
         assert run["global_step"] == W.UPDATES * W.GLOBAL_ENVS * W.PPO_KW["n_steps"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_shard_update_matches_union_batch(world, two_ranks, four_ranks):
+    """UPDATES sharded updates over `world` gloo ranks against the union
+    batch replayed in one process: every rank's weights to rtol 2e-5, atol
+    2e-6, and the counters exact."""
+    _assert_matches_union({2: two_ranks, 4: four_ranks}[world]["shard"], world)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_eager_shard_update_matches_union_batch(world, two_ranks, four_ranks):
+    """The same updates through the eager `update(..., group=group)` (the
+    update gloo runs on the card) in the same rank processes: against the
+    union batch as above, and bit-equal to the captured path's weights and
+    metrics on every rank."""
+    runs = {2: two_ranks, 4: four_ranks}[world]
+    _assert_matches_union(runs["shard_eager"], world)
+    for got, want in zip(runs["shard_eager"], runs["shard"]):
+        for k in want["params"]:
+            np.testing.assert_array_equal(got["params"][k], want["params"][k], err_msg=k)
+        assert got["metrics"] == want["metrics"]
 
 
 def test_ranks_stay_replicated(two_ranks):
@@ -244,11 +348,10 @@ def test_ranks_stay_replicated(two_ranks):
     assert not torch.equal(a["obs"], b["obs"])
 
 
-def test_two_ranks_match_jax_two_shards(jax_two_shards, two_ranks):
-    _, want = jax_two_shards
+def _assert_matches_jax(runs, want):
     bound = 1e-3 * 3e-4 * W.PPO_KW["n_epochs"] * W.PPO_KW["num_minibatches"]
     assert want["metrics"]["episodes/episodes"] >= 4
-    for run in two_ranks["jax"]:
+    for run in runs:
         for k, v in want["params"].items():
             err = float(np.abs(run["params"][k].astype(np.float64) - v).max())
             assert err <= bound, (k, err, bound)
@@ -261,6 +364,21 @@ def test_two_ranks_match_jax_two_shards(jax_two_shards, two_ranks):
             assert abs(got[k] - v) <= 1e-4 * max(abs(v), 1.0), k
         assert run["global_step"] == want["global_step"]
         assert run["episodes_total"] == want["episodes_total"]
+
+
+def test_two_ranks_match_jax_two_shards(jax_two_shards, two_ranks):
+    _assert_matches_jax(two_ranks["jax"], jax_two_shards[1])
+
+
+def test_two_ranks_captured_match_jax_two_shards(jax_two_shards, two_ranks):
+    """The 2-rank update through `update_jit(..., group=group)` with JAX's
+    draws injected: within the bounds above of JAX's 2-shard update, and
+    bit-equal on each rank to the eager `update_from(..., group=group)`."""
+    _assert_matches_jax(two_ranks["jax_jit"], jax_two_shards[1])
+    for got, want in zip(two_ranks["jax_jit"], two_ranks["jax"]):
+        for k in want["params"]:
+            np.testing.assert_array_equal(got["params"][k], want["params"][k], err_msg=k)
+        assert got["metrics"] == want["metrics"]
 
 
 def test_shard_population_bit_equal_to_one_process(two_ranks):
@@ -330,7 +448,8 @@ def test_multihost_smoke_script():
 def test_ddp_check_script_under_torchrun():
     """The cross-rank check (`scripts/ddp_check.py`) under torchrun with 2
     gloo ranks on the CPU: each rank within rtol 2e-5, atol 2e-6 of the
-    union replay, the ranks bit-equal, DDP CHECK OK."""
+    union replay, the ranks bit-equal, the captured update bit-equal to the
+    eager one, DDP CHECK OK."""
     argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc_per_node=2", "-m", "drone2d_tpu_torch.scripts.ddp_check", "--device",
             "cpu", "--num-envs", "8", "--ppo-n-steps", "8", "--ppo-num-minibatches", "4",
@@ -344,6 +463,12 @@ def test_ddp_check_script_under_torchrun():
     assert [r["rank"] for r in rows] == [0, 1]
     assert all(r["backend"] == "gloo" and r["replicated"] and r["excess"] <= 1.0
                and r["global_step"] == 64.0 for r in rows)
+    # the captured update (its bodies run directly on the CPU) against the
+    # eager one from a twin state, then timed in turn
+    assert all(r["captured"] and r["eager_equal"] and r["eager_excess"] == 0.0
+               and r["launches"] == r["capture_launches"] == 0
+               and [len(r["seconds"][k]) for k in ("captured", "eager")] == [2, 2]
+               for r in rows)
 
 
 def test_shard_restore_resets_each_rank_slice(two_ranks):

@@ -3,7 +3,7 @@
 `bench_fused_policy`, `profile_step` and `probe_split_carry`, at tiny
 sizes: their reports carry the JAX scripts' keys, the closest-point scan
 agrees with the JAX script's math, the split-carry chunk with the template
-chunk bit for bit.  Also: every new entry point of the port refuses to run
+chunk bit for bit; the three chunk probes time the bench's captured chunks.  Also: every new entry point of the port refuses to run
 without CUDA unless asked for the CPU.
 """
 
@@ -130,6 +130,53 @@ def test_probe_split_carry_bit_equal(capsys):
     assert list(out) == ["num_envs", "chunk", "template_ns", "split_ns", "speedup",
                          "first_chunk_reward_equal"]
     assert json.loads(capsys.readouterr().out.splitlines()[-1]) == out
+
+
+# each probe at a tiny size -> (expected captured chunk classes, chunks each)
+PROBES = {
+    "roofline_probe": (lambda d: roofline_probe.measure(8, 128, chunk_t=4, repeats=1,
+                                                        device="cpu"),
+                       ["CapturedChunk"], 2),
+    "profile_step": (lambda d: profile_step.profile(str(d / "prof"), num_envs=4, chunk_t=4,
+                                                    chunks=1, device="cpu"),
+                     ["CapturedChunk"], 2),
+    "probe_split_carry": (lambda d: probe_split_carry.run(8, 4, repeats=1, device="cpu"),
+                          ["CapturedChunk", "CapturedSplitChunk"], 2),
+}
+
+
+@pytest.mark.parametrize("name", list(PROBES))
+def test_probe_times_the_captured_chunk(name, tmp_path, monkeypatch):
+    """Each probe times what the bench's env line times: the captured chunk
+    (`bench.CapturedChunk`; `CapturedSplitChunk` for the split carry) of
+    `bench.graph_steps(chunk)` steps, built once and called for the warm-up
+    and every timed chunk; on the CPU its graph's body runs directly."""
+    module = getattr(__import__("drone2d_tpu_torch.scripts", fromlist=[name]), name)
+    made = []
+    for cls_name in ("CapturedChunk", "CapturedSplitChunk"):
+        base = getattr(module, cls_name, None)
+        if base is None:
+            continue
+
+        class Spy(base):
+            label = cls_name
+
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.calls = 0
+                made.append((self.label, self))
+
+            def __call__(self, *a):
+                self.calls += 1
+                return super().__call__(*a)
+
+        monkeypatch.setattr(module, cls_name, Spy)
+    run, classes, calls = PROBES[name]
+    run(tmp_path)
+    assert [c for c, _ in made] == classes
+    for _, chunk in made:
+        assert chunk.graph.eager and chunk.steps == bench.graph_steps(4) == 4
+        assert chunk.calls == calls and chunk.graph.outputs is not None
 
 
 # each new entry point with arguments that would otherwise run

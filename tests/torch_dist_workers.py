@@ -8,6 +8,7 @@ Imports no JAX: the inputs the JAX package drew arrive as .npz files.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import sys
@@ -22,7 +23,8 @@ from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState
 from drone2d_tpu_torch.learn.zoo import ZooTrainer, shard_population, train_zoo
 from drone2d_tpu_torch.models.policy import params_to_flat_dict
-from drone2d_tpu_torch.parallel.mesh import make_group, shard_init, shard_restore, shard_update
+from drone2d_tpu_torch.parallel.mesh import (
+    local_learner, make_group, rank_drawn, shard_init, shard_restore, shard_update)
 from drone2d_tpu_torch.utils.checkpoint import save_checkpoint
 
 ENV_KW = dict(path_table_n=128)
@@ -37,8 +39,9 @@ def _learner(num_envs, **kw):
 
 
 def job_shard(group, rank, directory):
-    """UPDATES sharded updates from shard_init(SEED); then rank 0 saves a
-    checkpoint and every rank restores it (`shard_restore`)."""
+    """UPDATES sharded updates from shard_init(SEED) (the captured update,
+    `update_jit` with the group); then rank 0 saves a checkpoint and every
+    rank restores it (`shard_restore`)."""
     learner = _learner(GLOBAL_ENVS)
     state = shard_init(group, learner, SEED)
     update = shard_update(group, learner)
@@ -62,9 +65,26 @@ def job_shard(group, rank, directory):
                               generator=restored.generator.get_state()))
 
 
-def job_jax(group, rank, directory):
+def job_shard_eager(group, rank, directory):
+    """`job_shard`'s updates through the eager update, `update(...,
+    group=group)` with the rank's draws (`rank_drawn`): the update that
+    gloo runs on the card."""
+    learner = _learner(GLOBAL_ENVS)
+    state = shard_init(group, learner, SEED)
+    local = local_learner(learner, dist.get_world_size(group))
+    update = rank_drawn(functools.partial(local.update, group=group), rank)
+    metrics = []
+    for _ in range(UPDATES):
+        state, m = update(state)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return dict(params=params_to_flat_dict(state.params), metrics=metrics,
+                global_step=float(state.global_step))
+
+
+def _jax_update(group, rank, directory, captured: bool):
     """One update of this rank's slice with the JAX package's state and
-    per-shard draws injected (`update_from` with the group)."""
+    per-shard draws injected: `update_from` with the group, or
+    `update_jit(..., group=group)` with the same draws (`captured`)."""
     z = dict(np.load(os.path.join(directory, f"jax_in_{rank}.npz")))
     sub = lambda p: {k[len(p):]: v for k, v in z.items() if k.startswith(p)}  # noqa: E731
     n_loc = z["obs"].shape[0]
@@ -75,13 +95,28 @@ def job_jax(group, rank, directory):
         env_state=env_state_from_numpy(sub("env/"), device="cpu"),
         obs=torch.tensor(z["obs"]), generator=torch.Generator(),
         global_step=torch.tensor(float(z["global_step"])), episodes_total=torch.tensor(0.0))
-    state, metrics = local.update_from(
-        state, env_state_from_numpy(sub("reset/"), device="cpu"), torch.tensor(z["reset_obs"]),
-        torch.tensor(z["noise"]), torch.tensor(z["perms"]), group=group)
+    draws = (env_state_from_numpy(sub("reset/"), device="cpu"), torch.tensor(z["reset_obs"]),
+             torch.tensor(z["noise"]), torch.tensor(z["perms"]))
+    if captured:
+        state, metrics = local.update_jit(state, draws, group=group)
+    else:
+        state, metrics = local.update_from(state, *draws, group=group)
     return dict(params=params_to_flat_dict(state.params),
                 metrics={k: float(v) for k, v in metrics.items()},
                 global_step=float(state.global_step),
                 episodes_total=float(state.episodes_total))
+
+
+def job_jax(group, rank, directory):
+    """One update of this rank's slice with the JAX package's state and
+    per-shard draws injected (`update_from` with the group)."""
+    return _jax_update(group, rank, directory, captured=False)
+
+
+def job_jax_jit(group, rank, directory):
+    """`job_jax` through the captured update, `update_jit(..., group=group)`
+    (its bodies run directly on the CPU, collectives included)."""
+    return _jax_update(group, rank, directory, captured=True)
 
 
 def job_population(group, rank, directory):
