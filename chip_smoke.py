@@ -20,8 +20,8 @@ PLR controller on, then 1 after a resume; agent_s8004's eval campaign on
 stage_2 through `drone2d_tpu_torch.eval.run.evaluate`; the reference's own
 surface: an SB3 zip imported onto the card, the vector env core at 1024
 envs (256 steps through the kernel), the gym env at B=1 (200 steps), the
-graft entry's fresh-draw step (`step_batch`, 256 envs x 128 steps) and the
-initial throw; agent_s8004 on `parallel_boxes` x 1000; and two stacked
+graft entry's fresh-draw step (`graft.GraftStep`: `sample_action` +
+`step_batch` as one graph, 256 envs x 128 steps) and the initial throw; agent_s8004 on `parallel_boxes` x 1000; and two stacked
 campaigns through `eval.episode.run_episodes_multi`: s8004 + s22307 on the
 12 scenarios at 1000 episodes each (through `scripts/precision_campaign`),
 the four imported reference agents on 4 of them at 200.
@@ -47,10 +47,16 @@ survivorship's paired width groups, and the probes at small depth
 The training, population, data-parallel, bench, probe, eval and gym and
 vector env paths run as CUDA graphs (`PPOLearner.update_jit`, the eval
 runner's captured chunks, the bench's captured chunks, the adapters'
-captured steps, each adapter also timed eagerly in turn); the `graphs` phase holds `update_jit` bit-equal to the
-eager `update` over 3 updates in each shuffle and for a population of 8,
-and the captured eval runner bit-equal to the eager one, and times each
-pair in turn.
+captured steps, each adapter also timed eagerly in turn), with their
+draws (reset templates, noise, shuffles) made inside the graphs from the
+generators the graphs are bound to; the `graphs` phase holds `update_jit`
+bit-equal to the eager `update` over 3 updates in each shuffle and for a
+population of 8, the generators' states included, and the captured eval
+runner and a drawn-inside campaign bit-equal to the eager ones, and times
+each pair in turn; the data-parallel, bench, probe and graft paths are
+held bit-equal to their eager draws too, and one replay of each drawn path
+runs with every wait for the card refused
+(`torch.cuda.set_sync_debug_mode("error")`).
 It checks that the paths launched the kernels and that their outputs are
 right (an update, an eval batch and the vector env on the card against the
 same on the CPU, 129 launches an update for one seed or for 8, finite
@@ -102,6 +108,7 @@ from drone2d_tpu_torch.eval import episode as eval_episode
 from drone2d_tpu_torch.eval.episode import run_episodes, run_episodes_from, run_episodes_multi
 from drone2d_tpu_torch.eval.replay import replay_campaign
 from drone2d_tpu_torch.eval.run import evaluate, load_params, scenario_config
+from drone2d_tpu_torch.graft import GraftStep, graft_step
 from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.gae import compute_gae
 from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState, collect_steps
@@ -162,8 +169,10 @@ WARMUPS = 1
 # each shuffle and for the population of ZOO_SEEDS; the two timed in turn,
 # GRAPH_TIMING each; the captured eval runner against the eager one on
 # GRAPH_EVAL_SCENARIO x EVAL_EPISODES with agent_s8004, seed GRAPH_EVAL_SEED
-GRAPH_UPDATES, GRAPH_TIMING = 3, 3
+GRAPH_UPDATES, GRAPH_TIMING = 3, 2
 GRAPH_EVAL_SCENARIO, GRAPH_EVAL_SEED = "stage_2", 8004
+# the campaign draws' check: the eval scenario at a shorter episode cap
+CAMPAIGN_CHECK_STEPS = 256
 # flagship-finetune: 2 updates as published, then PLR_UPDATES with both
 # wall mixes at WALL_MIX and the controller on, then 1 more after a resume.
 # Stage-1 and scheduled episodes of this agent last ~500 steps, so every
@@ -208,6 +217,8 @@ IMPORTED_17 = ROOT / "artifacts" / "imported" / "agent_17_90.npz"
 VEC_ENVS, VEC_STEPS, VEC_REFRESH, VEC_CHECK_STEPS = 1024, 256, 128, 64
 GYM_STEPS = 200
 GRAFT_ENVS, GRAFT_STEPS = 256, 128
+# the graft step's generator seed, and its steps held captured against eager
+GRAFT_SEED, GRAFT_CHECK_STEPS = 12, 32
 # data parallelism at flagship-scratch: a world-1 NCCL group (the global
 # batch of the recipe, 1024 envs), then 2 gloo ranks on the one card
 # (2 x 512 envs; NCCL refuses two ranks on one device) and the population
@@ -823,31 +834,52 @@ def _train_in(d: str, kernel_row: dict):
 
 def _states_equal(a, b) -> dict:
     """Which parts of two learner states are bit-equal: the weights, Adam's
-    whole state (moments and step counts), the envs with obs and counters."""
+    whole state (moments and step counts), the envs with obs and counters,
+    and the generators' states (a population's, one a member)."""
     def same(xs, ys):
         xs, ys = list(xs), list(ys)
         return len(xs) == len(ys) and all(
             (x is None and y is None) or torch.equal(x, y) for x, y in zip(xs, ys))
+
+    def gens(s):
+        return [g.get_state() for g in (s.generators if hasattr(s, "generators")
+                                        else [s.generator])]
 
     return {
         "weights": same(a.params.parameters(), b.params.parameters()),
         "adam": same(graphs.optimizer_tensors(a.optimizer), graphs.optimizer_tensors(b.optimizer)),
         "envs": same(*(graphs.leaves((s.env_state, s.obs, s.global_step, s.episodes_total,
                                       s.family_counts, s.family_wins)) for s in (a, b))),
+        "generators": same(gens(a), gens(b)),
     }
 
 
+@contextlib.contextmanager
+def no_host_sync():
+    """Inside the block any operation that waits for the card raises
+    (`torch.cuda.set_sync_debug_mode("error")`)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 def phase_graphs(cfgs, kernel_row: dict):
-    """The compiled programs: `update_jit` against `update` from twin starts
-    over GRAPH_UPDATES consecutive updates at flagship-scratch (1024 envs x
-    128 steps, 64 x 10 SGD) in each shuffle, and for a population of the 8
-    ZOO_SEEDS: weights, Adam's whole state, metrics, envs and counters
+    """The compiled programs: `update_jit` (its draws made inside its
+    rollout graph) against `update` from twin starts over GRAPH_UPDATES
+    consecutive updates at flagship-scratch (1024 envs x 128 steps, 64 x 10
+    SGD) in each shuffle, and for a population of the 8 ZOO_SEEDS: weights,
+    Adam's whole state, metrics, envs, counters and the generators' states
     bit-equal after each update, 2 (n_steps + 1) launches for the capturing
     call and n_steps + 1 for each later one; the programs' nodes, capture
     and instantiation seconds and pool bytes; the two updates timed in turn
     (GRAPH_TIMING each), the rollout and SGD graphs replayed alone, the host
-    launches and device ops of an update each way under the profiler; the
-    captured eval runner against the eager one (agent_s8004 on
+    launches and device ops of an update each way under the profiler, one
+    more update replayed with every wait for the card refused
+    (`no_host_sync`); the captured eval runner against the eager one (agent_s8004 on
     GRAPH_EVAL_SCENARIO x EVAL_EPISODES, stochastic and deterministic):
     every field of the results equal, and an eval step's time each way.
     The path's launches are those of the captured calls: the eager
@@ -942,6 +974,10 @@ def phase_graphs(cfgs, kernel_row: dict):
         f"{sgd_steps} SGD), {len(host)} host launches "
         f"({len(host) / steps_an_update:.2f} a step), device busy "
         f"{100 * dev_us / wall_us:.1f}% of {wall_us / 1e3:.1f} ms")
+    with no_host_sync():
+        a, m = learner.update_jit(a)
+    log(f"  update_jit replayed under set_sync_debug_mode('error'): no wait for the card; "
+        f"loss {float(m['loss']):.6f}")
     epoch = PPOLearner(env_cfg, ppo_cfg.replace(n_epochs=1), N)
     b, batch, last_values, _ = reference(epoch.rollout, b)
     adv, ret = compute_gae(batch.rewards, batch.values, batch.dones, last_values,
@@ -987,6 +1023,25 @@ def phase_graphs(cfgs, kernel_row: dict):
         if not all(equal.values()):
             raise AssertionError(f"graphs: captured eval runner differs from the eager one: "
                                  f"{equal}")
+    # a campaign's draws inside their graph (`run_episodes`, the kept env's
+    # generator re-seeded each call) against the eager draws of a fresh
+    # generator flown by the eager runner, at two seeds
+    short = cfg.replace(n_steps=CAMPAIGN_CHECK_STEPS)
+    same = []
+    for seed in (GRAPH_EVAL_SEED, GRAPH_EVAL_SEED + 1):
+        got = eval_episode.run_episodes(short, params, seed, EVAL_EPISODES)
+        env_e = Drone2DEnv(short)
+        want = reference(run_episodes_from, env_e, params, *eval_episode._episode_draws(
+            env_e, torch.Generator(device="cuda").manual_seed(seed), EVAL_EPISODES, 0.0,
+            "stochastic"), captured=False)
+        same.append(all(np.array_equal(g, w) for g, w in zip(got, want)))
+    kept = eval_episode._campaign_env(short, None)
+    log(f"  run_episodes ({GRAPH_EVAL_SCENARIO} x {EVAL_EPISODES} at a {CAMPAIGN_CHECK_STEPS}-step "
+        f"cap, the reset batch and noise drawn inside the kept env's draw graph) vs the eager "
+        f"draws and runner, two seeds: equal in every field {same}; draw graphs made "
+        f"{kept.draws.captures}")
+    if not all(same) or kept.draws.captures != 1:
+        raise AssertionError(f"graphs: run_episodes' drawn-inside campaign differs: {same}")
     torch.cuda.synchronize()
     launches = fused_sample_action.launches - others[0]
     log(f"graphs: kernel launches {launches} (and {others[0]} of the eager references); card "
@@ -1753,10 +1808,13 @@ def phase_compat(kernel_row: dict):
     VEC_CHECK_STEPS steps of the core on the card against the CPU from
     CPU-made state, templates and actions.  (3) Drone2dGymEnv at B=1,
     GYM_STEPS steps of agent_17_90 through the kernel, captured and eager
-    in turn as the vector env.  (4) The graft entry's step: `sample_action` + `step_batch` at
-    GRAFT_ENVS envs for GRAFT_STEPS steps, every ended env restarting at
-    t = 0 on a fresh path of its own; ms a step against
-    `step_batch_template`.  (5) The initial throw: the reset at NUM_ENVS
+    in turn as the vector env.  (4) The graft entry's step as one graph
+    (`graft.GraftStep`: `sample_action` + `step_batch`, the noise and a
+    whole reset batch drawn inside it) at GRAFT_ENVS envs for GRAFT_STEPS
+    steps, every ended env restarting at t = 0 on a fresh path of its own;
+    then GRAFT_CHECK_STEPS steps bit-equal to the eager step from a twin
+    generator, one replay with every wait for the card refused, and ms a
+    step captured, eager and of `step_batch_template`, in turn.  (5) The initial throw: the reset at NUM_ENVS
     envs on the card, and `_initial_motion` on the card against the CPU
     from the same body and draws."""
     dev = torch.device("cuda")
@@ -1912,42 +1970,70 @@ def phase_compat(kernel_row: dict):
         raise AssertionError(f"gym env: {gym_launches} launches, captured and eager runs "
                              f"equal {gym_same}")
 
-    # (4) the graft entry's step: the fresh draw per reset, at its shapes
-    # (a fresh 128-128 actor-critic, curriculum stage 1), whose random
-    # thrusts end episodes within tens of steps
-    env, graft = Drone2DEnv(EnvConfig()), graft_agent(dev)
-    state, obs = env.reset_batch(gen, GRAFT_ENVS, 0.0)
+    # (4) the graft entry's step as one graph (`graft.GraftStep`: the noise
+    # and a whole reset batch drawn inside it each step, the fresh draw per
+    # reset), at its shapes (a fresh 128-128 actor-critic, curriculum stage
+    # 1), whose random thrusts end episodes within tens of steps
+    env, graft_params = Drone2DEnv(EnvConfig()), graft_agent(dev)
+    start = env.reset_batch(gen, GRAFT_ENVS, 0.0)
     fused_sample_action.launches = 0
+    step = GraftStep(graft_params, env, torch.Generator(device=dev).manual_seed(GRAFT_SEED))
+    state, obs = start
     restarted = 0
     for _ in range(GRAFT_STEPS):
-        with torch.no_grad():
-            a = graft.sample_action(obs, gen)[0].clamp(-1, 1)
-        first = state.path.wps[:, 0]
-        out = env.step_batch(state, a, gen, 0.0)
-        done = out.done
+        first = state.path.wps[:, 0].clone()  # the step writes its static state in place
+        state, obs, _, done, _ = step(state, obs)
         if bool(done.any()):
-            new = out.state.path.wps[done, 0]
-            if (bool((out.state.t[done] != 0).any()) or bool((new == first[done]).all(1).any())
+            new = state.path.wps[done, 0]
+            if (bool((state.t[done] != 0).any()) or bool((new == first[done]).all(1).any())
                     or len(torch.unique(new, dim=0)) != int(done.sum())):
                 raise AssertionError("graft step: an ended env did not restart on a fresh path")
             restarted += int(done.sum())
-        state, obs = out.state, out.obs
     graft_launches = fused_sample_action.launches
+    # the captured step against the eager one from twin generators, step by
+    # step, then one replay with every wait for the card refused
+    g1 = torch.Generator(device=dev).manual_seed(GRAFT_SEED + 1)
+    g2 = torch.Generator(device=dev).manual_seed(GRAFT_SEED + 1)
+    captured_step = GraftStep(graft_params, env, g1)
+    a = b = start
+    graft_same = True
+    for _ in range(GRAFT_CHECK_STEPS):
+        got = captured_step(*a)
+        want = graft_step(graft_params, env, *b, g2, 0.0)
+        graft_same &= all((x is None and y is None) or torch.equal(x, y)
+                          for x, y in zip(graphs.leaves(got), graphs.leaves(want)))
+        a, b = got[:2], want[:2]
+    graft_same = bool(graft_same and torch.equal(g1.get_state(), g2.get_state()))
+    with no_host_sync():
+        captured_step(*a)
+    events, host, _, _ = launch_window(lambda: captured_step(*a))
+    state, obs = b
     tmpl = env.reset_batch(gen, GRAFT_ENVS, 0.0)
-    times = {"step_batch": [], "step_batch_template": []}
-    for _ in range(11):  # in turn, so that the host's drift falls on both
-        times["step_batch"].append(_synced(lambda: env.step_batch(state, a, gen, 0.0)))
+    a_clip = graft_params.sample_action(obs, gen)[0].clamp(-1, 1)
+    times = {"captured": [], "step_batch": [], "step_batch_template": []}
+    for _ in range(11):  # in turn, so that the host's drift falls on all three
+        times["captured"].append(_synced(lambda: captured_step(state, obs)))
+        times["step_batch"].append(_synced(lambda: graft_step(graft_params, env, state, obs, g2,
+                                                              0.0)))
         times["step_batch_template"].append(
-            _synced(lambda: env.step_batch_template(state, a, *tmpl)))
+            _synced(lambda: env.step_batch_template(state, a_clip, *tmpl)))
     ms = {k: statistics.median(v[1:]) for k, v in times.items()}
-    log(f"graft step: sample_action + step_batch at {GRAFT_ENVS} envs (a fresh 128-128, "
-        f"stage 1) x "
+    log(f"graft step (graft.GraftStep: sample_action + step_batch as one graph, the noise and a "
+        f"whole reset batch drawn inside it) at {GRAFT_ENVS} envs (a fresh 128-128, stage 1) x "
         f"{GRAFT_STEPS} steps: {restarted} ended envs, each restarted at t = 0 on a fresh path "
-        f"of its own; kernel launches {graft_launches}; ms a step (host clock, synchronized, "
-        f"median of 10): step_batch {ms['step_batch']:.3f}, step_batch_template "
-        f"{ms['step_batch_template']:.3f} ({ms['step_batch'] / ms['step_batch_template']:.1f}x)")
-    if graft_launches != GRAFT_STEPS or restarted == 0:
-        raise AssertionError(f"graft step: {graft_launches} launches, {restarted} restarts")
+        f"of its own; kernel launches {graft_launches} (the capture's warm-up step included)")
+    log(f"  the captured step vs the eager sample_action + step_batch from a twin generator, "
+        f"{GRAFT_CHECK_STEPS} steps: bit-equal (state, obs, reward, done, value, generator) "
+        f"{graft_same}; a replay under set_sync_debug_mode('error'): no wait for the card; "
+        f"a replay under the profiler: {len(host)} host launches, {len(events)} device ops; "
+        f"ms a step (host clock, synchronized, median of 10, in turn): captured "
+        f"{ms['captured']:.3f}, eager sample_action + step_batch {ms['step_batch']:.3f} "
+        f"({ms['step_batch'] / ms['captured']:.2f}x the captured), step_batch_template "
+        f"{ms['step_batch_template']:.3f} (step_batch "
+        f"{ms['step_batch'] / ms['step_batch_template']:.1f}x it)")
+    if graft_launches != GRAFT_STEPS + WARMUPS or restarted == 0 or not graft_same:
+        raise AssertionError(f"graft step: {graft_launches} launches, {restarted} restarts, "
+                             f"captured equal to eager {graft_same}")
 
     # (5) the initial throw
     throw_cfg = EnvConfig(initial_motion_enabled=True)
@@ -2014,9 +2100,10 @@ def phase_ddp(kernel_row: dict):
     each from twin states, taken in turn: the captured `shard_update` (the
     main path: `update_jit` with the group, NCCL's collectives inside the
     CUDA graphs), the eager `PPOLearner.update(..., group=group)`, and the
-    plain `PPOLearner.update` and `update_jit`, the three with the rank's
-    generators (`mesh.rank_drawn`); the
-    weights, Adam's state and every metric bit-equal to all three, n_steps
+    plain `PPOLearner.update` and `update_jit`, each drawing from a twin of
+    the rank's own generator (`mesh.rank_generator`), the captured one
+    inside its rollout graph; the weights, Adam's state, every metric and
+    the generator's state after bit-equal to all three, n_steps
     + 1 launches a replayed update (twice that for the capturing one), the
     four updates' seconds in turn; and the collectives' share of an eager
     SGD step (an epoch's SGD with and without the group, in turn, and the
@@ -2031,11 +2118,11 @@ def phase_ddp(kernel_row: dict):
         state = mesh.shard_init(group, learner, DDP_SEED)
         gen = state.generator.get_state()
 
-        # the references, each with the rank's draws (`mesh.rank_drawn`)
+        # the references, each from a twin of the rank's generator
         paths = {"captured": mesh.shard_update(group, learner),
-                 "eager": mesh.rank_drawn(functools.partial(learner.update, group=group), 0),
-                 "update": mesh.rank_drawn(learner.update, 0),
-                 "update_jit": mesh.rank_drawn(learner.update_jit, 0)}
+                 "eager": functools.partial(learner.update, group=group),
+                 "update": learner.update,
+                 "update_jit": learner.update_jit}
         states = {k: _copy_state(state, torch.Generator(device=dev).set_state(gen))
                   for k in paths}
         metrics = {k: [] for k in paths}
@@ -2067,6 +2154,8 @@ def phase_ddp(kernel_row: dict):
                     graphs.optimizer_tensors(want.optimizer))),
                 "metrics": all(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in b)
                                for a, b in zip(metrics["captured"], metrics[ref])),
+                "generator": torch.equal(got.generator.get_state(),
+                                         want.generator.get_state()),
             }
         sharded = metrics["captured"][-1]
         log(f"  {DDP_UPDATES} updates each from twin states, the captured shard_update "
@@ -2087,6 +2176,11 @@ def phase_ddp(kernel_row: dict):
             f"{k} {steps / v[-1]:.1f}" for k, v in secs.items())
             + f"; captured / eager {secs['eager'][-1] / secs['captured'][-1]:.2f}x; card "
             f"{card_line()}")
+        # one more captured update under the profiler (not the path's count)
+        events, host, _, _ = launch_window(
+            lambda: float(paths["captured"](states["captured"])[1]["loss"]))
+        log(f"  profiler, one more captured shard_update: {len(host)} host launches, "
+            f"{len(events)} device ops")
         sharded_state = got
         # an SGD epoch with and without the group, in turn, on one batch
         epoch = PPOLearner(env_cfg, ppo_cfg.replace(n_epochs=1), train_cfg.num_envs, device=dev)
@@ -2200,8 +2294,7 @@ def phase_ddp2(kernel_row: dict):
     learner = PPOLearner(env_cfg, ppo_cfg, DDP_ENVS)
     local = mesh.local_learner(learner, 2)
     states = [mesh.rank_state(local, DDP_SEED, r) for r in range(2)]
-    shared = dict(params=states[0].params, optimizer=states[0].optimizer,
-                  generator=states[0].generator)
+    shared = dict(params=states[0].params, optimizer=states[0].optimizer)
     states = mesh.union_update(learner, [dataclasses.replace(s, **shared) for s in states])
     want = params_to_flat_dict(states[0].params)
 
@@ -2391,7 +2484,9 @@ def phase_bench(kernel_row: dict):
     update under the profiler) and 256 a chunk run (the warm-up and the
     timed repeats), plus the capture's GRAPH_STEPS warm-up steps, the
     OPS_STEPS eager profiled steps and one replay's GRAPH_STEPS under the
-    profiler."""
+    profiler.  Then the env line's chunk, drawn inside its draw
+    graph, against the eager chunk (`drawn_chunks_check`, one chunk each at
+    its shape), not counted."""
     out, err = io.StringIO(), io.StringIO()
     fused_sample_action.launches = 0
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
@@ -2429,8 +2524,59 @@ def phase_bench(kernel_row: dict):
     log(f"bench: train line {rows[0]['value']} steps/s, env line {rows[1]['value']} steps/s "
         f"(vs_baseline: against BASELINE.json's TPU v5e target); kernel launches "
         f"{train['launches_all']} (train) + {env['launches_all']} (env); card {card_line()}")
+    # the env line's chunk against the eager one (launches not the path's)
+    drawn_chunks_check("bench chunk", bench.NUM_ENVS, bench.CHUNK_T, chunks=1, profile=False)
     kernel_row["launches_by_path"]["bench_train"] = train["launches_all"]
     kernel_row["launches_by_path"]["bench_env"] = env["launches_all"]
+
+
+def drawn_chunks_check(label: str, num_envs: int, chunk_t: int, chunks: int = 2,
+                       profile: bool = True) -> dict:
+    """The bench's chunks with their template and noise drawn by their draw
+    graph (`bench.CapturedChunk`, `CapturedSplitChunk` given a generator)
+    against the eager chunks from a twin generator (`bench.chunk`; the split
+    chunk's `chunk_split_from` over `draw_chunk`), `chunks` chunks each at
+    `num_envs` envs: rewards, obs, envs and the generators' states bit-equal;
+    one more drawn chunk replayed with every wait for the card refused, and
+    (`profile`) its host launches and device ops under the profiler.
+    Raises unless all are equal."""
+    dev = torch.device("cuda")
+    env = Drone2DEnv(EnvConfig(), dev)
+    params = ActorCritic(27, 2, generator=torch.Generator().manual_seed(0), device=dev)
+    state, obs = env.reset_batch(torch.Generator(device=dev).manual_seed(1), num_envs, 0.0)
+    equal = {}
+    for cls, eager in ((bench.CapturedChunk, bench.chunk),
+                       (bench.CapturedSplitChunk,
+                        lambda p, e, s, o, g, t: bench.chunk_split_from(
+                            p, e, s, o, *bench.draw_chunk(e, o.shape[0], g, t, dev)))):
+        g1 = torch.Generator(device=dev).manual_seed(2)
+        g2 = torch.Generator(device=dev).manual_seed(2)
+        run = cls(params, env, state, obs, steps=bench.graph_steps(chunk_t), gen=g1,
+                  chunk_t=chunk_t)
+        a = b = (state, obs)
+        same = True
+        for _ in range(chunks):
+            got = run(*a)
+            want = eager(params, env, *b, g2, chunk_t)
+            same &= all((x is None and y is None) or torch.equal(x, y)
+                        for x, y in zip(graphs.leaves(got), graphs.leaves(want)))
+            a, b = got[:2], want[:2]
+        equal[cls.__name__] = bool(same and torch.equal(g1.get_state(), g2.get_state()))
+    with no_host_sync():
+        run(*a)
+    note = ""
+    if profile:
+        events, host, _, _ = launch_window(lambda: run(*a))
+        note = (f"; a drawn chunk under the profiler: {len(host)} host launches, "
+                f"{len(events)} device ops ({len(host) / chunk_t:.3f} and "
+                f"{len(events) / chunk_t:.1f} a step)")
+    log(f"  {label}: the chunk drawn inside its graph vs the eager chunk from a twin generator, "
+        f"{chunks} chunks of {num_envs} envs x {chunk_t} steps, bit-equal (rewards, obs, envs, "
+        f"generator) {equal}; a drawn chunk replayed under set_sync_debug_mode('error'): no "
+        f"wait for the card" + note)
+    if not all(equal.values()):
+        raise AssertionError(f"{label}: drawn chunks differ from the eager ones: {equal}")
+    return equal
 
 
 def phase_package(kernel_row: dict):
@@ -2615,7 +2761,8 @@ def phase_probes(kernel_row: dict):
     `probe_split_carry` (rewards bit-equal).  The chunk probes time the
     bench's captured chunks (`bench.CapturedChunk`, `CapturedSplitChunk`);
     `roofline_probe`'s at 4096 envs is timed against the eager chunk, in
-    turn, after the probes' launches are read."""
+    turn, after the probes' launches are read, and the drawn-inside chunks
+    are held bit-equal to the eager ones (`drawn_chunks_check`)."""
     torch.cuda.synchronize()
     fused_sample_action.launches = 0
     t0 = time.perf_counter()
@@ -2649,8 +2796,9 @@ def phase_probes(kernel_row: dict):
     torch.cuda.synchronize()
     launches = fused_sample_action.launches
 
+    drawn_chunks_check("probes' chunk", NUM_ENVS, PROBE_CHUNK)
     # the captured chunk the probes time against the eager chunk they timed
-    # before this slice, at 4096 envs and table 512, in turn
+    # before the graphs, at 4096 envs and table 512, in turn
     def eager_ns():
         env = Drone2DEnv(EnvConfig(), "cuda")
         params = ActorCritic(27, 2, generator=torch.Generator().manual_seed(0), device="cuda")

@@ -7,8 +7,9 @@ The env line times the training-relevant hot loop at 4096 envs: per
 256-step chunk one reset template (`reset_batch`), then each step the policy
 sample (`sample_action`, the fused kernel on the card), the clip to [-1, 1]
 and the auto-resetting `step_batch_template`, the rewards summed.  The
-steps run as a captured chunk (`CapturedChunk`: a CUDA graph of GRAPH_STEPS
-steps replayed 8 times a chunk), as `bench.py` jits its chunk.  `--train`
+chunk runs captured (`CapturedChunk`: a CUDA graph of the template and
+noise draws, then one of GRAPH_STEPS steps replayed 8 times a chunk), as
+`bench.py` jits its chunk, draws included.  `--train`
 instead times the full quality-recipe PPO update (`PPOLearner.update_jit`:
 rollout + GAE + 10 epochs x 64 minibatches of SGD at 1024 envs x 128
 steps, as CUDA graphs), as `train.py` runs it; `--all` prints both, the
@@ -84,8 +85,9 @@ def chunk_from(params, env, env_state, obs, reset_state, reset_obs, noise, *,
 
 def draw_chunk(env, n: int, gen: torch.Generator, chunk_t: int, device):
     """A bench chunk's draws from `gen`: the reset template at global step
-    0, then the (chunk_t, n, 2) noise."""
-    reset_state, reset_obs = env.reset_batch(gen, n, 0.0)
+    0 (a zero made on the device, so that a graph can draw it), then the
+    (chunk_t, n, 2) noise."""
+    reset_state, reset_obs = env.reset_batch(gen, n, torch.zeros((), device=device))
     noise = torch.randn((chunk_t, n, ACT_DIM), generator=gen, device=device)
     return reset_state, reset_obs, noise
 
@@ -107,27 +109,57 @@ class CapturedChunk:
     envs and obs carried from replay to replay, the template, `steps` steps
     of noise), replayed T / steps times for a T-step chunk: the kernels of
     `chunk_from`, so the same results.  `autoreset` goes to `chunk_from`.
-    On the CPU the graph's body runs directly (`utils/graphs.py`).
+    On the CPU the graphs' bodies run directly (`utils/graphs.py`).
+
+    Given `gen` and `chunk_t`, a second graph draws a `chunk_t`-step chunk's
+    template and noise from `gen` (`draw_chunk`, the graph bound to `gen`)
+    into the static buffers, and a call without draws replays it first:
+    `chunk(params, env, env_state, obs, gen, chunk_t)` from the same
+    generator state, bit for bit.  A call with draws takes them instead.
+    Without `gen`, `reset_state` and `reset_obs` give the template's
+    shapes; with it, a draw from a copy of `gen` does.
 
     A subclass records another step by its three hooks: `enter` (a chunk's
     start -> the carry and the template it reads), `run` (the steps over
     them) and `leave` (the carry and template -> (env_state, obs))."""
 
-    def __init__(self, params, env, env_state, obs, reset_state, reset_obs, steps: int, **kw):
-        self.steps = steps
+    def __init__(self, params, env, env_state, obs, reset_state=None, reset_obs=None,
+                 steps: int = GRAPH_STEPS, *, gen: torch.Generator | None = None,
+                 chunk_t: int | None = None, **kw):
+        self.steps, dev, n = steps, obs.device, obs.shape[0]
+        if gen is not None:
+            if chunk_t is None or chunk_t % steps:
+                raise ValueError(f"chunk_t={chunk_t} is no multiple of the graph's {steps} steps")
+            twin = torch.Generator(device=gen.device)
+            twin.set_state(gen.get_state())
+            reset_state, reset_obs = draw_chunk(env, n, twin, 1, dev)[:2]
         carry, template = self.enter(env_state, obs, reset_state, reset_obs)
         self.carry = carry = graphs.clone(carry)
         self.template = template = graphs.clone(template)
-        self.noise = noise = torch.zeros((steps, obs.shape[0], ACT_DIM), device=obs.device)
-        run = self.run
+        self.noise = noise = torch.zeros((steps, n, ACT_DIM), device=dev)
+        run, enter = self.run, self.enter
 
         def body():
             new, rewards = run(params, env, carry, template, noise, **kw)
             graphs.copy_(carry, new)
             return rewards
 
-        self.graph = graphs.Graph(body, obs.device)
-        graphs.capture([self.graph])  # every call copies its start into the carry
+        self.graph = graphs.Graph(body, dev)
+        self.draw = None
+        if gen is not None:
+            # a chunk's start, and all its noise, which each step replay
+            # reads `steps` steps of
+            self.start = start = graphs.clone((env_state, obs))
+            self.drawn = drawn = torch.zeros((chunk_t, n, ACT_DIM), device=dev)
+
+            def draw():
+                reset_state, reset_obs, noise = draw_chunk(env, n, gen, chunk_t, dev)
+                graphs.copy_((carry, template), enter(*start, reset_state, reset_obs))
+                drawn.copy_(noise)
+
+            self.draw = graphs.Graph(draw, dev, generators=[gen])
+        # every call copies its start into the carry
+        graphs.capture([self.graph] if self.draw is None else [self.draw, self.graph])
 
     @staticmethod
     def enter(env_state, obs, reset_state, reset_obs):
@@ -142,15 +174,23 @@ class CapturedChunk:
     def leave(carry, template):
         return carry
 
-    def __call__(self, env_state, obs, reset_state, reset_obs, noise):
+    def __call__(self, env_state, obs, reset_state=None, reset_obs=None, noise=None):
         """The chunk from (env_state, obs) with its template and (T, N, 2)
-        noise -> (env_state, obs, rewards (T, N)), the caller's copies."""
+        noise, or with no draws given the chunk drawn from the generator
+        (the draw graph) -> (env_state, obs, rewards (T, N)), the caller's
+        copies."""
+        if noise is None:
+            if self.draw is None:
+                raise ValueError("a chunk made without a generator takes its draws")
+            graphs.copy_(self.start, (env_state, obs))
+            self.draw()
+            noise = self.drawn
+        else:
+            carry, template = self.enter(env_state, obs, reset_state, reset_obs)
+            graphs.copy_((self.carry, self.template), (carry, template))
         T = noise.shape[0]
         if T % self.steps:
             raise ValueError(f"a chunk of {T} steps is no multiple of the graph's {self.steps}")
-        carry, template = self.enter(env_state, obs, reset_state, reset_obs)
-        graphs.copy_(self.carry, carry)
-        graphs.copy_(self.template, template)
         rewards = torch.empty(noise.shape[:2], device=obs.device)
         for i in range(0, T, self.steps):
             self.noise.copy_(noise[i:i + self.steps])
@@ -240,7 +280,8 @@ def _host_note(measured, unit: str) -> str:
 def time_env(num_envs: int = NUM_ENVS, chunk_t: int = CHUNK_T, repeats: int = REPEATS,
              device=None) -> dict:
     """The env line's measurement: seconds of each of `repeats` captured
-    chunks (`CapturedChunk`) after a warm-up chunk, synchronized; the kernel
+    chunks (`CapturedChunk`, its draws made in its draw graph from the
+    state's generator) after a warm-up chunk, synchronized; the kernel
     launches in them, in the capture's warm-up (`warmup_launches`) and in
     the whole measurement (`launches_all`); the summed reward of the last
     chunk; the device ops a step of the eager chunk over OPS_STEPS steps,
@@ -252,17 +293,17 @@ def time_env(num_envs: int = NUM_ENVS, chunk_t: int = CHUNK_T, repeats: int = RE
     state = learner.init(0)
     params, env, gen = state.params, learner.env, state.generator
     env_state, obs = state.env_state, state.obs
-    draws = draw_chunk(env, num_envs, gen, chunk_t, dev)
     before = fused_sample_action.launches
-    run = CapturedChunk(params, env, env_state, obs, *draws[:2], graph_steps(chunk_t))
+    run = CapturedChunk(params, env, env_state, obs, steps=graph_steps(chunk_t), gen=gen,
+                        chunk_t=chunk_t)
     warmup_launches = fused_sample_action.launches - before
-    env_state, obs, r = run(env_state, obs, *draws)  # warm-up
+    env_state, obs, r = run(env_state, obs)  # warm-up
     float(r.sum())
     seconds, before = [], fused_sample_action.launches
     for _ in range(repeats):
         synchronize(dev)
         t0 = time.perf_counter()
-        env_state, obs, r = run(env_state, obs, *draw_chunk(env, num_envs, gen, chunk_t, dev))
+        env_state, obs, r = run(env_state, obs)
         total = float(r.sum())  # the summed reward, on the host: synchronizes
         seconds.append(time.perf_counter() - t0)
     launches = fused_sample_action.launches - before

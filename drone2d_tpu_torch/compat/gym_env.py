@@ -15,8 +15,10 @@ The device step (`Drone2DEnv.step` of the batch of one) runs as a CUDA
 graph over a static state and action, as the JAX adapter jits it, behind
 `step`, `step_gymnasium` and the gymnasium wrapper alike; made at the first
 step after a reset that brings new shapes, reused after every other reset.
-The reset and the copy of a step's results to the host stay eager.  On the
-CPU the graph's body runs directly (`utils/graphs.py`).
+The reset's draw is a small graph of its own, bound to the env's one
+generator (`seed` re-seeds it on the host); the copy of a step's results to
+the host stays eager.  On the CPU the graphs' bodies run directly
+(`utils/graphs.py`).
 
 For throughput use the batched API (`Drone2DEnv`, `Drone2dVectorEnv` or
 the learner): every step here copies its results to the host.
@@ -76,10 +78,16 @@ class Drone2dGymEnv:
         self._env = Drone2DEnv(self.cfg, device)
         self.device = self._env.device
         self.global_step = float(global_step)
+        self._gen = torch.Generator(device=self.device)
         self.seed(seed)
         self._state = None
         # the device step over a static (state, action)
         self._step = graphs.ShapeGraph(self._step_body, lambda inputs: inputs[0], self.device)
+        # the reset's draw of one episode at the curriculum step, a graph of
+        # its own bound to the generator
+        self._draw = graphs.ShapeGraph(
+            lambda inputs: lambda: self._env.reset(self._gen, inputs[0]), lambda inputs: (),
+            self.device, generators=[self._gen])
         self._renderer = None
         self._screen = None
         self._trail: list = []
@@ -90,10 +98,13 @@ class Drone2dGymEnv:
     # -- gym 0.21 surface ----------------------------------------------------
 
     def seed(self, seed: int) -> None:
-        self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        """Re-seed the env's one generator (the reset's draw graph is bound
+        to it)."""
+        self._gen.manual_seed(int(seed))
 
     def reset(self) -> np.ndarray:
-        self._state, obs = self._env.reset(self._gen, self.global_step)
+        step = torch.full((), self.global_step, dtype=torch.float32, device=self.device)
+        self._state, obs = graphs.clone(self._draw((step,))[0])
         self._trail = []
         return obs[0].cpu().numpy()
 

@@ -19,10 +19,13 @@ The device part of a step (the env step and the NEXT_STEP select) runs as a
 CUDA graph over static buffers, as the JAX adapter jits it: made at the
 first step after a reset that brings new shapes, reused by every other step
 and reset.  The action is copied in every step and the templates whenever
-they are drawn anew; the draws (the reset, the templates) stay eager, and so
-does the one copy of a step's results to the host.  On the CPU the graph's
-body runs directly (`utils/graphs.py`); `device_step` is the same step
-run eagerly.
+they are drawn anew.  The draws (the reset, the templates) are a small graph
+of their own, bound to the env's one generator (re-seeded on the host by
+`reset(seed=...)`, never replaced), at the curriculum step held on the
+device; it is replayed when the host decides a refresh, and the reset
+clones what it drew.  The one copy of a step's results to the host stays.
+On the CPU the graphs' bodies run directly (`utils/graphs.py`);
+`device_step` is the same step run eagerly.
 
 Two layers, so that the card's work needs no gymnasium:
 - `VectorEnvCore` holds the state and the templates, steps them and returns
@@ -79,6 +82,17 @@ class VectorEnvCore:
         self._steps_since_refresh = 0
         # the device step over static (state, prev_done, action, templates)
         self._step = graphs.ShapeGraph(self._step_body, lambda inputs: inputs[:2], self.device)
+        # a batch of N fresh episodes at the curriculum step, drawn from the
+        # generator: the reset's and every template refresh's
+        self._draw = graphs.ShapeGraph(
+            lambda inputs: lambda: self._env.reset_batch(self._gen, self.num_envs, inputs[0]),
+            lambda inputs: (), self.device, generators=[self._gen])
+
+    def _draw_batch(self):
+        """N fresh episodes at `global_step` -> (state, obs), the draw
+        graph's static outputs (the next draw overwrites them)."""
+        step = torch.full((), float(self.global_step), dtype=torch.float32, device=self.device)
+        return self._draw((step,))[0]
 
     def device_step(self, state: EnvState, prev_done: torch.Tensor, action: torch.Tensor,
                     reset_state: EnvState, reset_obs: torch.Tensor):
@@ -116,8 +130,8 @@ class VectorEnvCore:
 
     def reset(self, *, seed: Optional[int] = None, options=None):
         if seed is not None:
-            self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        state, obs = self._env.reset_batch(self._gen, self.num_envs, float(self.global_step))
+            self._gen.manual_seed(int(seed))
+        state, obs = graphs.clone(self._draw_batch())
         self.start_from(state)
         return obs.cpu().numpy(), {}
 
@@ -139,8 +153,7 @@ class VectorEnvCore:
             or (self._refresh == 0 and bool(self._prev_done.any()))
         )
         if stale:
-            self._templates = self._env.reset_batch(self._gen, self.num_envs,
-                                                    float(self.global_step))
+            self._templates = self._draw_batch()
             self._steps_since_refresh = 0
         self._steps_since_refresh += 1
 

@@ -16,7 +16,7 @@ from typing import Dict, Tuple
 import torch
 
 from drone2d_tpu_torch.config import EnvConfig
-from drone2d_tpu_torch.device import resolve_device
+from drone2d_tpu_torch.device import constant, resolve_device
 from drone2d_tpu_torch.env import scenarios
 from drone2d_tpu_torch.env.types import (
     EnvState,
@@ -379,7 +379,11 @@ class Drone2DEnv:
             stage = torch.full((N,), self._stage_override, dtype=torch.int32, device=dev)
             gs = torch.full((N,), -1.0, device=dev)  # sim_num = -1 when forced
         else:
-            scaled = torch.as_tensor(global_step, dtype=torch.float32, device=dev)
+            # a host number is filled in on the device: a copy from the host
+            # would refuse to be captured
+            scaled = (global_step.to(device=dev, dtype=torch.float32)
+                      if torch.is_tensor(global_step)
+                      else torch.full((), float(global_step), dtype=torch.float32, device=dev))
             gs = (scaled / cfg.curriculum_scale).expand(N)
             stage = scenarios.stage_from_step(gs)
             if adaptive:
@@ -448,7 +452,7 @@ class Drone2DEnv:
             throw_angle, throw_force, rot = draws
             f_world = throw_force[:, None] * torch.stack(
                 [torch.cos(throw_angle), torch.sin(throw_angle)], dim=1)
-            g = body.vel.new_tensor([0.0, cfg.gravity_y])
+            g = constant((0.0, cfg.gravity_y), body.vel)
             body = physics.BodyState(
                 pos=body.pos + body.vel * cfg.physics_dt,
                 vel=body.vel + (g + f_world / cfg.total_mass) * cfg.physics_dt,

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from drone2d_tpu_torch.config import EXTRA_SCENARIOS, TEST_SCENARIOS, EnvConfig
+from drone2d_tpu_torch.device import constant
 from drone2d_tpu_torch.ops import path as tpath
 from drone2d_tpu_torch.utils.host_path import HostQPMI
 
@@ -237,7 +238,7 @@ STAGE_BOUNDS = (700_000, 1_000_000, 1_600_000, 2_000_000)
 def stage_from_step(global_step: torch.Tensor) -> torch.Tensor:
     """Curriculum stage 1..5 from the float32 global env-step count."""
     s = torch.as_tensor(global_step, dtype=torch.float32)
-    bounds = torch.tensor(STAGE_BOUNDS, dtype=torch.float32, device=s.device)
+    bounds = constant(STAGE_BOUNDS, s)
     return (1 + (s[..., None] >= bounds).sum(dim=-1)).to(torch.int32)
 
 
@@ -277,8 +278,7 @@ def random_corner_waypoints(
         num_envs, generator=gen, device=device) * 80.0
     y1 = torch.where(up, h - 180.0, 100.0) + torch.rand(
         num_envs, generator=gen, device=device) * 80.0
-    az_lo = torch.tensor([0.0, math.pi / 2, -math.pi / 2, -math.pi],
-                         device=device)[corner - 1]
+    az_lo = constant((0.0, math.pi / 2, -math.pi / 2, -math.pi), x1)[corner - 1]
     az = az_lo[:, None] + torch.rand(
         (num_envs, W - 1), generator=gen, device=device) * (math.pi / 2)
     live = torch.arange(W - 1, device=device) < (cfg.n_wps - 1)

@@ -19,10 +19,19 @@ the per-step draws, so a test can feed it the JAX package's.
 leading member axis) over A x n episodes as one batch, one kernel launch a
 step for all of them; results have shape (A, n).  `campaign_keys` gives the
 generator seeds of a chunked campaign.
+
+`run_episodes` and `run_episodes_multi` draw a campaign's reset batch and
+its per-step draws inside a CUDA graph of their own (`_campaign_draws`), as
+the JAX runner splits its keys inside `jax.jit`.  They keep one env a
+configuration and device, with one generator, across calls
+(`_campaign_env`): each call re-seeds that generator on the host, so a
+chunked campaign replays the same draw graph and the same runner chunks
+from a new seed each chunk, and draws exactly what the eager draws would.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import weakref
@@ -259,6 +268,74 @@ def _chunk_runner(env: Drone2DEnv, params: Optional[ActorCritic], state: EnvStat
     return runner
 
 
+# the campaigns' envs, by configuration and device, each with its one
+# generator and its draw graphs; the least recently used is released first
+_CAMPAIGN_ENVS: collections.OrderedDict = collections.OrderedDict()
+CAMPAIGN_ENVS = 4
+
+
+@dataclasses.dataclass
+class _CampaignEnv:
+    env: Drone2DEnv
+    gen: torch.Generator
+    draws: graphs.GraphCache
+
+
+def _campaign_env(cfg: EnvConfig, device) -> _CampaignEnv:
+    """The kept env of `cfg` on `device`, with its generator and draw
+    graphs, made at its first use."""
+    key = (cfg, None if device is None else str(torch.device(device)))
+    entry = _CAMPAIGN_ENVS.get(key)
+    if entry is None:
+        env = Drone2DEnv(cfg, device)
+        entry = _CampaignEnv(env, torch.Generator(device=env.device), graphs.GraphCache(size=2))
+        while len(_CAMPAIGN_ENVS) >= CAMPAIGN_ENVS:
+            _CAMPAIGN_ENVS.popitem(last=False)
+        _CAMPAIGN_ENVS[key] = entry
+    _CAMPAIGN_ENVS.move_to_end(key)
+    return entry
+
+
+@torch.no_grad()
+def _episode_draws(env: Drone2DEnv, gen: torch.Generator, n: int, global_step, policy: str,
+                   repeat: int = 1):
+    """A campaign's start and draws from `gen`: n fresh episodes at
+    `global_step`, then the (T, n, 2) draws of `policy` (uniform actions in
+    [-1, 1) for "random", standard normals for "stochastic", none for
+    "deterministic"); with `repeat` A, the episodes and draws repeated A
+    times -> (state, obs, draws)."""
+    state, obs = env.reset_batch(gen, n, global_step)
+    shape = (env.cfg.n_steps, n, ACT_DIM)
+    draws = (2.0 * torch.rand(shape, generator=gen, device=env.device) - 1.0
+             if policy == "random" else None if policy == "deterministic"
+             else torch.randn(shape, generator=gen, device=env.device))
+    if repeat > 1:
+        state, obs = cat_states([state] * repeat), obs.repeat(repeat, 1)
+        draws = None if draws is None else draws.repeat(1, repeat, 1)
+    return state, obs, draws
+
+
+def _campaign_draws(cfg: EnvConfig, device, seed: int, n: int, global_step: float,
+                    policy: str, repeat: int = 1):
+    """`_episode_draws` from the kept env's generator seeded with `seed`, as
+    a graph bound to that generator (on the card; called directly on the
+    CPU), made at the first call for (n, global_step, policy, repeat) ->
+    (env, state, obs, draws), the graph's static outputs: the next call's
+    draws overwrite them."""
+    c = _campaign_env(cfg, device)
+    c.gen.manual_seed(int(seed))
+    key = (n, float(global_step), policy, repeat)
+    graph = c.draws.get(key)
+    if graph is None:
+        env, gen = c.env, c.gen
+        step = torch.full((), float(global_step), dtype=torch.float32, device=env.device)
+        graph = graphs.Graph(lambda: _episode_draws(env, gen, n, step, policy, repeat),
+                             env.device, generators=[gen])
+        graphs.capture([graph])
+        c.draws.put(key, graph)
+    return (c.env, *graph())
+
+
 def run_episodes(
     cfg: EnvConfig,
     params: Optional[ActorCritic],
@@ -271,19 +348,13 @@ def run_episodes(
 ) -> EpisodeResults:
     """Run n_episodes complete episodes under the policy (or random actions
     when params is None), drawn from a generator seeded with `seed` on
-    `device` (the card unless device="cpu").  `deterministic=False` matches
-    the reference's `model.predict(obs)` (SB3's default samples the
-    Gaussian, main.py:263)."""
-    env = Drone2DEnv(cfg, device)
-    gen = torch.Generator(device=env.device).manual_seed(seed)
-    state, obs = env.reset_batch(gen, n_episodes, global_step)
-    shape = (cfg.n_steps, n_episodes, ACT_DIM)
-    if params is None:
-        draws = 2.0 * torch.rand(shape, generator=gen, device=env.device) - 1.0
-    elif deterministic:
-        draws = None
-    else:
-        draws = torch.randn(shape, generator=gen, device=env.device)
+    `device` (the card unless device="cpu"): the reset batch, then the
+    (T, N, 2) draws, inside the draw graph (`_campaign_draws`).
+    `deterministic=False` matches the reference's `model.predict(obs)`
+    (SB3's default samples the Gaussian, main.py:263)."""
+    policy = ("random" if params is None else "deterministic" if deterministic
+              else "stochastic")
+    env, state, obs, draws = _campaign_draws(cfg, device, seed, n_episodes, global_step, policy)
     return run_episodes_from(env, params, state, obs, draws, deterministic=deterministic)
 
 
@@ -307,19 +378,15 @@ def run_episodes_multi(
     noise (a paired comparison): a generator seeded with `seed` on `device`
     draws them as `run_episodes` does, and they are repeated A times, so
     agent a's results are `run_episodes(cfg, agent a, seed, n)`'s.  Else the
-    generator draws A x n independent episodes and their noise.  The JAX
-    package's counterpart (`drone2d_tpu/eval/episode.py:164-204`) splits
-    threefry keys, whose streams differ: only the statistics compare."""
-    env = Drone2DEnv(cfg, device)
-    gen = torch.Generator(device=env.device).manual_seed(seed)
-    A, T = params_stack.members, cfg.n_steps
-    n = n_episodes if same_episodes else A * n_episodes
-    state, obs = env.reset_batch(gen, n, global_step)
-    draws = None if deterministic else torch.randn((T, n, ACT_DIM), generator=gen,
-                                                    device=env.device)
-    if same_episodes:
-        state, obs = cat_states([state] * A), obs.repeat(A, 1)
-        draws = None if draws is None else draws.repeat(1, A, 1)
+    generator draws A x n independent episodes and their noise.  The draws
+    run inside the draw graph (`_campaign_draws`).  The JAX package's
+    counterpart (`drone2d_tpu/eval/episode.py:164-204`) splits threefry
+    keys, whose streams differ: only the statistics compare."""
+    A = params_stack.members
+    n, repeat = (n_episodes, A) if same_episodes else (A * n_episodes, 1)
+    env, state, obs, draws = _campaign_draws(
+        cfg, device, seed, n, global_step, "deterministic" if deterministic else "stochastic",
+        repeat)
     return run_episodes_from(env, params_stack, state, obs, draws, deterministic=deterministic)
 
 

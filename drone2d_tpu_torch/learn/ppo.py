@@ -432,10 +432,10 @@ class PPOLearner:
     def _advance(self, state, env_state: EnvState, obs: torch.Tensor):
         """`state` after a rollout that ended at (env_state, obs): the step
         counter advanced by the rollout's env steps."""
-        step = torch.tensor(float(self.cfg.n_steps * self.step_increment), dtype=torch.float32,
-                            device=self.device)
-        return dataclasses.replace(state, env_state=env_state, obs=obs,
-                                   global_step=state.global_step + step)
+        # a float32 add of an integer below 2^24, exact: no copy from the host
+        return dataclasses.replace(
+            state, env_state=env_state, obs=obs,
+            global_step=state.global_step + float(self.cfg.n_steps * self.step_increment))
 
     # -- loss ----------------------------------------------------------------
 
@@ -529,8 +529,7 @@ class PPOLearner:
         one all_reduce of one flat buffer."""
         cfg, M = self.cfg, self.cfg.num_minibatches
         S = state.params.members
-        lead = () if S is None else (S,)
-        n = cfg.n_steps if cfg.shuffle == "timeperm" else self.batch_size
+        *lead, n = self.perm_shape(S)
         if tuple(perms.shape) != (*lead, cfg.n_epochs, n):
             raise ValueError(f"perms has shape {tuple(perms.shape)}, "
                              f"want {(*lead, cfg.n_epochs, n)}")
@@ -654,6 +653,16 @@ class PPOLearner:
         then the shuffles."""
         return (*self._rollout_draws(state), self.draw_perms(state.generator))
 
+    def generators(self, state: TrainState):
+        """The generators `draws(state)` draws from."""
+        return [state.generator]
+
+    def perm_shape(self, members: int | None) -> tuple:
+        """The shape of one epoch's shuffle (a row of `draw_perms`), (S,
+        ...) for a population of S."""
+        n = self.cfg.n_steps if self.cfg.shuffle == "timeperm" else self.batch_size
+        return (n,) if members is None else (members, n)
+
     def update(self, state: TrainState, *, group=None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One PPO iteration with the draws made from the state's generator;
@@ -665,18 +674,27 @@ class PPOLearner:
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """`update` as compiled programs, the counterpart of the JAX
         package's `update_jit` (`drone2d_tpu/learn/ppo.py:489-491`): on the
-        card two CUDA graphs (not TorchScript), one of the rollout with GAE
-        and one of an SGD epoch, replayed once and `n_epochs` times.
+        card two CUDA graphs (not TorchScript), one of the draws, the
+        rollout and GAE and one of an SGD epoch, replayed once and
+        `n_epochs` times.
 
-        The draws stay eager, outside the graphs: `draws(state)`, or
-        `draws` as it returns them, so that it draws exactly what `update`
-        draws from the same generator.  The graphs run the kernels `update`
-        runs, so the results are bit-equal to `update`'s.  The first call
-        for a (weights, optimizer, shapes, group) key captures them (a
-        warm-up update's device work, undone, then the recording; a state
-        whose weights or optimizer are other tensors captures anew); the
-        learner keeps the last two.  The returned state and metrics are the
-        caller's: no later call writes them.  A failed capture raises; so
+        With no `draws`, the rollout graph begins with `draws(state)`, in
+        its order (the reset template, the noise, every epoch's shuffles),
+        from the state's generators, which the graph is bound to; a replay
+        draws exactly what `update` draws from the same generator state and
+        leaves the generators where `update` leaves them.  The curriculum
+        step and the rehearsal probabilities are copied in each call (the
+        PLR controller moves the probabilities between updates).  Given
+        `draws`, as `draws` returns them, the graphs take those instead (a
+        program of its own: the tests inject the JAX package's draws, and
+        `parallel.mesh.union_update` replays through it).  The graphs run
+        the kernels `update` runs, so the results are bit-equal to
+        `update`'s.  The first call for a (weights, optimizer, shapes,
+        generators or given draws, group) key captures them (a warm-up
+        update's device work and draws, undone, then the recording; a state
+        whose weights, optimizer or generators are other objects captures
+        anew); the learner keeps the last two.  The returned state and
+        metrics are the caller's: no later call writes them.  A failed capture raises; so
         does one while the caller still holds an eager autograd graph over
         these weights (a loss it back-propagated): its gradient
         accumulators stay on the stream they were made on, which a capture
@@ -696,15 +714,14 @@ class PPOLearner:
 
         On the CPU the same bodies run directly over the same static
         buffers, collectives included."""
-        draws = self.draws(state) if draws is None else draws
-        key = _UpdateProgram.key(state, draws, group)
+        key = _UpdateProgram.key(self, state, draws, group)
         program = self._graphs.get(key)
         new = program is None
         if new:
             program = _UpdateProgram(self, state, draws, group)
         env_state, obs, stats, rows = program(state, draws)
         if new:  # keyed once Adam's lazily made state exists
-            self._graphs.put(_UpdateProgram.key(state, draws, group), program)
+            self._graphs.put(_UpdateProgram.key(self, state, draws, group), program)
         return self._finish(self._advance(state, env_state, obs), stats, self._means(rows))
 
     def update_from(
@@ -750,35 +767,55 @@ class PPOLearner:
 
 class _UpdateProgram:
     """`update_jit`'s captured program for one learner, weights, optimizer,
-    shapes and process group (or none): the rollout with GAE as one graph,
-    an SGD epoch as another.
+    shapes, generators (or given draws) and process group (or none): the
+    draws, the rollout and GAE as one graph, an SGD epoch as another.
 
-    Static buffers hold the state's envs and obs, the draws' template and
-    noise (copied in every call) and one epoch's shuffle (copied in before
-    each epoch's replay).  The epoch graph reads the rollout graph's batch,
-    advantages and returns where that graph writes them, and updates the
-    weights and Adam's state in place, as `update` does.  With a group the
-    rollout graph ends with the episode stats' sum over the ranks and the
-    epoch graph holds each minibatch's collectives (`_epoch`)."""
+    Static buffers hold the state's envs and obs, and either its curriculum
+    step and rehearsal probabilities (the draws made in the graph, from the
+    state's generators) or the given draws' template and noise, copied in
+    every call; and one epoch's shuffle, copied in before each epoch's
+    replay from the rollout graph's shuffles or the given ones.  The epoch
+    graph reads the rollout graph's batch, advantages and returns where
+    that graph writes them, and updates the weights and Adam's state in
+    place, as `update` does.  With a group the rollout graph ends with the
+    episode stats' sum over the ranks and the epoch graph holds each
+    minibatch's collectives (`_epoch`).  Every epoch's shuffles are drawn
+    in the rollout graph, as `draws` draws them: 'affine' draws all epochs'
+    multipliers in one call and then all offsets, so a draw an epoch would
+    draw in another order."""
 
-    def __init__(self, learner: PPOLearner, state, draws, group=None):
-        reset_state, reset_obs, noise, perms = draws
-        learner._check_noise(state, noise)
+    def __init__(self, learner: PPOLearner, state, draws=None, group=None):
         params, opt, S = state.params, state.optimizer, state.params.members
+        self.drawn = drawn = draws is None
         # the learner holds this program: a weak reference back, so that the
         # pair is freed, graphs and all, without waiting for a collection
         learner = weakref.proxy(learner)
         self.learner = learner
         # the bodies close over the buffers, not over this program, so that
         # nothing here is a reference cycle
-        self.inputs = inputs = graphs.clone(
-            (state.env_state, state.obs, reset_state, reset_obs, noise))
-        self.perm = perm = torch.empty(perms[..., 0, :].shape, dtype=torch.int64,
+        if not drawn:
+            learner._check_noise(state, draws[2])
+        self.inputs = inputs = graphs.clone(self._inputs(state, draws))
+        self.perm = perm = torch.empty(learner.perm_shape(S), dtype=torch.int64,
                                        device=learner.device)
-        perm.copy_(perms[..., 0, :])
+        if drawn:
+            # the state as `draws` reads it: its generators, the static step
+            # and probabilities
+            view = dataclasses.replace(state, env_state=inputs[0], obs=inputs[1],
+                                       global_step=inputs[2], rehearsal_probs=inputs[3])
+            gens = learner.generators(state)
+            perm.copy_(torch.arange(perm.shape[-1], device=learner.device).expand(perm.shape))
+        else:
+            gens = ()
+            perm.copy_(draws[3][..., 0, :])
 
         def rollout():
-            env_state, obs, batch, last_values, stats = learner._rollout_body(params, *inputs)
+            if drawn:
+                reset_state, reset_obs, noise, perms = learner.draws(view)
+            else:
+                (reset_state, reset_obs, noise), perms = inputs[2:], None
+            env_state, obs, batch, last_values, stats = learner._rollout_body(
+                params, inputs[0], inputs[1], reset_state, reset_obs, noise)
             if group is not None:
                 stats = sum_stats(stats, group)
             advantages, returns = compute_gae(
@@ -786,9 +823,9 @@ class _UpdateProgram:
                 gamma=learner.cfg.gamma, gae_lambda=learner.cfg.gae_lambda)
             data = learner._sgd_data(
                 (batch.obs, batch.actions, batch.log_probs, advantages, returns), S)
-            return env_state, obs, stats, data
+            return env_state, obs, stats, data, perms
 
-        self.rollout = first = graphs.Graph(rollout, learner.device)
+        self.rollout = first = graphs.Graph(rollout, learner.device, generators=gens)
         self.epoch = graphs.Graph(
             lambda: learner._epoch(params, opt, first.outputs[3], perm, group=group),
             learner.device)
@@ -796,21 +833,34 @@ class _UpdateProgram:
             [self.rollout, self.epoch], restore=list(params.parameters()), optimizers=[opt])
 
     @staticmethod
-    def key(state, draws, group=None) -> tuple:
+    def _inputs(state, draws):
+        """What a call copies into the static buffers: the envs and obs, then
+        the curriculum step and probabilities, or the given template and
+        noise."""
+        if draws is None:
+            return state.env_state, state.obs, state.global_step, state.rehearsal_probs
+        return (state.env_state, state.obs, *draws[:3])
+
+    @staticmethod
+    def key(learner: PPOLearner, state, draws=None, group=None) -> tuple:
         """What a program depends on: the storages of the weights and of the
-        optimizer's state, the shapes of the envs and the draws, and the
-        process group whose collectives it holds (None: none)."""
+        optimizer's state, the shapes of its inputs, the generators it draws
+        from (None: the draws are given) and the process group whose
+        collectives it holds (None: none)."""
         return (graphs.storage_key(list(state.params.parameters())
                                    + graphs.optimizer_tensors(state.optimizer)),
-                graphs.signature((state.env_state, state.obs, draws)), group)
+                graphs.signature(_UpdateProgram._inputs(state, draws)
+                                 + (None if draws is None else draws[3],)),
+                None if draws is not None else tuple(learner.generators(state)), group)
 
-    def __call__(self, state, draws):
-        """Replay on `state` with `draws`: -> (env_state, obs, stats, rows),
-        the caller's own copies."""
-        reset_state, reset_obs, noise, perms = draws
+    def __call__(self, state, draws=None):
+        """Replay on `state` (with `draws`, if the program takes them): ->
+        (env_state, obs, stats, rows), the caller's own copies."""
         learner, M = self.learner, self.learner.cfg.num_minibatches
-        graphs.copy_(self.inputs, (state.env_state, state.obs, reset_state, reset_obs, noise))
-        env_state, obs, stats = graphs.clone(self.rollout()[:3])
+        graphs.copy_(self.inputs, self._inputs(state, draws))
+        out = self.rollout()
+        env_state, obs, stats = graphs.clone(out[:3])
+        perms = out[4] if self.drawn else draws[3]
         rows = learner._rows(state.params.members)
         for e in range(learner.cfg.n_epochs):
             self.perm.copy_(perms[..., e, :])

@@ -101,6 +101,11 @@ class ZooTrainer(PPOLearner):
                 torch.stack(noise, dim=1), torch.stack(perms))
 
 
+    def generators(self, state: ZooState):
+        """The members' generators, which `draws(state)` draws from."""
+        return list(state.generators)
+
+
 def assemble(members: Sequence[TrainState], learning_rate: float) -> ZooState:
     """A ZooState of single-seed TrainStates, in order: their weights
     stacked (copies), their envs as one batch, a fresh Adam over the stack

@@ -12,10 +12,14 @@ replicated and the math is large-batch PPO whose k-th minibatch is the
 union of the ranks' k-th local minibatches.  `union_update` replays that in
 one process, and the tests hold `shard_update` against it.
 
-The state's generator is the replicated parent.  Each update every rank
-draws one seed from it (so it advances alike everywhere) and folds its rank
-into that seed for the generator of its own draws, as the JAX package folds
-`axis_index` into its key (`drone2d_tpu/parallel/mesh.py:128-131`).
+Each rank's state carries a generator of its own, seeded once from the
+run's seed folded with the rank (`rank_generator`), as the JAX package
+folds `axis_index` into its key (`drone2d_tpu/parallel/mesh.py:128-131`),
+and advanced by the rank's draws from update to update.  The update draws
+from it inside its CUDA graph, which is bound to that one generator object:
+no seed is read back from the card, and the ranks' streams differ because
+their seeds do.  A restore seeds each rank's generators anew from the seed
+the checkpoint stores, folded with the rank the same way.
 
 Unlike the JAX package's one-device shortcut (`:117-124`), the collectives
 run at world size 1 too: a sum over one rank and a division by 1.0 are
@@ -24,7 +28,6 @@ exact, so a world-1 update equals `PPOLearner.update` bit for bit.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 import os
 import socket
@@ -77,13 +80,21 @@ def fold_in(seed: int, data: int) -> int:
     return int(np.random.SeedSequence([seed, data]).generate_state(1, np.uint64)[0] >> 1)
 
 
-def draw_seed(parent: torch.Generator) -> int:
-    """One seed drawn from `parent`, which advances it."""
-    return int(torch.randint(0, 2**62, (), generator=parent, device=parent.device))
-
-
 def seeded(seed: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def rank_generator(seed: int, rank: int, device) -> torch.Generator:
+    """The generator of rank `rank`'s draws (reset templates, action noise,
+    shuffles) in a run from `seed`: seeded with `fold_in(fold_in(seed, 0),
+    rank)`, a stream apart from every rank's envs (`fold_in(seed, 1 +
+    rank)`), computed on the host."""
+    return seeded(fold_in(fold_in(seed, 0), rank), device)
+
+
+def env_generator(seed: int, rank: int, device) -> torch.Generator:
+    """The generator of rank `rank`'s initial envs in a run from `seed`."""
+    return seeded(fold_in(seed, 1 + rank), device)
 
 
 def local_learner(learner: PPOLearner, world: int) -> PPOLearner:
@@ -98,15 +109,14 @@ def local_learner(learner: PPOLearner, world: int) -> PPOLearner:
 def rank_state(local: PPOLearner, seed: int, rank: int, params: ActorCritic | None = None,
                global_step: float = 0.0) -> TrainState:
     """Rank `rank`'s initial state: the weights of `seed` (or `params`, a
-    warm start), a fresh optimizer, its own envs reset from `fold_in(seed,
-    1 + rank)`, and the parent generator seeded with `seed`, the same on
-    every rank."""
+    warm start), a fresh optimizer, its own envs reset from
+    `env_generator(seed, rank)` and its own `rank_generator(seed, rank)`."""
     dev = local.device
     if params is None:
         params = ActorCritic(OBS_DIM, ACT_DIM, local.cfg.hidden_sizes,
                              generator=torch.Generator().manual_seed(seed), device=dev)
-    return local.start(seeded(seed, dev), params, global_step,
-                       env_generator=seeded(fold_in(seed, 1 + rank), dev))
+    return local.start(rank_generator(seed, rank, dev), params, global_step,
+                       env_generator=env_generator(seed, rank, dev))
 
 
 def _flat_params(params: ActorCritic) -> torch.Tensor:
@@ -137,25 +147,22 @@ def shard_init(group, learner: PPOLearner, seed: int,
 
 
 def shard_restore(group, learner: PPOLearner, directory: str) -> Tuple[TrainState, int]:
-    """The latest checkpoint under `directory` restored on this rank, with
-    its own env slice reset at the restored step from a seed drawn from the
-    restored parent generator and folded with the rank, as the JAX
-    package's restore resets the envs (`drone2d_tpu/utils/checkpoint.py:111-114`).
-    Returns (state, step)."""
+    """The latest checkpoint under `directory` restored on this rank: the
+    weights, Adam, counters and PLR fields as saved, and this rank's
+    generators seeded from the seed the checkpoint stores as `shard_init`
+    seeds them from the run's (`rank_generator`, `env_generator`), its env
+    slice reset at the restored step, as the JAX package's restore resets
+    the envs (`drone2d_tpu/utils/checkpoint.py:111-114`).  Nothing is read
+    from the card.  Returns (state, step)."""
     from drone2d_tpu_torch.utils.checkpoint import restore_checkpoint
 
     local = local_learner(learner, dist.get_world_size(group))
-    rank = dist.get_rank(group)
+    rank, dev = dist.get_rank(group), local.device
     state, step = restore_checkpoint(
-        directory, local, lambda gen: seeded(fold_in(draw_seed(gen), 1 + rank), local.device))
+        directory, local,
+        streams=lambda seed: (rank_generator(seed, rank, dev), env_generator(seed, rank, dev)))
     check_replicated(group, state.params)
     return state, step
-
-
-def rank_generator(parent: torch.Generator, rank: int) -> torch.Generator:
-    """The generator of rank `rank`'s draws for one update: a seed drawn
-    from `parent` (advancing it alike on every rank), folded with the rank."""
-    return seeded(fold_in(draw_seed(parent), rank), parent.device)
 
 
 def captures(group, device) -> bool:
@@ -167,55 +174,37 @@ def captures(group, device) -> bool:
     return resolve_device(device).type == "cpu" or dist.get_backend(group) == "nccl"
 
 
-def rank_drawn(update: Callable, rank: int
-               ) -> Callable[[TrainState], Tuple[TrainState, Dict[str, torch.Tensor]]]:
-    """`update` (TrainState -> (TrainState, metrics), one process's) with
-    the draws of rank `rank`: it runs from `rank_generator(parent, rank)`,
-    and the returned state keeps the parent generator, advanced by one
-    draw."""
-    def run(state: TrainState):
-        parent = state.generator
-        new_state, metrics = update(
-            dataclasses.replace(state, generator=rank_generator(parent, rank)))
-        return dataclasses.replace(new_state, generator=parent), metrics
-
-    return run
-
-
 def shard_update(group, learner: PPOLearner
                  ) -> Callable[[TrainState], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """The data-parallel PPO update: TrainState -> (TrainState, metrics).
 
-    Each rank draws from `rank_generator(parent, rank)` (eagerly, with the
-    one host sync of an update; `rank_drawn`) and rolls out its own envs;
-    the reductions run inside the update.  That update is
-    `PPOLearner.update_jit(..., group=group)`, the collectives recorded into
-    its CUDA graphs with NCCL on the card, as the JAX package jits its
-    `shard_update`; a failed capture raises.  gloo on the card runs
-    `PPOLearner.update(..., group=group)` instead (`captures`)."""
+    Each rank draws from its state's own generator (`rank_generator`) and
+    rolls out its own envs; the reductions run inside the update.  That
+    update is `PPOLearner.update_jit(..., group=group)`, the draws and the
+    collectives recorded into its CUDA graphs with NCCL on the card, as the
+    JAX package jits its `shard_update`; a failed capture raises.  gloo on
+    the card runs `PPOLearner.update(..., group=group)` instead
+    (`captures`), with the same draws."""
     local = local_learner(learner, dist.get_world_size(group))
     run = local.update_jit if captures(group, local.device) else local.update
-    return rank_drawn(functools.partial(run, group=group), dist.get_rank(group))
+    return functools.partial(run, group=group)
 
 
 def union_update(learner: PPOLearner, states: Sequence[TrainState]) -> List[TrainState]:
     """One `shard_update` of `len(states)` ranks replayed in one process,
     the reference the tests hold it against (`tests/test_parallel.py`'s
     union-batch replay).  `states` are the ranks' states, sharing one
-    weights object, one optimizer and one parent generator; each rank's
-    rollout is replayed with its own draws, then every SGD step takes the
-    union of the ranks' k-th local minibatches through the plain loss,
-    clip and Adam.  Returns the ranks' new states, the weights and the
-    optimizer updated in place."""
+    weights object and one optimizer, each with its own generator; each
+    rank's rollout is replayed with its own draws, then every SGD step
+    takes the union of the ranks' k-th local minibatches through the plain
+    loss, clip and Adam.  Returns the ranks' new states, the weights and
+    the optimizer updated in place."""
     world = len(states)
     local = local_learner(learner, world)
     cfg = local.cfg
-    seed = draw_seed(states[0].generator)
     out, streams = [], []
-    for rank, state in enumerate(states):
-        gen = seeded(fold_in(seed, rank), local.device)
-        reset_state, reset_obs, noise, perms = local.draws(
-            dataclasses.replace(state, generator=gen))
+    for state in states:
+        reset_state, reset_obs, noise, perms = local.draws(state)
         new_state, batch, last_values, _ = local.rollout_from(state, reset_state, reset_obs,
                                                               noise)
         adv, ret = compute_gae(batch.rewards, batch.values, batch.dones, last_values,

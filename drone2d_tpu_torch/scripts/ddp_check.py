@@ -16,8 +16,8 @@ replays the same update of all K ranks in its own process
 rtol 2e-5, atol 2e-6 (the JAX package's tolerance for its shards against
 the union batch), and its weights and Adam moments against rank 0's bit
 for bit.  It also runs the eager update (`PPOLearner.update(...,
-group=group)` with the rank's draws, `mesh.rank_drawn`) from a twin
-state and reports whether the two agree bit for bit (`eager_equal`:
+group=group)`, the draws made eagerly from the rank's generator) from a
+twin state and reports whether the two agree bit for bit (`eager_equal`:
 weights, Adam, metrics) and, in the units of `excess`, how far the eager
 weights lie from the captured ones (`eager_excess`): NCCL may reduce in
 another order under capture.  Then it times one update each
@@ -71,8 +71,8 @@ def _equal_to_rank0(x: torch.Tensor, group) -> bool:
 
 
 def _twin(state, device):
-    """A copy of a rank's state with weights, Adam and a parent generator of
-    its own (the envs are replaced by an update, never written)."""
+    """A copy of a rank's state with weights, Adam and a generator of its own
+    at the same state (the envs are replaced by an update, never written)."""
     params = copy.deepcopy(state.params)
     opt = optim.adam(params.parameters(), state.optimizer.defaults["lr"])
     opt.load_state_dict(state.optimizer.state_dict())
@@ -92,7 +92,7 @@ def check(train_cfg, env_cfg, ppo_cfg, device) -> dict:
     eager_state = _twin(state, dev)
     local = mesh.local_learner(learner, world)
     updates = {"captured": mesh.shard_update(group, learner),
-               "eager": mesh.rank_drawn(functools.partial(local.update, group=group), rank)}
+               "eager": functools.partial(local.update, group=group)}
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
     fused_sample_action.launches = 0
@@ -110,8 +110,7 @@ def check(train_cfg, env_cfg, ppo_cfg, device) -> dict:
                    and torch.equal(_flat_adam(state.optimizer), _flat_adam(eager_state.optimizer))
                    and all(torch.equal(metrics[k], eager_metrics[k]) for k in metrics))
     union = [mesh.rank_state(local, train_cfg.seed, r) for r in range(world)]
-    shared = dict(params=union[0].params, optimizer=union[0].optimizer,
-                  generator=union[0].generator)
+    shared = dict(params=union[0].params, optimizer=union[0].optimizer)
     union = mesh.union_update(learner, [dataclasses.replace(s, **shared) for s in union])
     union_excess, eager_excess = excess(got, params_to_flat_dict(union[0].params)), excess(eager,
                                                                                           got)

@@ -2,7 +2,8 @@
 loop; the port's counterpart of `scripts/probe_split_carry.py`.
 
 Times the bench's captured chunk (policy sample + env step + auto-reset, a
-CUDA graph of `bench.GRAPH_STEPS` steps replayed, each chunk's draws eager)
+CUDA graph of `bench.GRAPH_STEPS` steps replayed, each chunk's draws made
+by its draw graph)
 both ways at the headline shape (4096 envs x 256-step chunks), as the JAX
 probe jits both chunks: `bench.CapturedChunk` with the template carry and
 `bench.CapturedSplitChunk` with the split carry.  Prints ns per env step of
@@ -25,7 +26,7 @@ import time
 
 import torch
 
-from drone2d_tpu_torch.bench import CapturedChunk, CapturedSplitChunk, draw_chunk, graph_steps
+from drone2d_tpu_torch.bench import CapturedChunk, CapturedSplitChunk, graph_steps
 from drone2d_tpu_torch.config import EnvConfig, PPOConfig
 from drone2d_tpu_torch.learn.ppo import PPOLearner
 
@@ -38,14 +39,13 @@ def run(num_envs: int = 4096, chunk_t: int = 256, repeats: int = 8, device=None)
     for name, cls in (("template", CapturedChunk), ("split", CapturedSplitChunk)):
         gen = torch.Generator(device=dev).manual_seed(1)
         env_state, obs = state.env_state, state.obs
-        draws = draw_chunk(env, num_envs, gen, chunk_t, dev)
-        chunk = cls(state.params, env, env_state, obs, *draws[:2], graph_steps(chunk_t))
-        env_state, obs, rewards[name] = chunk(env_state, obs, *draws)
+        chunk = cls(state.params, env, env_state, obs, steps=graph_steps(chunk_t), gen=gen,
+                    chunk_t=chunk_t)
+        env_state, obs, rewards[name] = chunk(env_state, obs)
         float(rewards[name].sum())  # the first chunk, synchronized
         t0 = time.perf_counter()
         for _ in range(repeats):
-            env_state, obs, r = chunk(env_state, obs, *draw_chunk(env, num_envs, gen, chunk_t,
-                                                                  dev))
+            env_state, obs, r = chunk(env_state, obs)
         float(r.sum())
         dt = time.perf_counter() - t0
         results[name] = dt / (repeats * chunk_t * num_envs) * 1e9

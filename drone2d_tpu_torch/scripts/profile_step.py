@@ -5,8 +5,8 @@ counterpart of `scripts/profile_step.py`.
 
 Writes a Chrome trace (`chrome://tracing`, Perfetto) of a few chunks of the
 bench's env line (`drone2d_tpu_torch.bench.CapturedChunk`, a CUDA graph of
-`bench.GRAPH_STEPS` steps replayed, each chunk's draws eager as the bench
-makes them; 4096 envs x 64 steps, 3 chunks) through `utils.profiling.trace`
+`bench.GRAPH_STEPS` steps replayed after the chunk's draw graph, as the
+bench makes them; 4096 envs x 64 steps, 3 chunks) through `utils.profiling.trace`
 to `<outdir>/trace.json` (default logs/profile) and prints where it went.
 The capture and a warm-up chunk come before the trace.  Runs on the CUDA
 card unless `--device cpu`.
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import argparse
 
-from drone2d_tpu_torch.bench import CapturedChunk, draw_chunk, graph_steps
+from drone2d_tpu_torch.bench import CapturedChunk, graph_steps
 from drone2d_tpu_torch.config import EnvConfig, PPOConfig
 from drone2d_tpu_torch.learn.ppo import PPOLearner
 from drone2d_tpu_torch.utils.profiling import trace
@@ -31,14 +31,13 @@ def profile(out: str, num_envs: int = NUM_ENVS, chunk_t: int = T, chunks: int = 
     learner = PPOLearner(EnvConfig(), PPOConfig(), num_envs, device=device)
     state = learner.init(0)
     params, env, gen, dev = state.params, learner.env, state.generator, learner.device
-    draws = draw_chunk(env, num_envs, gen, chunk_t, dev)
-    run = CapturedChunk(params, env, state.env_state, state.obs, *draws[:2],
-                        graph_steps(chunk_t))
-    env_state, obs, r = run(state.env_state, state.obs, *draws)
+    run = CapturedChunk(params, env, state.env_state, state.obs, steps=graph_steps(chunk_t),
+                        gen=gen, chunk_t=chunk_t)
+    env_state, obs, r = run(state.env_state, state.obs)
     float(r.sum())
     with trace(out) as path:
         for _ in range(chunks):
-            env_state, obs, r = run(env_state, obs, *draw_chunk(env, num_envs, gen, chunk_t, dev))
+            env_state, obs, r = run(env_state, obs)
         float(r.sum())
     return path
 

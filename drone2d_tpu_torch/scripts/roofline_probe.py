@@ -5,9 +5,9 @@ Times the bench's env line chunk across a grid of (num_envs, path_table_n)
 to attribute the cost of an env step to its candidate bottlenecks: the
 captured chunk (`drone2d_tpu_torch.bench.CapturedChunk`: the policy sample,
 the env step and the masked auto-reset as a CUDA graph of `bench.GRAPH_STEPS`
-steps, replayed), each chunk's template and noise drawn eagerly
-(`bench.draw_chunk`), as the bench's env line times it and as the JAX probe
-jits its chunk:
+steps, replayed), each chunk's template and noise drawn by its draw graph
+(`bench.draw_chunk` captured), as the bench's env line times it and as the
+JAX probe jits its chunk, draws included:
 
 * num_envs scaling separates launch-bound (flat time against batch) from
   throughput-bound (time ~ linear in batch);
@@ -33,7 +33,7 @@ import time
 
 import torch
 
-from drone2d_tpu_torch.bench import CapturedChunk, draw_chunk, graph_steps
+from drone2d_tpu_torch.bench import CapturedChunk, graph_steps
 from drone2d_tpu_torch.config import EnvConfig
 from drone2d_tpu_torch.device import resolve_device
 from drone2d_tpu_torch.env.env import ACT_DIM, OBS_DIM, Drone2DEnv
@@ -54,14 +54,13 @@ def measure(num_envs: int, table_n: int, *, chunk_t: int, repeats: int, autorese
                          device=dev)
     env_state, obs = env.reset_batch(torch.Generator(device=dev).manual_seed(1), num_envs, 0.0)
     gen = torch.Generator(device=dev).manual_seed(2)
-    draws = draw_chunk(env, num_envs, gen, chunk_t, dev)
-    run = CapturedChunk(params, env, env_state, obs, *draws[:2], graph_steps(chunk_t),
-                        autoreset=autoreset)
-    env_state, obs, r = run(env_state, obs, *draws)
+    run = CapturedChunk(params, env, env_state, obs, steps=graph_steps(chunk_t), gen=gen,
+                        chunk_t=chunk_t, autoreset=autoreset)
+    env_state, obs, r = run(env_state, obs)
     float(r.sum())  # warm-up, synchronized
     t0 = time.perf_counter()
     for _ in range(repeats):
-        env_state, obs, r = run(env_state, obs, *draw_chunk(env, num_envs, gen, chunk_t, dev))
+        env_state, obs, r = run(env_state, obs)
     float(r.sum())
     dt = time.perf_counter() - t0
     return dt / (repeats * chunk_t * num_envs) * 1e9

@@ -78,16 +78,20 @@ def save_checkpoint(directory: str, state: TrainState) -> int:
     return step
 
 
-def restore_checkpoint(directory: str, learner: PPOLearner, env_generator: Callable[
-        [torch.Generator], torch.Generator] | None = None) -> Tuple[TrainState, int]:
+def restore_checkpoint(directory: str, learner: PPOLearner, streams: Callable[
+        [int], Tuple[torch.Generator, torch.Generator]] | None = None
+        ) -> Tuple[TrainState, int]:
     """A runnable TrainState from the latest checkpoint, with its envs reset
     at the restored global_step (from the restored rehearsal probabilities
-    under adaptive rehearsal), drawing from the restored generator, or from
-    `env_generator(restored generator)` when given (a rank's own slice).  A checkpoint without the PLR fields restores
-    the initial probabilities and zero counts.  On another device type than
-    the one that saved it, the generator is seeded from the stored seed; a
-    checkpoint without one (written before the seed was stored) raises.
-    Adam's state loads onto either device type (`optim.load_state_dict`)."""
+    under adaptive rehearsal), drawing from the restored generator.  Given
+    `streams`, a function of the stored seed to (the state's generator, the
+    envs' generator), those two instead (a rank's own streams,
+    `parallel.mesh.shard_restore`).  A checkpoint without the PLR fields
+    restores the initial probabilities and zero counts.  On another device
+    type than the one that saved it, the generator is seeded from the
+    stored seed; a checkpoint without one (written before the seed was
+    stored) raises.  Adam's state loads onto either device type
+    (`optim.load_state_dict`)."""
     steps = checkpoint_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {directory!r}")
@@ -95,12 +99,16 @@ def restore_checkpoint(directory: str, learner: PPOLearner, env_generator: Calla
     payload = torch.load(path, map_location="cpu", weights_only=True)
     params = ActorCritic(OBS_DIM, ACT_DIM, learner.cfg.hidden_sizes, device=learner.device)
     params.load_state_dict(payload["params"])
-    gen = torch.Generator(device=learner.device)
+    gen = env_gen = torch.Generator(device=learner.device)
     # checkpoints from before the device type was stored: a CUDA generator's
     # state is its 8-byte seed and 8-byte offset
     saved_on = payload.get("generator_device",
                            "cuda" if payload["generator"].numel() == 16 else "cpu")
-    if saved_on == gen.device.type:
+    if streams is not None:
+        if "generator_seed" not in payload:
+            raise ValueError(f"{path} stores no seed to derive a rank's streams from")
+        gen, env_gen = streams(int(payload["generator_seed"]))
+    elif saved_on == gen.device.type:
         gen.set_state(payload["generator"])
     elif "generator_seed" in payload:
         gen.manual_seed(payload["generator_seed"])
@@ -112,7 +120,7 @@ def restore_checkpoint(directory: str, learner: PPOLearner, env_generator: Calla
             f"cross-device resume): resume it on a {saved_on} device")
     state = learner.start(gen, params, float(payload["global_step"]),
                           float(payload["episodes_total"]), payload.get("rehearsal_probs"),
-                          None if env_generator is None else env_generator(gen))
+                          env_gen)
     if "family_counts" in payload:
         state = dataclasses.replace(state, **{
             k: payload[k].to(learner.device) for k in ("family_counts", "family_wins")})

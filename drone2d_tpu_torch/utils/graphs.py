@@ -15,6 +15,17 @@ and a caller clones whatever it keeps.  A replay runs the kernels that eager
 mode runs, on the same addresses, so a captured path is bit-equal to the
 eager one.  A capture that fails raises; nothing runs eager in its place.
 
+A body may draw from `torch.Generator`s (the reset templates, the action
+noise, the shuffles), the ones its `Graph` is given.  The capture
+registers each with its graph (`register_generator_state`), puts each
+back after the warm-up as it puts back the tensors, and a replay then
+draws what the body draws eagerly from the generator's state at that
+moment (Philox at the same offsets) and advances the generator by the
+same amount: captured and eager draws are bit-equal, and a generator
+re-seeded on the host before a replay is drawn from anew.  A body that
+draws from a generator its graph was not given fails at capture; on the
+card a CPU generator raises.
+
 On the CPU a `Graph` calls its body directly, over the same static
 buffers: the caller's CPU path, which the tests exercise.
 
@@ -35,6 +46,7 @@ import collections
 import ctypes
 import dataclasses
 import functools
+import gc
 import time
 from typing import Callable, Iterable, List, Sequence
 
@@ -77,21 +89,29 @@ def tree_map(fn: Callable, tree):
 
 def clone(tree):
     """A contiguous copy of every tensor of `tree`, in storage of its own."""
-    return tree_map(lambda t: t.clone(memory_format=torch.contiguous_format), tree)
+    out = tree_map(lambda t: torch.empty_like(t, memory_format=torch.contiguous_format), tree)
+    copy_(out, tree)
+    return out
 
 
 @torch.no_grad()
 def copy_(dst, src) -> None:
     """Copy the tensors of `src` into the matching static tensors of `dst`
-    (a leaf that is the same tensor is left as it is)."""
+    (a leaf that is the same tensor is left as it is), one `_foreach_copy_`
+    a dtype and device: a few launches for a whole env state."""
     got, want = leaves(dst), leaves(src)
     if len(got) != len(want):
         raise ValueError(f"trees of {len(got)} and {len(want)} leaves")
+    groups = collections.defaultdict(lambda: ([], []))
     for d, s in zip(got, want):
         if (d is None) != (s is None):
             raise ValueError("trees disagree on an optional leaf")
         if d is not None and d is not s:
-            d.copy_(s)
+            ds, ss = groups[(d.dtype, s.dtype, d.device, s.device)]
+            ds.append(d)
+            ss.append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
 
 
 def signature(tree) -> tuple:
@@ -118,16 +138,19 @@ def optimizer_tensors(opt: torch.optim.Optimizer) -> List[torch.Tensor]:
 
 class Graph:
     """A body run as a CUDA graph on the card, called directly on the CPU
-    (or on the card with `eager=True`, the caller's explicit reference).
+    (or on the card with `eager=True`, the caller's explicit reference),
+    drawing from `generators` (none by default).
 
     `outputs` is what the body returned: at capture when captured (the
     static tensors each replay writes), else at the latest call.  A body may
     read another graph's `outputs` (read when it runs, so the captured body
     reads that graph's static tensors)."""
 
-    def __init__(self, body: Callable, device: torch.device, *, eager: bool = False):
+    def __init__(self, body: Callable, device: torch.device, *, eager: bool = False,
+                 generators: Sequence[torch.Generator] = ()):
         self.body, self.device = body, torch.device(device)
         self.eager = eager or self.device.type == "cpu"
+        self.generators = list(generators)  # the ones the body draws from
         self.graph = None
         self.outputs = None
         self.launches = 0         # kernel launches a replay makes
@@ -185,9 +208,12 @@ def capture(graphs: Sequence[Graph], *, restore: Sequence[torch.Tensor] = (),
     """Warm up and capture `graphs`, in order, into one memory pool.
 
     The warm-up runs each body once, in order, on a side stream; then the
-    tensors of `restore` and the state of `optimizers` are put back as they
-    were, so that the capture leaves the caller's state as it found it.
-    Raises if a body cannot be captured (a host sync, say).  Graphs that run
+    tensors of `restore`, the state of `optimizers` and the graphs'
+    generators are put back as they were, so that the capture leaves the
+    caller's state as it found it and the first replay draws what the
+    eager path would.  Each graph's generators are registered with it
+    before its recording.  Raises if a body cannot be captured (a host
+    sync, a host-to-card copy, a generator its graph was not given).  Graphs that run
     eagerly (on the CPU, or asked to) are not captured: then it does
     nothing and returns None.
 
@@ -200,14 +226,22 @@ def capture(graphs: Sequence[Graph], *, restore: Sequence[torch.Tensor] = (),
             raise ValueError("capture() takes graphs that all run eagerly or none")
         return None
     device = graphs[0].device
+    generators = list({id(gen): gen for g in graphs for gen in g.generators}.values())
+    for gen in generators:
+        if gen.device.type != "cuda":
+            raise ValueError(f"a CUDA graph draws from CUDA generators only, not a "
+                             f"{gen.device.type} one")
     t0 = time.perf_counter()
     back = _restore_point(list(restore), list(optimizers))
+    drawn = [(gen, gen.get_state()) for gen in generators]
     stream = torch.cuda.Stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(stream):
         for g in graphs:
             g.outputs = g.body()
         back()
+    for gen, at in drawn:
+        gen.set_state(at)
     torch.cuda.current_stream(device).wait_stream(stream)
     torch.cuda.synchronize(device)
     warmup_s = time.perf_counter() - t0
@@ -216,10 +250,31 @@ def capture(graphs: Sequence[Graph], *, restore: Sequence[torch.Tensor] = (),
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
     pool = torch.cuda.graph_pool_handle()
-    record_s = inst_s = 0.0
+    # a graph that the cyclic collector frees during a recording (an
+    # adapter or program dropped earlier) invalidates that recording: so
+    # collect now and not again until every graph is recorded
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        _record(graphs, pool, stream, device)
+    finally:
+        if collecting:
+            gc.enable()
+    record_s = sum(g.capture_s for g in graphs)
+    inst_s = sum(g.instantiate_s for g in graphs)
+    return CaptureStats(warmup_s, record_s, inst_s,
+                        torch.cuda.memory_reserved(device) - reserved, [g.nodes for g in graphs])
+
+
+def _record(graphs: Sequence[Graph], pool, stream, device) -> None:
+    """Record each of `graphs` into `pool` on `stream` and instantiate it,
+    with its launch counts, nodes and seconds."""
     for g in graphs:
         t0 = time.perf_counter()
         g.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        for gen in g.generators:
+            g.graph.register_generator_state(gen)
         counts = {w: w.launches for w in COUNTED}
         try:
             with torch.cuda.graph(g.graph, pool=pool, stream=stream):
@@ -235,10 +290,6 @@ def capture(graphs: Sequence[Graph], *, restore: Sequence[torch.Tensor] = (),
         g.graph.instantiate()
         torch.cuda.synchronize(device)
         g.capture_s, g.instantiate_s = t1 - t0, time.perf_counter() - t1
-        record_s += g.capture_s
-        inst_s += g.instantiate_s
-    return CaptureStats(warmup_s, record_s, inst_s,
-                        torch.cuda.memory_reserved(device) - reserved, [g.nodes for g in graphs])
 
 
 @functools.cache
@@ -266,10 +317,13 @@ class ShapeGraph:
 
     `make_body(inputs)` returns the body over the static copies `inputs`;
     `stepped(inputs)` the tensors of `inputs` that the body changes in
-    place, which the capture's warm-up puts back."""
+    place, which the capture's warm-up puts back; `generators` the ones the
+    body draws from."""
 
-    def __init__(self, make_body: Callable, stepped: Callable, device: torch.device):
+    def __init__(self, make_body: Callable, stepped: Callable, device: torch.device,
+                 generators: Sequence[torch.Generator] = ()):
         self.make_body, self.stepped, self.device = make_body, stepped, torch.device(device)
+        self.generators = list(generators)
         self.shapes = self.graph = self.inputs = None
 
     def __call__(self, tree):
@@ -279,7 +333,7 @@ class ShapeGraph:
         if self.graph is None or shapes != self.shapes:
             self.graph = self.inputs = None  # release the old graph's pool first
             inputs = clone(tree)
-            graph = Graph(self.make_body(inputs), self.device)
+            graph = Graph(self.make_body(inputs), self.device, generators=self.generators)
             capture([graph], restore=[t for t in leaves(self.stepped(inputs)) if t is not None])
             self.shapes, self.graph, self.inputs = shapes, graph, inputs
         else:
@@ -291,10 +345,11 @@ class GraphCache:
     """Captured programs by key, at most `size` of them: adding one to a full
     cache releases the least recently used (its graphs and memory pool).
 
-    A key names what a program depends on: the shapes of its inputs and
-    the storages it reads and writes in place (`storage_key`).  A program
-    holds those tensors, so no other tensor can take their addresses while
-    it is cached."""
+    A key names what a program depends on: the shapes of its inputs, the
+    storages it reads and writes in place (`storage_key`) and the
+    generators its graphs are bound to (the objects themselves).  A program
+    holds those tensors and generators, so no other can take their
+    addresses while it is cached."""
 
     def __init__(self, size: int = 2):
         self.size = size

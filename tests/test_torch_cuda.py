@@ -555,7 +555,7 @@ def test_world_one_nccl_shard_update_bit_equal_to_plain(dev):
         params = copy.deepcopy(state.params)
         plain = dataclasses.replace(state, params=params,
                                     optimizer=optim.adam(params.parameters(), 3e-4),
-                                    generator=mesh.rank_generator(twin, 0))
+                                    generator=twin)
         got_state, got = mesh.shard_update(group, learner)(state)
         want_state, want = learner.update(plain)
     finally:
@@ -571,9 +571,10 @@ def test_world_one_nccl_captured_update_bit_equal_to_eager(dev):
     """Over a world-1 NCCL group, two `shard_update`s from twin states: the
     captured update (`update_jit` with the group: NCCL's collectives inside
     the CUDA graphs) against the eager one (`update(..., group=group)`) and
-    the plain `update_jit`, each with the rank's generators (`rank_drawn`): weights, Adam's state
-    and every metric bit-equal; a replayed update launches the kernel
-    n_steps + 1 times, the capturing one twice that."""
+    the plain `update_jit`, each drawing from a twin of the rank's
+    generator: weights, Adam's state, every metric and the generator's
+    state after bit-equal; a replayed update launches the kernel n_steps +
+    1 times, the capturing one twice that."""
     import copy
 
     import torch.distributed as dist
@@ -599,8 +600,8 @@ def test_world_one_nccl_captured_update_bit_equal_to_eager(dev):
         runs, launches = {}, []
         for name, fn in (
                 ("captured", mesh.shard_update(group, learner)),
-                ("eager", mesh.rank_drawn(functools.partial(learner.update, group=group), 0)),
-                ("jit", mesh.rank_drawn(learner.update_jit, 0))):
+                ("eager", functools.partial(learner.update, group=group)),
+                ("jit", learner.update_jit)):
             s, ms = twin(), []
             for _ in range(2):
                 before = fused_sample_action.launches
@@ -621,6 +622,7 @@ def test_world_one_nccl_captured_update_bit_equal_to_eager(dev):
                                                      optim_tensors(want_state.optimizer)))
         for m, w in zip(got, want):
             assert all(torch.equal(m[k], w[k]) for k in w), name
+        assert torch.equal(got_state.generator.get_state(), want_state.generator.get_state())
 
 
 def test_split_chunk_on_card_bit_exact(dev):
@@ -735,9 +737,10 @@ def optim_tensors(opt):
 
 @pytest.mark.parametrize("shuffle", ["exact", "affine", "timeperm"])
 def test_update_jit_bit_equal_to_update(dev, shuffle):
-    """update_jit and update from twin states, 3 updates each in turn at
-    curriculum stage 5 (64 envs, every other one near the cap): weights,
-    Adam's whole state, metrics, envs and counters bit-equal after each;
+    """update_jit (the draws made in its rollout graph) and update from twin
+    states, 3 updates each in turn at curriculum stage 5 (64 envs, every
+    other one near the cap): weights, Adam's whole state, metrics, envs,
+    counters and the generator's state bit-equal after each;
     the kernel launched 2 (n_steps + 1) times by the capturing call (its
     warm-up's update, then the replay) and n_steps + 1 by each later one."""
     learner = PPOLearner(EnvConfig(), PPOConfig(**GRAPH_PPO, shuffle=shuffle), 64, device=dev)
@@ -758,13 +761,15 @@ def test_update_jit_bit_equal_to_update(dev, shuffle):
         b, mb = learner.update(b)
         assert set(ma) == set(mb) and all(torch.equal(ma[k], mb[k]) for k in ma)
         _assert_same_state(a, b)
+        assert torch.equal(a.generator.get_state(), b.generator.get_state())
         finished += float(ma["episodes/episodes"])
     assert finished > 0 and learner._graphs.captures == 1
 
 
 def test_population_update_jit_bit_equal_to_update(dev):
     """A population of 8 through update_jit and update, 3 updates in turn:
-    bit-equal; one launch a step for all 8 members under replay."""
+    bit-equal, every member's generator state included; one launch a step
+    for all 8 members under replay."""
     trainer = ZooTrainer(EnvConfig(), PPOConfig(**GRAPH_PPO), 32, device=dev)
     a, b = trainer.init(list(range(8))), trainer.init(list(range(8)))
     for u in range(3):
@@ -775,6 +780,8 @@ def test_population_update_jit_bit_equal_to_update(dev):
         b, mb = trainer.update(b)
         assert all(torch.equal(ma[k], mb[k]) for k in ma)
         _assert_same_state(a, b)
+        assert all(torch.equal(x.get_state(), y.get_state())
+                   for x, y in zip(a.generators, b.generators))
 
 
 @pytest.mark.parametrize("policy", ["stochastic", "deterministic", "random"])
@@ -890,3 +897,174 @@ def test_captured_probe_chunks_bit_equal_to_eager(dev, variant):
     assert bool(want[2].ne(0).any())
     for a, b in zip(graphs.leaves(got), graphs.leaves(want)):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+# -- the draws inside the graphs ------------------------------------------------
+
+
+@pytest.mark.parametrize("cls_name", ["CapturedChunk", "CapturedSplitChunk"])
+def test_bench_chunk_draws_inside_bit_equal_to_eager(dev, cls_name):
+    """The bench's chunk with its template and noise drawn by its draw graph
+    (an 8-step graph, 32-step chunks, 3 chunks at 512 envs) against
+    `bench.chunk` from a twin generator: rewards, obs and envs bit-equal
+    each chunk, the generators in the same state after."""
+    from drone2d_tpu_torch import bench
+    from drone2d_tpu_torch.utils import graphs
+
+    n, t = 512, 32
+    env = Drone2DEnv(EnvConfig(path_table_n=128), dev)
+    params = flat_dict_to_params(dict(np.load(AGENT)), device=dev)
+    state, obs = env.reset_batch(torch.Generator(device=dev).manual_seed(6), n, 3e6)
+    state.t = torch.where(torch.arange(n, device=dev) % 2 == 0, 1090, state.t).to(torch.int32)
+    g1 = torch.Generator(device=dev).manual_seed(7)
+    g2 = torch.Generator(device=dev).manual_seed(7)
+    run = getattr(bench, cls_name)(params, env, state, obs, steps=8, gen=g1, chunk_t=t)
+    a = b = (state, obs)
+    for _ in range(3):
+        got = run(*a)
+        want = bench.chunk(params, env, *b, g2, t)
+        for x, y in zip(graphs.leaves(got), graphs.leaves(want)):
+            assert (x is None and y is None) or torch.equal(x, y)
+        a, b = got[:2], want[:2]
+    assert torch.equal(g1.get_state(), g2.get_state())
+
+
+def test_graft_step_captured_bit_equal_to_eager(dev):
+    """The graft step as one graph (`graft.GraftStep`: the noise and a whole
+    reset batch drawn inside it each step) against the eager
+    `sample_action` + `step_batch` from a twin generator, 256 envs x 24
+    steps at an 8-step episode cap: obs, reward, done and value bit-equal
+    each step, the generators equal after."""
+    from drone2d_tpu_torch.graft import GraftStep, graft_step
+
+    env = Drone2DEnv(EnvConfig(n_steps=8), dev)
+    params = ActorCritic(27, 2, (128, 128), generator=torch.Generator().manual_seed(0),
+                         device=dev)
+    state, obs = env.reset_batch(torch.Generator(device=dev).manual_seed(1), 256, 0.0)
+    g1 = torch.Generator(device=dev).manual_seed(2)
+    g2 = torch.Generator(device=dev).manual_seed(2)
+    step = GraftStep(params, env, g1)
+    a = b = (state, obs)
+    ended = 0
+    for _ in range(24):
+        s1, o1, r1, d1, v1 = step(*a)
+        s2, o2, r2, d2, v2 = graft_step(params, env, *b, g2, 0.0)
+        for x, y in zip((o1, r1, d1, v1, s1.path.wps), (o2, r2, d2, v2, s2.path.wps)):
+            assert torch.equal(x, y)
+        ended += int(d1.sum())
+        a, b = (s1, o1), (s2, o2)
+    assert ended > 0 and torch.equal(g1.get_state(), g2.get_state())
+
+
+def test_drawn_replays_run_without_a_host_sync(dev):
+    """A drawn-inside update, bench chunk and graft step, each captured
+    first, then replayed under `torch.cuda.set_sync_debug_mode("error")`:
+    nothing on their paths waits for the card."""
+    from drone2d_tpu_torch import bench
+    from drone2d_tpu_torch.graft import GraftStep
+
+    learner = PPOLearner(EnvConfig(), PPOConfig(**GRAPH_PPO), 64, device=dev)
+    state, _ = learner.update_jit(learner.init(1, global_step=3e6))
+    env = learner.env
+    run = bench.CapturedChunk(state.params, env, state.env_state, state.obs, steps=8,
+                              gen=torch.Generator(device=dev).manual_seed(2), chunk_t=16)
+    step = GraftStep(state.params, env, torch.Generator(device=dev).manual_seed(3))
+    graft_in = step(state.env_state, state.obs)[:2]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = learner.update_jit(state)
+        chunk_out = run(state.env_state, state.obs)
+        graft_out = step(*graft_in)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert np.isfinite(float(metrics["loss"])) and learner._graphs.captures == 1
+    assert bool(torch.isfinite(chunk_out[2]).all()) and bool(torch.isfinite(graft_out[1]).all())
+
+
+def test_capture_refuses_a_cpu_generator(dev):
+    """A graph on the card bound to a CPU generator raises at capture."""
+    from drone2d_tpu_torch.utils import graphs
+
+    gen = torch.Generator().manual_seed(0)
+    g = graphs.Graph(lambda: torch.rand(8, generator=gen), dev, generators=[gen])
+    with pytest.raises(ValueError):
+        graphs.capture([g])
+
+
+@pytest.mark.parametrize("policy", ["stochastic", "deterministic", "random"])
+def test_campaign_draws_inside_bit_equal_to_eager(dev, policy):
+    """`run_episodes` on the card (the reset batch and the draws made by the
+    kept env's draw graph, the runner captured) at two seeds against the
+    eager draws from a fresh generator of each seed, flown by the eager
+    runner: every field equal; the second seed replays the same draw
+    graph."""
+    from drone2d_tpu_torch.eval import episode
+
+    cfg = scenario_config("stage_2").replace(n_steps=100)
+    params = None if policy == "random" else flat_dict_to_params(dict(np.load(AGENT)), device=dev)
+    det = policy == "deterministic"
+    made = None
+    for seed in (11, 12):
+        got = episode.run_episodes(cfg, params, seed, 256, deterministic=det)
+        c = episode._campaign_env(cfg, None)
+        made = c.draws.captures if made is None else made
+        env = Drone2DEnv(cfg, device=dev)
+        state, obs, draws = episode._episode_draws(
+            env, torch.Generator(device=dev).manual_seed(seed), 256, 0.0, policy)
+        want = run_episodes_from(env, params, state, obs, draws, deterministic=det,
+                                 captured=False)
+        for k, g, w in zip(got._fields, got, want):
+            np.testing.assert_array_equal(g, w, err_msg=k)
+    assert c.draws.captures == made
+
+
+def test_adapters_draws_inside_bit_equal_to_eager(dev):
+    """The vector env's and the gym env's resets on the card (their draw
+    graphs, bound to the env's one generator) equal the eager reset from a
+    fresh generator of each seed."""
+    from drone2d_tpu_torch.compat import make
+    from drone2d_tpu_torch.compat.vector_env import VectorEnvCore
+
+    vec = VectorEnvCore(256, seed=1, global_step=3_000_000, path_table_n=128)
+    for seed in (1, 4):
+        obs, _ = vec.reset(seed=seed)
+        _, want = Drone2DEnv(vec.cfg, dev).reset_batch(
+            torch.Generator(device=dev).manual_seed(seed), 256, 3e6)
+        assert np.array_equal(obs, want.cpu().numpy())
+    gym = make("corridor")
+    for seed in (2, 3):
+        gym.seed(seed)
+        obs = gym.reset()
+        _, want = Drone2DEnv(gym.cfg, dev).reset(torch.Generator(device=dev).manual_seed(seed))
+        assert np.array_equal(obs, want[0].cpu().numpy())
+
+
+def test_capture_survives_a_graph_freed_by_the_collector(dev):
+    """A captured graph left in a reference cycle, then a new capture with
+    the cyclic collector set to run at every allocation: the old graph is
+    freed before the recording, never during it (which would invalidate
+    the recording), and the new graph replays right."""
+    import gc
+
+    from drone2d_tpu_torch.utils import graphs
+
+    x = torch.arange(8.0, device=dev)
+
+    class Holder:
+        pass
+
+    held = Holder()
+    held.cycle = held
+    held.graph = graphs.Graph(lambda: x * 2, dev)
+    graphs.capture([held.graph])
+    del held
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        g = graphs.Graph(lambda: [x * k for k in range(64)], dev)
+        graphs.capture([g])
+    finally:
+        gc.set_threshold(*threshold)
+    assert torch.equal(g()[3], x * 3)

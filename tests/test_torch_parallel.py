@@ -106,11 +106,10 @@ def _learner(num_envs):
 
 def _rank_states(world):
     """The ranks' initial states as shard_init makes them, in one process,
-    sharing one weights object, optimizer and parent generator."""
+    sharing one weights object and optimizer, each with its own generator."""
     local = mesh.local_learner(_learner(W.GLOBAL_ENVS), world)
     states = [mesh.rank_state(local, W.SEED, r) for r in range(world)]
-    shared = dict(params=states[0].params, optimizer=states[0].optimizer,
-                  generator=states[0].generator)
+    shared = dict(params=states[0].params, optimizer=states[0].optimizer)
     return [dataclasses.replace(s, **shared) for s in states]
 
 
@@ -184,9 +183,9 @@ def four_ranks(tmp_path_factory):
 
 def test_world_one_shard_update_bit_equal_to_plain(tmp_path):
     """shard_init + shard_update over a 1-rank gloo group against the plain
-    update from a copy of the same state, with the rank's generator: the
-    weights, Adam's moments, every other state field and every metric
-    bit-equal."""
+    update from a copy of the same state, its generator a twin of the
+    rank's: the weights, Adam's moments, every other state field, every
+    metric and the generator's state after the update bit-equal."""
     group, dev = mesh.make_group("cpu", backend="gloo",
                                  init_method=f"file://{tmp_path / 'rendezvous'}",
                                  world_size=1, rank=0)
@@ -201,7 +200,7 @@ def test_world_one_shard_update_bit_equal_to_plain(tmp_path):
         twin.set_state(state.generator.get_state())
         plain = dataclasses.replace(
             state, params=params, optimizer=optim.adam(params.parameters(), 3e-4),
-            generator=mesh.rank_generator(twin, 0))
+            generator=twin)
         sharded_state, sharded = mesh.shard_update(group, learner)(state)
         plain_state, want = learner.update(plain)
     finally:
@@ -217,7 +216,8 @@ def test_world_one_shard_update_bit_equal_to_plain(tmp_path):
         assert torch.equal(sharded[k], want[k]), k
     for name in ("obs", "global_step", "episodes_total", "family_counts"):
         assert torch.equal(getattr(sharded_state, name), getattr(plain_state, name)), name
-    # the parent generator advanced by one draw, as the twin did
+    # the rank's generator advanced by one update's draws, as the twin did
+    assert sharded_state.generator is state.generator
     assert torch.equal(sharded_state.generator.get_state(), twin.get_state())
 
 
@@ -335,15 +335,15 @@ def test_eager_shard_update_matches_union_batch(world, two_ranks, four_ranks):
 
 
 def test_ranks_stay_replicated(two_ranks):
-    """After two updates both ranks hold the same weights, Adam moments,
-    parent generator and metrics, and their own envs."""
+    """After two updates both ranks hold the same weights, Adam moments and
+    metrics, and their own envs and generators."""
     a, b = two_ranks["shard"]
     for k in a["params"]:
         np.testing.assert_array_equal(a["params"][k], b["params"][k])
     for sa, sb in zip(a["adam"], b["adam"]):
         for k in sa:
             assert torch.equal(sa[k], sb[k])
-    assert torch.equal(a["generator"], b["generator"])
+    assert not torch.equal(a["generator"], b["generator"])
     assert a["metrics"] == b["metrics"]
     assert not torch.equal(a["obs"], b["obs"])
 
@@ -473,27 +473,29 @@ def test_ddp_check_script_under_torchrun():
 
 def test_shard_restore_resets_each_rank_slice(two_ranks):
     """Rank 0's checkpoint of the sharded state, restored on both ranks:
-    the step, the weights and the parent generator as saved and the same on
-    both, each rank's envs reset once, from its own seed: the parent
-    advances by that one seed's draw and no reset more."""
+    the step and the weights as saved and the same on both; each rank's
+    generators seeded from the checkpoint's stored seed as `shard_init`
+    seeds them from the run's (`rank_generator`, `env_generator`), its envs
+    reset once from its own env generator and its draw generator untouched."""
     a, b = (run["restored"] for run in two_ranks["shard"])
     saved = two_ranks["shard"][0]
     assert a["step"] == b["step"] == saved["global_step"] == a["global_step"]
     for k in saved["params"]:
         np.testing.assert_array_equal(a["params"][k], saved["params"][k])
         np.testing.assert_array_equal(b["params"][k], saved["params"][k])
-    parent = torch.Generator()
-    parent.set_state(saved["generator"])
-    seed = mesh.draw_seed(parent)
-    assert torch.equal(a["generator"], parent.get_state())
-    assert torch.equal(b["generator"], parent.get_state())
+    # the seed save_checkpoint stores: drawn from a twin of rank 0's generator
+    twin = torch.Generator()
+    twin.set_state(saved["generator"])
+    seed = int(torch.randint(0, 2**63 - 1, (), generator=twin))
     local = mesh.local_learner(W._learner(W.GLOBAL_ENVS), 2)
     step = torch.tensor(saved["global_step"], dtype=torch.float32)
     for rank, run in enumerate((a, b)):
-        _, obs = local.env.reset_batch(mesh.seeded(mesh.fold_in(seed, 1 + rank), "cpu"),
+        assert torch.equal(run["generator"], mesh.rank_generator(seed, rank, "cpu").get_state())
+        _, obs = local.env.reset_batch(mesh.env_generator(seed, rank, "cpu"),
                                        local.num_envs, step,
                                        local._reset_probs(local.initial_rehearsal_probs()))
         assert torch.equal(run["obs"], obs), rank
+    assert not torch.equal(a["generator"], b["generator"])
     assert not torch.equal(a["obs"], b["obs"])
 
 

@@ -24,7 +24,7 @@ from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState
 from drone2d_tpu_torch.learn.zoo import ZooTrainer, shard_population, train_zoo
 from drone2d_tpu_torch.models.policy import params_to_flat_dict
 from drone2d_tpu_torch.parallel.mesh import (
-    local_learner, make_group, rank_drawn, shard_init, shard_restore, shard_update)
+    local_learner, make_group, shard_init, shard_restore, shard_update)
 from drone2d_tpu_torch.utils.checkpoint import save_checkpoint
 
 ENV_KW = dict(path_table_n=128)
@@ -67,12 +67,12 @@ def job_shard(group, rank, directory):
 
 def job_shard_eager(group, rank, directory):
     """`job_shard`'s updates through the eager update, `update(...,
-    group=group)` with the rank's draws (`rank_drawn`): the update that
-    gloo runs on the card."""
+    group=group)` drawing from the rank's generator: the update that gloo
+    runs on the card."""
     learner = _learner(GLOBAL_ENVS)
     state = shard_init(group, learner, SEED)
     local = local_learner(learner, dist.get_world_size(group))
-    update = rank_drawn(functools.partial(local.update, group=group), rank)
+    update = functools.partial(local.update, group=group)
     metrics = []
     for _ in range(UPDATES):
         state, m = update(state)
