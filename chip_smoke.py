@@ -10,10 +10,13 @@ after: the PPO rollout of the flagship 27-128-128 actor-critic over 4096
 curriculum envs x 128 steps (twice, then GAE); training through
 `drone2d_tpu_torch.train` at the published flagship-scratch recipe
 (128-128 actor-critic, 1024 envs x 128 steps, 64 minibatches x 10 epochs,
-3 updates from scratch, then 1 after a resume); a population of 8 seeds of
-that recipe through `drone2d_tpu_torch.scripts.sweep --vmap 8` (2 updates)
-and the selection of its 16 candidates through
-`drone2d_tpu_torch.scripts.select_agents`; the flagship-finetune recipe
+3 updates from scratch, then 1 after a resume); the seed hunt's first
+checkpoint: a population of 8 seeds of that recipe through
+`drone2d_tpu_torch.scripts.sweep --vmap 8` (143 updates, 18,743,296 env
+steps a seed), the selection of its 16 candidates on the 12 scenarios x
+100 episodes through `drone2d_tpu_torch.scripts.select_agents`, and the
+8 finals held against the JAX package's hunt 7 at that checkpoint
+(`drone2d_tpu_torch.scripts.hunt_check`); the flagship-finetune recipe
 (adaptive rehearsal) warm-started from agent_s6006, 2 updates as
 published, then 6 with the corridor and crossing-wall mixes at 0.04 and the
 PLR controller on, then 1 after a resume; agent_s8004's eval campaign on
@@ -50,7 +53,7 @@ runner's captured chunks, the bench's captured chunks, the adapters'
 captured steps, each adapter also timed eagerly in turn), with their
 draws (reset templates, noise, shuffles) made inside the graphs from the
 generators the graphs are bound to; the `graphs` phase holds `update_jit`
-bit-equal to the eager `update` over 3 updates in each shuffle and for a
+bit-equal to the eager `update` over 2 updates in each shuffle and for a
 population of 8, the generators' states included, and the captured eval
 runner and a drawn-inside campaign bit-equal to the eager ones, and times
 each pair in turn; the data-parallel, bench, probe and graft paths are
@@ -112,7 +115,7 @@ from drone2d_tpu_torch.graft import GraftStep, graft_step
 from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.gae import compute_gae
 from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState, collect_steps
-from drone2d_tpu_torch.learn.zoo import ZooTrainer, shard_population
+from drone2d_tpu_torch.learn.zoo import ZooTrainer, shard_population, snapshot_schedule
 from drone2d_tpu_torch.models.policy import (
     ActorCritic,
     flat_dict_to_params,
@@ -127,6 +130,7 @@ from drone2d_tpu_torch.scripts import (
     bench_fused_policy,
     bench_kernels,
     bench_update_split,
+    hunt_check,
     package_agent,
     precision_campaign,
     probe_split_carry,
@@ -169,7 +173,9 @@ WARMUPS = 1
 # each shuffle and for the population of ZOO_SEEDS; the two timed in turn,
 # GRAPH_TIMING each; the captured eval runner against the eager one on
 # GRAPH_EVAL_SCENARIO x EVAL_EPISODES with agent_s8004, seed GRAPH_EVAL_SEED
-GRAPH_UPDATES, GRAPH_TIMING = 3, 2
+# (2 updates, to hold the script's time: the capturing call and a replay;
+# tests/test_torch_cuda.py holds 3 on the card)
+GRAPH_UPDATES, GRAPH_TIMING = 2, 2
 GRAPH_EVAL_SCENARIO, GRAPH_EVAL_SEED = "stage_2", 8004
 # the campaign draws' check: the eval scenario at a shorter episode cap
 CAMPAIGN_CHECK_STEPS = 256
@@ -191,11 +197,19 @@ CAMPAIGN_SCENARIOS = ("stage_2",)
 # a scenario's success rate against the committed campaign's: |z| <= Z_MAX
 Z_MAX = 3.0
 # the population: flagship-scratch, 8 seeds (the JAX package's population
-# size), 2 updates with a snapshot after the first, then the selection of
-# its 16 candidates on 2 scenarios
+# size), for the graphs phase's bit-equality checks
 ZOO_SEEDS = tuple(range(1, 9))
-ZOO_UPDATES = 2
-SELECT_SCENARIOS, SELECT_EPISODES = ("corridor", "stage_3"), 64
+# the seed hunt's first checkpoint (the zoo phase): the JAX package's hunt 7
+# recipe (`sweep --preset flagship-scratch --vmap 8 --total-timesteps
+# HUNT_TIMESTEPS --snapshots HUNT_SNAPSHOTS`) snapshots first after
+# HUNT_UPDATES = 143 updates, 18,743,296 env steps a seed; the population of
+# HUNT_SEEDS trains that far, then `select_agents` flies its 16 candidates
+# on the 12 scenarios x SELECT_EPISODES (seed SELECT_SEED), and
+# `hunt_check.compare` holds the 8 finals against the record's 24 seeds at
+# that checkpoint at p >= HUNT_ALPHA
+HUNT_SEEDS = tuple(range(7000, 7008))
+HUNT_TIMESTEPS, HUNT_SNAPSHOTS, HUNT_ALPHA = 150_000_000, 7, 0.01
+SELECT_EPISODES, SELECT_SEED = 100, 0
 # the four 128-128 agents of artifacts/, and the stacked campaigns: s8004 and
 # s22307 against their committed campaigns, the four imported reference
 # agents (64-64) against the conformance report
@@ -484,7 +498,8 @@ def phase_kernel_stacked(kernel_row: dict):
     the zoo's rollout step (8 members x 1024 envs, H=128: the four shipped
     128-128 agents and perturbed copies of them), the selection of the zoo's
     16 candidates (16 x SELECT_EPISODES, H=128: the four shipped agents and
-    12 perturbed copies, so member offsets reach 15 weight sets), the
+    12 perturbed copies, so member offsets reach 15 weight sets) and of the
+    whole hunt's 64 (64 x SELECT_EPISODES: the four and 60 copies), the
     stacked eval of s8004 and s22307 (2 x 1000, H=128) and of the four
     imported agents (4 x 200, H=64), and the AAPE survivorship's two stacks
     (1 x 250, H=128; 4 x 250, H=64).  Each against its plain version
@@ -495,8 +510,8 @@ def phase_kernel_stacked(kernel_row: dict):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
     shipped = [shipped_agent(a, dev) for a in SHIPPED]
-    perturbed = []  # three copies of each shipped agent, in rounds
-    for _ in range(3):
+    perturbed = []  # fifteen copies of each shipped agent, in rounds
+    for _ in range(15):
         for p in shipped:
             q = copy.deepcopy(p)
             with torch.no_grad():
@@ -506,8 +521,10 @@ def phase_kernel_stacked(kernel_row: dict):
             perturbed.append(q)
     shapes = {
         "s8_n1024": (shipped + perturbed[:4], 1024, "zoo rollout step, 8 seeds x 1024 envs"),
-        "s16_n64": (shipped + perturbed, SELECT_EPISODES,
-                    "selection, 16 candidates x SELECT_EPISODES episodes"),
+        "s16_n100": (shipped + perturbed[:12], SELECT_EPISODES,
+                     "selection, 16 candidates x SELECT_EPISODES episodes"),
+        "s64_n100": (shipped + perturbed, SELECT_EPISODES,
+                     "the whole hunt's selection, 64 candidates x SELECT_EPISODES episodes"),
         "a2_n1000": (shipped[:2], EVAL_EPISODES, "stacked eval, s8004 + s22307"),
         "a4_n200": ([imported_agent(a, dev) for a in IMPORTED], IMPORTED_EPISODES,
                     "stacked eval, the 4 imported agents"),
@@ -535,9 +552,14 @@ def phase_kernel_stacked(kernel_row: dict):
                      for j, g in enumerate(got))
         with torch.no_grad():
             ms = device_ms(lambda: fused_sample_action(stack, obs, noise))
+            # fewer repeats at the whole hunt's 64 members: one repeat of
+            # 64 launches, or of the plain version, takes ~1 s
+            big = S > 16
             unstacked_ms = device_ms(lambda: [fused_sample_action(v, obs[i], noise[i])
-                                              for i, v in enumerate(views)], launches=S)
-            plain_ms = device_ms(lambda: fused_sample_action_ref(stack, obs, noise), reps=5)
+                                              for i, v in enumerate(views)], launches=S,
+                                     reps=5 if big else 25)
+            plain_ms = device_ms(lambda: fused_sample_action_ref(stack, obs, noise), reps=5,
+                                 inner=4 if big else 20)
         w = kernel_work(S * n, h, members=S)
         bound, by_ops, t_tc = bounds(w)
         log(f"  S={S} x N={n} H={h} ({label}): max_abs_err {abs_err:.3e}, scaled "
@@ -1054,7 +1076,7 @@ def phase_train_timing(cfgs, state):
     batch; one update each with the 'exact' and 'affine' shuffles; the
     device's busy share over one SGD epoch under the profiler.  (The
     update's own time is the bench's train line, and its split by layer
-    `phase_zoo_timing`'s.)"""
+    `phase_finetune_timing`'s.)"""
     train_cfg, env_cfg, ppo_cfg = cfgs
     learner = PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs)
     state, batch, last_values, _ = learner.rollout(state)
@@ -1483,13 +1505,21 @@ def phase_campaign(kernel_row: dict):
 
 
 def phase_zoo(kernel_row: dict):
-    """The population path: `python -m drone2d_tpu_torch.scripts.sweep
-    --preset flagship-scratch --vmap 8`, ZOO_UPDATES updates with a snapshot
-    after the first, in a temporary directory: one kernel launch a rollout
-    step for all 8 seeds (n_steps + 1 an update, not 8 times that), finite
-    losses, members whose weights differ, the seed_<s>/ files; then
-    `select_agents` over the 16 candidates, each path with the kernel count
-    set to 0 just before it and read just after."""
+    """The population path at the seed hunt's first checkpoint: `python -m
+    drone2d_tpu_torch.scripts.sweep --preset flagship-scratch --vmap 8` over
+    HUNT_SEEDS for HUNT_UPDATES updates (18,743,296 env steps a seed, the
+    first snapshot of the JAX package's hunt 7, so the finals are that
+    checkpoint), with a snapshot after the first update, in a temporary
+    directory: one kernel launch a rollout step for all 8 seeds (n_steps + 1
+    an update, not 8 times that), finite losses, members whose weights
+    differ, the seed_<s>/ files; then `select_agents` over the 16 candidates
+    on the 12 scenarios x SELECT_EPISODES, each path with the kernel count
+    set to 0 just before it and read just after; then `hunt_check.compare`
+    of the 8 finals' 12-scenario mean success rates against the record's 24
+    seeds at that checkpoint, at p >= HUNT_ALPHA.  The record spans
+    0.146-0.612 there, so this gate catches only a gross failure to learn;
+    the whole hunt (`README.md`, 8 seeds x 150M steps, every checkpoint)
+    is the real check."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as d:
         return _zoo_in(d, kernel_row)
 
@@ -1505,10 +1535,14 @@ def _run_cli(main_fn, argv) -> str:
 
 
 def _zoo_in(d: str, kernel_row: dict):
+    t_phase = time.perf_counter()
     _, train_cfg, _, ppo_cfg = parse_args(["--preset", "flagship-scratch"])
     spu = ppo_cfg.n_steps * train_cfg.num_envs
-    argv = ["--preset", "flagship-scratch", "--vmap", str(len(ZOO_SEEDS)),
-            "--seeds", *map(str, ZOO_SEEDS), "--total-timesteps", str(ZOO_UPDATES * spu),
+    _, snaps = snapshot_schedule(HUNT_TIMESTEPS, spu, HUNT_SNAPSHOTS)
+    updates = min(snaps)
+    checkpoint = str(updates * spu)
+    argv = ["--preset", "flagship-scratch", "--vmap", str(len(HUNT_SEEDS)),
+            "--seeds", *map(str, HUNT_SEEDS), "--total-timesteps", checkpoint,
             "--snapshot-steps", str(spu), "--no-eval", "--out", d]
     log(f"zoo: python -m drone2d_tpu_torch.scripts.sweep {' '.join(argv)}")
     torch.cuda.synchronize()
@@ -1518,18 +1552,18 @@ def _zoo_in(d: str, kernel_row: dict):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = fused_sample_action.launches
-    log(f"  zoo: {len(ZOO_SEEDS)} seeds x {ZOO_UPDATES} updates in {dt:.2f} s (setup, "
+    log(f"  zoo: {len(HUNT_SEEDS)} seeds x {updates} updates in {dt:.2f} s (setup, "
         f"capture and snapshots included), kernel launches {launches} "
-        f"({launches / (ZOO_UPDATES + WARMUPS):.0f} a population update, the capture's "
+        f"({launches / (updates + WARMUPS):.0f} a population update, the capture's "
         f"warm-up included)")
-    if launches != (ZOO_UPDATES + WARMUPS) * (ppo_cfg.n_steps + 1):
+    if launches != (updates + WARMUPS) * (ppo_cfg.n_steps + 1):
         raise AssertionError(f"zoo: fused_sample_action launched {launches} times, want "
-                             f"({ZOO_UPDATES} + {WARMUPS}) x {ppo_cfg.n_steps + 1}")
-    m = re.search(rf"update {ZOO_UPDATES}/{ZOO_UPDATES} .*loss\s+(\S+)", text)
+                             f"({updates} + {WARMUPS}) x {ppo_cfg.n_steps + 1}")
+    m = re.search(rf"update {updates}/{updates} .*loss\s+(\S+)", text)
     if not m or not math.isfinite(float(m.group(1))):
         raise AssertionError("zoo: no finite loss in the last update's line")
     finals = []
-    for s in ZOO_SEEDS:
+    for s in HUNT_SEEDS:
         files = sorted(p.name for p in Path(d, f"seed_{s}").iterdir())
         if files != [f"ckpt_{spu}.npz", "new_agent.npz"]:
             raise AssertionError(f"zoo: seed_{s} holds {files}")
@@ -1540,12 +1574,12 @@ def _zoo_in(d: str, kernel_row: dict):
             if np.array_equal(finals[i]["pi0/w"], finals[j]["pi0/w"])]
     if same:
         raise AssertionError(f"zoo: members with equal weights {same}")
-    log(f"  seed_<s>/ckpt_{spu}.npz and new_agent.npz for all {len(ZOO_SEEDS)} seeds; the "
+    log(f"  seed_<s>/ckpt_{spu}.npz and new_agent.npz for all {len(HUNT_SEEDS)} seeds; the "
         "members' weights are finite and pairwise different")
     kernel_row["launches_by_path"]["zoo"] = launches
 
-    sel = [str(Path(d, f"seed_{s}")) for s in ZOO_SEEDS] + [
-        "--episodes", str(SELECT_EPISODES), "--scenarios", *SELECT_SCENARIOS,
+    sel = [str(Path(d, f"seed_{s}")) for s in HUNT_SEEDS] + [
+        "--episodes", str(SELECT_EPISODES), "--seed", str(SELECT_SEED),
         "--out", f"{d}/select.json"]
     log(f"selection: python -m drone2d_tpu_torch.scripts.select_agents {' '.join(sel)}")
     torch.cuda.synchronize()
@@ -1556,38 +1590,33 @@ def _zoo_in(d: str, kernel_row: dict):
     dt = time.perf_counter() - t0
     with open(f"{d}/select.json") as f:
         table = json.load(f)
-    if len(table) != 2 * len(ZOO_SEEDS) or any(
-            set(per) != set(SELECT_SCENARIOS) for per in table.values()):
+    if len(table) != 2 * len(HUNT_SEEDS) or any(
+            set(per) != set(ALL_SCENARIOS) for per in table.values()):
         raise AssertionError(f"selection: {len(table)} candidates in the summary")
-    log(f"  selection: {len(table)} candidates x {len(SELECT_SCENARIOS)} scenarios x "
+    log(f"  selection: {len(table)} candidates x {len(ALL_SCENARIOS)} scenarios x "
         f"{SELECT_EPISODES} episodes in {dt:.2f} s, kernel launches "
         f"{fused_sample_action.launches}")
     if fused_sample_action.launches <= 0:
         raise AssertionError("selection launched no kernel")
     kernel_row["launches_by_path"]["select"] = fused_sample_action.launches
 
-
-def phase_zoo_timing(scratch: PPOLearner, scratch_state):
-    """A population update of 8 seeds by layer, in turn with a single-seed
-    flagship-scratch update (`scripts/bench_update_split.update_split`), and
-    the population's env steps a second against the single seed's."""
-    _, train_cfg, env_cfg, ppo_cfg = parse_args(["--preset", "flagship-scratch"])
-    trainer = ZooTrainer(env_cfg, ppo_cfg, train_cfg.num_envs)
-    out = bench_update_split.update_split(
-        {"flagship-scratch": (scratch, scratch_state),
-         "flagship-scratch population of 8": (trainer, trainer.init(ZOO_SEEDS))},
-        reps=1, log=log)
-    single, pop = out["flagship-scratch"][4], out["flagship-scratch population of 8"][4]
-    log(f"population of {len(ZOO_SEEDS)}: {pop:.1f} env steps a second against a single "
-        f"seed's {single:.1f}, taken in turn: {pop / single:.2f}x (eager)")
-    jit = bench_update_split.update_jit_seconds(
-        {label: (learner, out[label][0]) for label, learner in (
-            ("flagship-scratch", scratch), ("flagship-scratch population of 8", trainer))},
-        reps=1, log=log)
-    single, pop = (min(jit[k][2])
-                   for k in ("flagship-scratch", "flagship-scratch population of 8"))
-    log(f"population of {len(ZOO_SEEDS)} under update_jit: {len(ZOO_SEEDS) * single / pop:.2f}x "
-        f"a single seed's env steps a second, taken in turn")
+    # the finals are the hunt's first checkpoint: held against the record's
+    with open(hunt_check.REFERENCE) as f:
+        ref_table = hunt_check.seed_table(json.load(f))
+    port_table = {checkpoint: hunt_check.seed_table(table)["final"]}
+    result = hunt_check.compare(port_table, ref_table, [checkpoint], HUNT_ALPHA)
+    for line in hunt_check.format_report(result).splitlines():
+        log(f"  | {line}")
+    r = result["rows"][0]
+    log(f"  hunt's first checkpoint ({checkpoint} env steps a seed): the port's "
+        f"{r['port']['n']} seeds' median mean SR {r['port']['median']:.4f} against the JAX "
+        f"package's hunt 7 {r['reference']['median']:.4f} ({r['reference']['n']} seeds), "
+        f"Mann-Whitney U {r['u']:.1f}, two-sided p {r['p']:.5f} (gate p >= {HUNT_ALPHA}); "
+        f"cover-12 {hunt_check.cover_count(table)} of {len(table)}; "
+        f"{time.perf_counter() - t_phase:.1f} s for the phase")
+    if not result["ok"]:
+        raise AssertionError(f"zoo: the hunt's first checkpoint differs from the JAX "
+                             f"package's hunt 7: p {r['p']:.5f} < {HUNT_ALPHA}")
 
 
 def phase_precision(kernel_row: dict):
@@ -2859,7 +2888,6 @@ def main():
     timed("split", phase_split, row)
     timed("profiling", phase_profiling, row, *slice_state)
     timed("zoo", phase_zoo, row)
-    timed("zoo_timing", phase_zoo_timing, learner, state)
     timed("rehearsal_reset", phase_rehearsal_reset)
     timed("finetune", phase_finetune, row)
     timed("finetune_timing", phase_finetune_timing, learner, state)

@@ -150,6 +150,32 @@ def save_zoo(state: ZooState, seeds: Sequence[int], out_root: str,
     return paths
 
 
+def snapshot_schedule(
+    total_timesteps: int,
+    spu: int,
+    snapshots: int = 3,
+    snapshot_steps: Optional[Sequence[int]] = None,
+) -> tuple[int, set[int]]:
+    """`train_zoo`'s schedule: the number of updates that reach
+    `total_timesteps` at `spu` env steps a member an update, and the updates
+    after which it writes a `ckpt_<update * spu>.npz` snapshot: `snapshots`
+    evenly spaced ones (Python's round, half to even), or, given
+    `snapshot_steps`, the first update whose env steps reach each."""
+    n_updates = max((total_timesteps + spu - 1) // spu, 1)
+    if snapshot_steps is not None:
+        # a requested step at or after the end still writes its
+        # ckpt_<step>.npz at the last update
+        snap_at = {min(max(-(-int(s) // spu), 1), n_updates) for s in snapshot_steps}
+    else:
+        # within [1, n_updates - 1]: update n_updates is the final save; a
+        # short run gets fewer (distinct) snapshots than asked
+        snap_at = {
+            min(max(round(n_updates * (i + 1) / (snapshots + 1)), 1), n_updates - 1)
+            for i in range(snapshots)
+        } if n_updates > 1 else set()
+    return n_updates, snap_at
+
+
 def train_zoo(
     env_cfg: EnvConfig,
     ppo_cfg: PPOConfig,
@@ -203,18 +229,7 @@ def train_zoo(
     if init_params and lead:
         print(f"warm-started {len(seeds)} members from {init_params}")
     spu = trainer.batch_size  # env steps a member an update
-    n_updates = max((total_timesteps + spu - 1) // spu, 1)
-    if snapshot_steps is not None:
-        # a requested step at or after the end still writes its
-        # ckpt_<step>.npz at the last update
-        snap_at = {min(max(-(-int(s) // spu), 1), n_updates) for s in snapshot_steps}
-    else:
-        # within [1, n_updates - 1]: update n_updates is the final save; a
-        # short run gets fewer (distinct) snapshots than asked
-        snap_at = {
-            min(max(round(n_updates * (i + 1) / (snapshots + 1)), 1), n_updates - 1)
-            for i in range(snapshots)
-        } if n_updates > 1 else set()
+    n_updates, snap_at = snapshot_schedule(total_timesteps, spu, snapshots, snapshot_steps)
 
     adaptive = env_cfg.adaptive_rehearsal and env_cfg.rehearsal_adapt
     plr_last = (state.family_counts.cpu().numpy(), state.family_wins.cpu().numpy())

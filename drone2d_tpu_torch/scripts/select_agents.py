@@ -25,6 +25,7 @@ import json
 import os
 import re
 import sys
+import time
 
 import numpy as np
 
@@ -33,6 +34,7 @@ from drone2d_tpu_torch.eval.barplots import PUBLISHED_AAPE, PUBLISHED_SR
 from drone2d_tpu_torch.eval.episode import run_episodes_multi
 from drone2d_tpu_torch.eval.run import load_params, scenario_config
 from drone2d_tpu_torch.models.policy import stack_params
+from drone2d_tpu_torch.ops.fused_policy import fused_sample_action
 from drone2d_tpu_torch.utils.checkpoint import checkpoint_steps
 
 
@@ -90,6 +92,7 @@ def main(argv=None) -> None:
     stack = stack_params([load_params(path, step, device=args.device)
                           for _, path, step in cands])
 
+    t0, launches = time.perf_counter(), fused_sample_action.launches
     table = {label: {} for label, _, _ in cands}
     for scen in scenarios:
         cfg = scenario_config(scen)
@@ -103,6 +106,9 @@ def main(argv=None) -> None:
                 avg_ape=float(res.ape[i].mean()),
             )
         print(f"  {scen}: done (best SR {sr.max():.2f})")
+    print(f"flew {len(cands)} candidates on {len(scenarios)} scenarios in "
+          f"{time.perf_counter() - t0:.1f} s, {fused_sample_action.launches - launches} "
+          "policy-kernel launches")
 
     # ranking: published-SR coverage first, then published-AAPE coverage
     # (at or below the published "Reactive" AAPE), then mean SR

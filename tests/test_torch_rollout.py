@@ -213,7 +213,7 @@ def test_package_imports_no_jax():
                  "scripts.bench_update_split", "scripts.roofline_probe",
                  "scripts.roofline_update", "scripts.bench_kernels",
                  "scripts.bench_fused_policy", "scripts.profile_step",
-                 "scripts.probe_split_carry"):
+                 "scripts.probe_split_carry", "scripts.hunt_check"):
         assert f"drone2d_tpu_torch.{name}" in loaded, name
 
 
