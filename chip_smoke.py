@@ -19,7 +19,11 @@ steps a seed), the selection of its 16 candidates on the 12 scenarios x
 (`drone2d_tpu_torch.scripts.hunt_check`); the flagship-finetune recipe
 (adaptive rehearsal) warm-started from agent_s6006, 2 updates as
 published, then 6 with the corridor and crossing-wall mixes at 0.04 and the
-PLR controller on, then 1 after a resume; agent_s8004's eval campaign on
+PLR controller on, then 1 after a resume; the rehearsal fine-tune hunt's
+first checkpoint: 8 seeds of that recipe from agent_s6006 through `sweep
+--vmap 8` (23 updates, 3,014,656 env steps a seed), its 8 finals selected
+on the 12 scenarios x 100 and held against the JAX package's hunt 8 at that
+checkpoint; agent_s8004's eval campaign on
 stage_2 through `drone2d_tpu_torch.eval.run.evaluate`; the reference's own
 surface: an SB3 zip imported onto the card, the vector env core at 1024
 envs (256 steps through the kernel), the gym env at B=1 (200 steps), the
@@ -31,8 +35,8 @@ the four imported reference agents on 4 of them at 200.
 Data parallelism (`drone2d_tpu_torch.parallel`) at flagship-scratch: a
 world-1 NCCL group's captured update (`update_jit` with the group, NCCL's
 collectives inside the CUDA graphs) bit-equal to the eager data-parallel
-update, the plain update and the plain `update_jit`, the four timed in
-turn; and two gloo ranks on the one card (2 x 512 envs, eager: gloo cannot
+update and the plain `update_jit`, the three timed in turn; and two gloo
+ranks on the one card (2 x 512 envs, eager: gloo cannot
 be captured) against the union batch replayed in one process, with the
 population split over them; the split-carry step
 against the template step at 4096 envs; a corridor campaign's flight
@@ -53,8 +57,8 @@ runner's captured chunks, the bench's captured chunks, the adapters'
 captured steps, each adapter also timed eagerly in turn), with their
 draws (reset templates, noise, shuffles) made inside the graphs from the
 generators the graphs are bound to; the `graphs` phase holds `update_jit`
-bit-equal to the eager `update` over 2 updates in each shuffle and for a
-population of 8, the generators' states included, and the captured eval
+bit-equal to the eager `update` over 2 updates in the recipe's shuffle and
+for a population of 8, the generators' states included, and the captured eval
 runner and a drawn-inside campaign bit-equal to the eager ones, and times
 each pair in turn; the data-parallel, bench, probe and graft paths are
 held bit-equal to their eager draws too, and one replay of each drawn path
@@ -68,7 +72,7 @@ rows, fresh episodes after each end, the rehearsal families' frequencies
 and walls, the controller's budget, each success rate against the
 committed campaigns, the JAX package's and the conformance report by a
 two-proportion z-test, files on disk), times each phase, the updates by
-layer (a population's in turn with one seed's) and a campaign step, and
+layer and a campaign step, and
 prints one JSON line of kernel measurements and, last, one JSON status
 line.  Any failure raises, so the exit code is 0 only when every phase
 passed.  Needs CUDA; imports no JAX, and needs no gymnasium, pygame,
@@ -170,12 +174,14 @@ TRAIN_UPDATES = 3  # from scratch, then 1 more after a resume
 # work, whose n_steps + 1 kernel launches are real and counted
 WARMUPS = 1
 # the graphs phase: update_jit against update over GRAPH_UPDATES updates in
-# each shuffle and for the population of ZOO_SEEDS; the two timed in turn,
-# GRAPH_TIMING each; the captured eval runner against the eager one on
-# GRAPH_EVAL_SCENARIO x EVAL_EPISODES with agent_s8004, seed GRAPH_EVAL_SEED
-# (2 updates, to hold the script's time: the capturing call and a replay;
-# tests/test_torch_cuda.py holds 3 on the card)
-GRAPH_UPDATES, GRAPH_TIMING = 2, 2
+# the recipe's shuffle (timeperm) and for the population of ZOO_SEEDS; the
+# two timed in turn, GRAPH_TIMING each; the captured eval runner against the
+# eager one on GRAPH_EVAL_SCENARIO x EVAL_EPISODES with agent_s8004, seed
+# GRAPH_EVAL_SEED (cut to hold the script's time: 2 updates, the capturing
+# call and a replay, in timeperm alone; `train_timing` runs one captured
+# update in exact and in affine, and tests/test_torch_cuda.py holds 3
+# updates in every shuffle bit-equal on the card)
+GRAPH_UPDATES, GRAPH_TIMING = 2, 1
 GRAPH_EVAL_SCENARIO, GRAPH_EVAL_SEED = "stage_2", 8004
 # the campaign draws' check: the eval scenario at a shorter episode cap
 CAMPAIGN_CHECK_STEPS = 256
@@ -209,6 +215,17 @@ ZOO_SEEDS = tuple(range(1, 9))
 # that checkpoint at p >= HUNT_ALPHA
 HUNT_SEEDS = tuple(range(7000, 7008))
 HUNT_TIMESTEPS, HUNT_SNAPSHOTS, HUNT_ALPHA = 150_000_000, 7, 0.01
+# the rehearsal fine-tune hunt's first checkpoint (the finetune_hunt phase):
+# the JAX package's hunt 8 recipe (`sweep --preset flagship-finetune
+# --init-params artifacts/agent_s6006/new_agent.npz --vmap 8
+# --total-timesteps FT_HUNT_TIMESTEPS --snapshot-steps
+# FT_HUNT_SNAPSHOT_STEPS`) snapshots first after 23 updates, 3,014,656 env
+# steps a seed; FT_HUNT_SEEDS train that far, `select_agents --finals-only`
+# flies the 8 finals, and `hunt_check.compare` holds them against the
+# record's 8 seeds at that checkpoint at p >= HUNT_ALPHA
+FT_HUNT_SEEDS = tuple(range(8000, 8008))
+FT_HUNT_TIMESTEPS = 30_000_000
+FT_HUNT_SNAPSHOT_STEPS = tuple(3_000_000 * k for k in range(1, 10))
 SELECT_EPISODES, SELECT_SEED = 100, 0
 # the four 128-128 agents of artifacts/, and the stacked campaigns: s8004 and
 # s22307 against their committed campaigns, the four imported reference
@@ -496,11 +513,14 @@ def imported_agent(name: str, device):
 def phase_kernel_stacked(kernel_row: dict):
     """The kernel with the agent axis, at the stacked shapes of the paths:
     the zoo's rollout step (8 members x 1024 envs, H=128: the four shipped
-    128-128 agents and perturbed copies of them), the selection of the zoo's
+    128-128 agents and perturbed copies of them), the selection of the
+    fine-tune hunt's 8 finals (8 x SELECT_EPISODES) and of the zoo's
     16 candidates (16 x SELECT_EPISODES, H=128: the four shipped agents and
-    12 perturbed copies, so member offsets reach 15 weight sets) and of the
-    whole hunt's 64 (64 x SELECT_EPISODES: the four and 60 copies), the
-    stacked eval of s8004 and s22307 (2 x 1000, H=128) and of the four
+    12 perturbed copies, so member offsets reach 15 weight sets), of the
+    whole hunt's 64 (64 x SELECT_EPISODES: the four and 60 copies) and of
+    the fine-tune hunt's 80 (the four and 76 copies), the stacked eval of
+    s8004 and s22307 (2 x 1000, H=128), the precision campaign of a hunt's 3
+    finalists (3 x 1000, H=128) and the stacked eval of the four
     imported agents (4 x 200, H=64), and the AAPE survivorship's two stacks
     (1 x 250, H=128; 4 x 250, H=64).  Each against its plain version
     (scaled errors <= TOL, log-prob equal), each member's slice bit-equal
@@ -510,8 +530,8 @@ def phase_kernel_stacked(kernel_row: dict):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
     shipped = [shipped_agent(a, dev) for a in SHIPPED]
-    perturbed = []  # fifteen copies of each shipped agent, in rounds
-    for _ in range(15):
+    perturbed = []  # nineteen copies of each shipped agent, in rounds
+    for _ in range(19):
         for p in shipped:
             q = copy.deepcopy(p)
             with torch.no_grad():
@@ -521,11 +541,19 @@ def phase_kernel_stacked(kernel_row: dict):
             perturbed.append(q)
     shapes = {
         "s8_n1024": (shipped + perturbed[:4], 1024, "zoo rollout step, 8 seeds x 1024 envs"),
+        "s8_n100": (shipped + perturbed[:4], SELECT_EPISODES,
+                    "the fine-tune hunt's selection of its 8 finals x SELECT_EPISODES "
+                    "episodes"),
         "s16_n100": (shipped + perturbed[:12], SELECT_EPISODES,
                      "selection, 16 candidates x SELECT_EPISODES episodes"),
-        "s64_n100": (shipped + perturbed, SELECT_EPISODES,
+        "s64_n100": (shipped + perturbed[:60], SELECT_EPISODES,
                      "the whole hunt's selection, 64 candidates x SELECT_EPISODES episodes"),
+        "s80_n100": (shipped + perturbed, SELECT_EPISODES,
+                     "the fine-tune hunt's selection, 80 candidates x SELECT_EPISODES "
+                     "episodes"),
         "a2_n1000": (shipped[:2], EVAL_EPISODES, "stacked eval, s8004 + s22307"),
+        "a3_n1000": (shipped[:3], EVAL_EPISODES,
+                     "precision campaign of a hunt's 3 finalists"),
         "a4_n200": ([imported_agent(a, dev) for a in IMPORTED], IMPORTED_EPISODES,
                     "stacked eval, the 4 imported agents"),
         "a1_n250": (shipped[:1], AAPE_EPISODES, "aape, the focal agent's stack of one"),
@@ -552,8 +580,8 @@ def phase_kernel_stacked(kernel_row: dict):
                      for j, g in enumerate(got))
         with torch.no_grad():
             ms = device_ms(lambda: fused_sample_action(stack, obs, noise))
-            # fewer repeats at the whole hunt's 64 members: one repeat of
-            # 64 launches, or of the plain version, takes ~1 s
+            # fewer repeats at a whole hunt's 64 or 80 members: one repeat
+            # of 64 launches, or of the plain version, takes ~1 s
             big = S > 16
             unstacked_ms = device_ms(lambda: [fused_sample_action(v, obs[i], noise[i])
                                               for i, v in enumerate(views)], launches=S,
@@ -893,7 +921,7 @@ def phase_graphs(cfgs, kernel_row: dict):
     """The compiled programs: `update_jit` (its draws made inside its
     rollout graph) against `update` from twin starts over GRAPH_UPDATES
     consecutive updates at flagship-scratch (1024 envs x 128 steps, 64 x 10
-    SGD) in each shuffle, and for a population of the 8 ZOO_SEEDS: weights,
+    SGD, timeperm), and for a population of the 8 ZOO_SEEDS: weights,
     Adam's whole state, metrics, envs, counters and the generators' states
     bit-equal after each update, 2 (n_steps + 1) launches for the capturing
     call and n_steps + 1 for each later one; the programs' nodes, capture
@@ -921,9 +949,8 @@ def phase_graphs(cfgs, kernel_row: dict):
     log(f"graphs: update_jit against update, {GRAPH_UPDATES} updates from twin starts "
         f"(flagship-scratch, {N} envs x {ppo_cfg.n_steps} steps, {ppo_cfg.num_minibatches} x "
         f"{ppo_cfg.n_epochs} SGD):")
-    runs = [(f"shuffle {sh}", PPOLearner(env_cfg, ppo_cfg.replace(shuffle=sh), N),
-             lambda learner: learner.init(train_cfg.seed))
-            for sh in ("timeperm", "exact", "affine")]
+    runs = [(f"shuffle {ppo_cfg.shuffle}", PPOLearner(env_cfg, ppo_cfg, N),
+             lambda learner: learner.init(train_cfg.seed))]
     runs.append((f"population of {len(ZOO_SEEDS)}", ZooTrainer(env_cfg, ppo_cfg, N),
                  lambda trainer: trainer.init(ZOO_SEEDS)))
     timing = None
@@ -1076,7 +1103,7 @@ def phase_train_timing(cfgs, state):
     batch; one update each with the 'exact' and 'affine' shuffles; the
     device's busy share over one SGD epoch under the profiler.  (The
     update's own time is the bench's train line, and its split by layer
-    `phase_finetune_timing`'s.)"""
+    the `probes` phase's `bench_update_split`.)"""
     train_cfg, env_cfg, ppo_cfg = cfgs
     learner = PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs)
     state, batch, last_values, _ = learner.rollout(state)
@@ -1342,20 +1369,6 @@ def _finetune_in(d: str, kernel_row: dict):
     return launches
 
 
-def phase_finetune_timing(scratch: PPOLearner, scratch_state):
-    """The flagship-finetune update by layer, warm from agent_s6006 as
-    `train` starts it, in turn with flagship-scratch's
-    (`scripts/bench_update_split.update_split`)."""
-    _, train_cfg, env_cfg, ppo_cfg = parse_args(["--preset", "flagship-finetune"])
-    learner = PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs)
-    state = learner.init(train_cfg.seed, params=flat_dict_to_params(
-        dict(np.load(FINETUNE_AGENT)), device="cuda"))
-    runs = {"flagship-scratch": (scratch, scratch_state), "flagship-finetune": (learner, state)}
-    out = bench_update_split.update_split(dict(runs), reps=1, log=log)
-    bench_update_split.update_jit_seconds(
-        {label: (lrn, out[label][0]) for label, (lrn, _) in runs.items()}, reps=1, log=log)
-
-
 def _episode_errors(got, want) -> dict:
     """Scaled differences of two EpisodeResults' float fields."""
     errs = {}
@@ -1507,21 +1520,37 @@ def phase_campaign(kernel_row: dict):
 def phase_zoo(kernel_row: dict):
     """The population path at the seed hunt's first checkpoint: `python -m
     drone2d_tpu_torch.scripts.sweep --preset flagship-scratch --vmap 8` over
-    HUNT_SEEDS for HUNT_UPDATES updates (18,743,296 env steps a seed, the
-    first snapshot of the JAX package's hunt 7, so the finals are that
-    checkpoint), with a snapshot after the first update, in a temporary
-    directory: one kernel launch a rollout step for all 8 seeds (n_steps + 1
-    an update, not 8 times that), finite losses, members whose weights
-    differ, the seed_<s>/ files; then `select_agents` over the 16 candidates
-    on the 12 scenarios x SELECT_EPISODES, each path with the kernel count
-    set to 0 just before it and read just after; then `hunt_check.compare`
-    of the 8 finals' 12-scenario mean success rates against the record's 24
-    seeds at that checkpoint, at p >= HUNT_ALPHA.  The record spans
-    0.146-0.612 there, so this gate catches only a gross failure to learn;
-    the whole hunt (`README.md`, 8 seeds x 150M steps, every checkpoint)
-    is the real check."""
+    HUNT_SEEDS to the first snapshot of the JAX package's hunt 7 (143
+    updates, 18,743,296 env steps a seed), with a snapshot after the first
+    update, then `select_agents` over the 16 candidates and the 8 finals
+    held against the record's 24 seeds at that checkpoint (`_hunt_in`).
+    The record spans 0.146-0.612 there, so this gate catches only a gross
+    failure to learn; the whole hunt (`README.md`, 8 seeds x 150M steps,
+    every checkpoint) is the real check."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as d:
-        return _zoo_in(d, kernel_row)
+        _hunt_in(d, kernel_row, path=("zoo", "select"), preset="flagship-scratch",
+                 seeds=HUNT_SEEDS, schedule=(HUNT_TIMESTEPS, dict(snapshots=HUNT_SNAPSHOTS)),
+                 reference=hunt_check.REFERENCE, snapshot_first=True)
+
+
+def phase_finetune_hunt(kernel_row: dict):
+    """The rehearsal fine-tune hunt's first checkpoint: `sweep --preset
+    flagship-finetune --init-params artifacts/agent_s6006/new_agent.npz
+    --vmap 8` over FT_HUNT_SEEDS to the first snapshot of the JAX package's
+    hunt 8 (23 updates, 3,014,656 env steps a seed; every member warm-started
+    from its own copy of agent_s6006, the fixed weighted stage mix drawn
+    inside the captured population graph), no snapshot, then `select_agents
+    --finals-only` over the 8 finals and `hunt_check.compare` against the
+    record's 8 seeds at that checkpoint (`_hunt_in`).  Hunt 8's seeds sit at
+    0.853-0.873 there, so a port that fine-tunes a few hundredths worse
+    shows; the whole hunt (`README.md`, 8 seeds x 30M steps, every
+    checkpoint, both selection RNGs) is the real check."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ft_hunt_") as d:
+        _hunt_in(d, kernel_row, path=("finetune_hunt", "finetune_select"),
+                 preset="flagship-finetune", seeds=FT_HUNT_SEEDS,
+                 schedule=(FT_HUNT_TIMESTEPS, dict(snapshot_steps=FT_HUNT_SNAPSHOT_STEPS)),
+                 reference=hunt_check.REFERENCE_H8, snapshot_first=False,
+                 init_params=FINETUNE_AGENT)
 
 
 def _run_cli(main_fn, argv) -> str:
@@ -1534,17 +1563,35 @@ def _run_cli(main_fn, argv) -> str:
     return buf.getvalue()
 
 
-def _zoo_in(d: str, kernel_row: dict):
+def _hunt_in(d: str, kernel_row: dict, *, path, preset, seeds, schedule, reference,
+             snapshot_first, init_params=None):
+    """A hunt's first checkpoint in `d`: `sweep --preset PRESET --vmap S` over
+    `seeds` to the first snapshot of `schedule` ((total timesteps,
+    `snapshot_schedule`'s keywords): the JAX package's hunt at `reference`,
+    so the finals are that checkpoint), warm-started
+    from `init_params` if given, with a snapshot after the first update if
+    `snapshot_first` (else none): one kernel launch a rollout step for all
+    S seeds ((updates + 1) x (n_steps + 1) launches, the capture's warm-up
+    included), a finite loss, the seed_<s>/ files, members whose weights
+    are finite and pairwise different (and moved from the warm start); then
+    `select_agents` over the candidates (the finals alone without the first
+    snapshot) on the 12 scenarios x SELECT_EPISODES, each path with the
+    kernel count set to 0 just before it and read just after
+    (`launches_by_path` keys `path`); then `hunt_check.compare` of the
+    finals' 12-scenario mean success rates against the record's seeds at
+    that checkpoint, at p >= HUNT_ALPHA."""
     t_phase = time.perf_counter()
-    _, train_cfg, _, ppo_cfg = parse_args(["--preset", "flagship-scratch"])
+    name, select_name = path
+    _, train_cfg, _, ppo_cfg = parse_args(["--preset", preset])
     spu = ppo_cfg.n_steps * train_cfg.num_envs
-    _, snaps = snapshot_schedule(HUNT_TIMESTEPS, spu, HUNT_SNAPSHOTS)
-    updates = min(snaps)
+    updates = min(snapshot_schedule(schedule[0], spu, **schedule[1])[1])
     checkpoint = str(updates * spu)
-    argv = ["--preset", "flagship-scratch", "--vmap", str(len(HUNT_SEEDS)),
-            "--seeds", *map(str, HUNT_SEEDS), "--total-timesteps", checkpoint,
-            "--snapshot-steps", str(spu), "--no-eval", "--out", d]
-    log(f"zoo: python -m drone2d_tpu_torch.scripts.sweep {' '.join(argv)}")
+    argv = ["--preset", preset, "--vmap", str(len(seeds)), "--seeds", *map(str, seeds),
+            "--total-timesteps", checkpoint, "--no-eval", "--out", d]
+    argv += ["--snapshot-steps", str(spu)] if snapshot_first else ["--snapshots", "0"]
+    if init_params is not None:
+        argv += ["--init-params", str(init_params)]
+    log(f"{name}: python -m drone2d_tpu_torch.scripts.sweep {' '.join(argv)}")
     torch.cuda.synchronize()
     fused_sample_action.launches = 0
     t0 = time.perf_counter()
@@ -1552,35 +1599,42 @@ def _zoo_in(d: str, kernel_row: dict):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = fused_sample_action.launches
-    log(f"  zoo: {len(HUNT_SEEDS)} seeds x {updates} updates in {dt:.2f} s (setup, "
+    log(f"  {name}: {len(seeds)} seeds x {updates} updates in {dt:.2f} s (setup, "
         f"capture and snapshots included), kernel launches {launches} "
         f"({launches / (updates + WARMUPS):.0f} a population update, the capture's "
         f"warm-up included)")
     if launches != (updates + WARMUPS) * (ppo_cfg.n_steps + 1):
-        raise AssertionError(f"zoo: fused_sample_action launched {launches} times, want "
+        raise AssertionError(f"{name}: fused_sample_action launched {launches} times, want "
                              f"({updates} + {WARMUPS}) x {ppo_cfg.n_steps + 1}")
     m = re.search(rf"update {updates}/{updates} .*loss\s+(\S+)", text)
     if not m or not math.isfinite(float(m.group(1))):
-        raise AssertionError("zoo: no finite loss in the last update's line")
+        raise AssertionError(f"{name}: no finite loss in the last update's line")
+    if init_params is not None and f"warm-started {len(seeds)} members from" not in text:
+        raise AssertionError(f"{name}: the sweep did not warm-start from {init_params}")
+    want_files = ([f"ckpt_{spu}.npz"] if snapshot_first else []) + ["new_agent.npz"]
     finals = []
-    for s in HUNT_SEEDS:
+    for s in seeds:
         files = sorted(p.name for p in Path(d, f"seed_{s}").iterdir())
-        if files != [f"ckpt_{spu}.npz", "new_agent.npz"]:
-            raise AssertionError(f"zoo: seed_{s} holds {files}")
+        if files != want_files:
+            raise AssertionError(f"{name}: seed_{s} holds {files}")
         finals.append(dict(np.load(Path(d, f"seed_{s}", "new_agent.npz"))))
     if not all(np.isfinite(v).all() for f in finals for v in f.values()):
-        raise AssertionError("zoo: non-finite weights")
+        raise AssertionError(f"{name}: non-finite weights")
     same = [(i, j) for i in range(len(finals)) for j in range(i)
             if np.array_equal(finals[i]["pi0/w"], finals[j]["pi0/w"])]
+    if init_params is not None:
+        start = dict(np.load(init_params))["pi0/w"]
+        same += [(i, "start") for i, f in enumerate(finals) if np.array_equal(f["pi0/w"], start)]
     if same:
-        raise AssertionError(f"zoo: members with equal weights {same}")
-    log(f"  seed_<s>/ckpt_{spu}.npz and new_agent.npz for all {len(HUNT_SEEDS)} seeds; the "
-        "members' weights are finite and pairwise different")
-    kernel_row["launches_by_path"]["zoo"] = launches
+        raise AssertionError(f"{name}: members with equal weights {same}")
+    log(f"  seed_<s>/{' and '.join(want_files)} for all {len(seeds)} seeds; the members' "
+        f"weights are finite and pairwise different"
+        + ("" if init_params is None else f", each moved from {Path(init_params).parent.name}'s"))
+    kernel_row["launches_by_path"][name] = launches
 
-    sel = [str(Path(d, f"seed_{s}")) for s in HUNT_SEEDS] + [
+    sel = [str(Path(d, f"seed_{s}")) for s in seeds] + [
         "--episodes", str(SELECT_EPISODES), "--seed", str(SELECT_SEED),
-        "--out", f"{d}/select.json"]
+        "--out", f"{d}/select.json"] + ([] if snapshot_first else ["--finals-only"])
     log(f"selection: python -m drone2d_tpu_torch.scripts.select_agents {' '.join(sel)}")
     torch.cuda.synchronize()
     fused_sample_action.launches = 0
@@ -1590,7 +1644,7 @@ def _zoo_in(d: str, kernel_row: dict):
     dt = time.perf_counter() - t0
     with open(f"{d}/select.json") as f:
         table = json.load(f)
-    if len(table) != 2 * len(HUNT_SEEDS) or any(
+    if len(table) != len(want_files) * len(seeds) or any(
             set(per) != set(ALL_SCENARIOS) for per in table.values()):
         raise AssertionError(f"selection: {len(table)} candidates in the summary")
     log(f"  selection: {len(table)} candidates x {len(ALL_SCENARIOS)} scenarios x "
@@ -1598,25 +1652,26 @@ def _zoo_in(d: str, kernel_row: dict):
         f"{fused_sample_action.launches}")
     if fused_sample_action.launches <= 0:
         raise AssertionError("selection launched no kernel")
-    kernel_row["launches_by_path"]["select"] = fused_sample_action.launches
+    kernel_row["launches_by_path"][select_name] = fused_sample_action.launches
 
     # the finals are the hunt's first checkpoint: held against the record's
-    with open(hunt_check.REFERENCE) as f:
+    with open(reference) as f:
         ref_table = hunt_check.seed_table(json.load(f))
     port_table = {checkpoint: hunt_check.seed_table(table)["final"]}
     result = hunt_check.compare(port_table, ref_table, [checkpoint], HUNT_ALPHA)
     for line in hunt_check.format_report(result).splitlines():
         log(f"  | {line}")
     r = result["rows"][0]
+    ref_name = hunt_check.reference_name(reference)
     log(f"  hunt's first checkpoint ({checkpoint} env steps a seed): the port's "
-        f"{r['port']['n']} seeds' median mean SR {r['port']['median']:.4f} against the JAX "
-        f"package's hunt 7 {r['reference']['median']:.4f} ({r['reference']['n']} seeds), "
+        f"{r['port']['n']} seeds' median mean SR {r['port']['median']:.4f} against "
+        f"{ref_name} {r['reference']['median']:.4f} ({r['reference']['n']} seeds), "
         f"Mann-Whitney U {r['u']:.1f}, two-sided p {r['p']:.5f} (gate p >= {HUNT_ALPHA}); "
         f"cover-12 {hunt_check.cover_count(table)} of {len(table)}; "
         f"{time.perf_counter() - t_phase:.1f} s for the phase")
     if not result["ok"]:
-        raise AssertionError(f"zoo: the hunt's first checkpoint differs from the JAX "
-                             f"package's hunt 7: p {r['p']:.5f} < {HUNT_ALPHA}")
+        raise AssertionError(f"{name}: the hunt's first checkpoint differs from {ref_name}: "
+                             f"p {r['p']:.5f} < {HUNT_ALPHA}")
 
 
 def phase_precision(kernel_row: dict):
@@ -2128,13 +2183,14 @@ def phase_ddp(kernel_row: dict):
     (`parallel.make_group`; no other backend is tried), DDP_UPDATES updates
     each from twin states, taken in turn: the captured `shard_update` (the
     main path: `update_jit` with the group, NCCL's collectives inside the
-    CUDA graphs), the eager `PPOLearner.update(..., group=group)`, and the
-    plain `PPOLearner.update` and `update_jit`, each drawing from a twin of
-    the rank's own generator (`mesh.rank_generator`), the captured one
-    inside its rollout graph; the weights, Adam's state, every metric and
-    the generator's state after bit-equal to all three, n_steps
-    + 1 launches a replayed update (twice that for the capturing one), the
-    four updates' seconds in turn; and the collectives' share of an eager
+    CUDA graphs), the eager `PPOLearner.update(..., group=group)` and the
+    plain `update_jit`, each drawing from a twin of the rank's own generator
+    (`mesh.rank_generator`), the captured ones inside their rollout graphs;
+    the weights, Adam's state, every metric and the generator's state after
+    bit-equal to both (the plain eager `update` is held bit-equal to
+    `update_jit` in the `graphs` phase), n_steps + 1 launches a replayed
+    update (twice that for the capturing one), the three updates' seconds
+    in turn; and the collectives' share of an eager
     SGD step (an epoch's SGD with and without the group, in turn, and the
     NCCL kernels' device time under the profiler)."""
     _, train_cfg, env_cfg, ppo_cfg = parse_args(["--preset", "flagship-scratch"])
@@ -2150,7 +2206,6 @@ def phase_ddp(kernel_row: dict):
         # the references, each from a twin of the rank's generator
         paths = {"captured": mesh.shard_update(group, learner),
                  "eager": functools.partial(learner.update, group=group),
-                 "update": learner.update,
                  "update_jit": learner.update_jit}
         states = {k: _copy_state(state, torch.Generator(device=dev).set_state(gen))
                   for k in paths}
@@ -2159,7 +2214,7 @@ def phase_ddp(kernel_row: dict):
         counts = []
         torch.cuda.synchronize()
         fused_sample_action.launches = 0
-        for _ in range(DDP_UPDATES):  # the four in turn, update by update
+        for _ in range(DDP_UPDATES):  # the three in turn, update by update
             for name, fn in paths.items():
                 before = fused_sample_action.launches
                 torch.cuda.synchronize()
@@ -2173,7 +2228,7 @@ def phase_ddp(kernel_row: dict):
         launches = sum(counts)
         got = states["captured"]
         equal = {}
-        for ref in ("eager", "update", "update_jit"):
+        for ref in ("eager", "update_jit"):
             want = states[ref]
             equal[ref] = {
                 "weights": all(torch.equal(a, b) for a, b in zip(
@@ -2198,7 +2253,7 @@ def phase_ddp(kernel_row: dict):
             raise AssertionError(f"ddp: captured world-1 update {equal}, launches {counts}")
 
         steps = ppo_cfg.n_steps * train_cfg.num_envs
-        log("  seconds an update (host clock, synchronized, the four in turn; the first "
+        log("  seconds an update (host clock, synchronized, the three in turn; the first "
             "of captured and update_jit includes its capture): " + "; ".join(
                 f"{k} {[round(x, 4) for x in v]}" for k, v in secs.items()))
         log("  train_steps_per_s from the last update of each: " + ", ".join(
@@ -2890,7 +2945,7 @@ def main():
     timed("zoo", phase_zoo, row)
     timed("rehearsal_reset", phase_rehearsal_reset)
     timed("finetune", phase_finetune, row)
-    timed("finetune_timing", phase_finetune_timing, learner, state)
+    timed("finetune_hunt", phase_finetune_hunt, row)
     timed("eval_reference", phase_eval_reference)
     timed("eval_breakdown", phase_eval_breakdown)
     timed("compat", phase_compat, row)

@@ -1,10 +1,15 @@
-"""Learning parity of a seed hunt: its selection record against the JAX
-package's hunt 7 (`artifacts/campaigns/r4/r4_h7_scratch_pp8_select.json`,
-flagship-scratch, seeds 7000-7023, 12 scenarios x 100 episodes).
+"""Learning parity of a seed hunt: its selection record against one of the
+JAX package's hunts, read as data from the repo's artifacts: hunt 7
+(`REFERENCE`, `artifacts/campaigns/r4/r4_h7_scratch_pp8_select.json`,
+flagship-scratch, seeds 7000-7023) or hunt 8 (`REFERENCE_H8`,
+`artifacts/campaigns/r4/r4_h8_gen2_select.json`, flagship-finetune from
+agent_s6006, seeds 8000-8007), each 12 scenarios x 100 episodes.
 
     python -m drone2d_tpu_torch.scripts.hunt_check PORT_SELECT.json \\
-        [--reference artifacts/campaigns/r4/r4_h7_scratch_pp8_select.json] \\
-        [--alpha 0.01] [--checkpoints 18743296 ... final]
+        [--reference artifacts/campaigns/r4/r4_h8_gen2_select.json] \\
+        [--alpha 0.01] [--checkpoints 3014656 ... final] \\
+        [--finalists PORT_SELECT777.json] \\
+        [--n1000 PORT_FINALISTS_N1000.json ...]
 
 Both records are `select_agents --out` JSON: label `seed_<s>/<step>` or
 `seed_<s>/final` -> scenario -> success_rate.  Each seed's score at a
@@ -15,7 +20,18 @@ two-sided p, then each side's cover-12 count (candidates at or above every
 published success rate, as `select_agents` counts coverage).  It exits
 non-zero unless every checkpoint's p >= alpha / (number compared): a
 Bonferroni family-wise alpha.  A checkpoint that either side lacks is
-refused.  Host only: numpy and scipy, no device.
+refused.
+
+`--finalists OTHER` lists the both-RNG finalists of PORT_SELECT and a second
+selection record of the same candidates under another eval RNG (`select_agents
+--seed 777`): the candidates that cover all 12 published success rates in
+both, ranked by the lower of their two 12-scenario means, the first
+N_FINALISTS (`finalists`; on hunt 8's two records this picks the record's
+own three n=1000 finalists).
+`--n1000 REPORT ...` prints each agent of a `precision_campaign` report:
+its mean, its cover count and whether it is strict (all 12 at or above the
+published rates, stage_1 without a failed episode).  Host only: numpy and
+scipy, no device.
 """
 
 from __future__ import annotations
@@ -32,10 +48,23 @@ from scipy.stats import mannwhitneyu
 from drone2d_tpu_torch.config import ALL_SCENARIOS
 from drone2d_tpu_torch.eval.barplots import PUBLISHED_SR
 
-# the JAX package's hunt 7, read as data from the repo's artifacts
-REFERENCE = os.path.join(
+# the JAX package's hunts, read as data from the repo's artifacts
+_RECORDS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "artifacts", "campaigns", "r4", "r4_h7_scratch_pp8_select.json")
+    "artifacts", "campaigns", "r4")
+# hunt 7: flagship-scratch, 24 seeds x 150M steps
+REFERENCE = os.path.join(_RECORDS, "r4_h7_scratch_pp8_select.json")
+# hunt 8: flagship-finetune from agent_s6006, 8 seeds x 30M steps (made agent_s8004)
+REFERENCE_H8 = os.path.join(_RECORDS, "r4_h8_gen2_select.json")
+_HUNTS = {
+    "r4_h7_scratch_pp8_select.json": "the JAX package's hunt 7 (flagship-scratch), eval seed 0",
+    "r4_h8_gen2_select.json":
+        "the JAX package's hunt 8 (flagship-finetune from agent_s6006), eval seed 0",
+    "r4_h8_gen2_select777.json":
+        "the JAX package's hunt 8 (flagship-finetune from agent_s6006), eval seed 777",
+}
+# hunt 8 took its three both-RNG finalists to n=1000
+N_FINALISTS = 3
 
 
 def checkpoint_key(ckpt: str):
@@ -52,17 +81,68 @@ def seed_table(record: dict) -> dict[str, dict[str, float]]:
         missing = [s for s in ALL_SCENARIOS if s not in per]
         if missing:
             raise ValueError(f"{label} lacks scenarios {missing}")
-        table[ckpt][seed] = float(np.mean([per[s]["success_rate"] for s in ALL_SCENARIOS]))
+        table[ckpt][seed] = mean_sr(per)
     return dict(table)
 
 
 def cover_count(record: dict, finals_only: bool = False) -> int:
     """Candidates whose success rate meets or beats every published one."""
-    return sum(
-        all(per[s]["success_rate"] >= sr for s, sr in PUBLISHED_SR.items())
-        for label, per in record.items()
-        if not finals_only or label.endswith("/final")
-    )
+    return sum(covers(per) for label, per in record.items()
+               if not finals_only or label.endswith("/final"))
+
+
+def cover(per: dict) -> int:
+    """How many of a candidate's scenarios are at or above their published
+    success rate."""
+    return sum(per[s]["success_rate"] >= sr for s, sr in PUBLISHED_SR.items())
+
+
+def covers(per: dict) -> bool:
+    """A candidate's scenarios all at or above their published success rate."""
+    return cover(per) == len(PUBLISHED_SR)
+
+
+def mean_sr(per: dict) -> float:
+    return float(np.mean([per[s]["success_rate"] for s in ALL_SCENARIOS]))
+
+
+def finalists(record: dict, other: dict, n: int | None = N_FINALISTS) -> list[dict]:
+    """The both-RNG finalists of two selection records of the same candidates:
+    those that cover all 12 in both, ranked by the lower of their two means
+    (then by label), the first `n` (all of them for None).  Each is
+    {"label", "means": (record's, other's), "low"}.  Raises ValueError when
+    the records hold different candidates."""
+    if set(record) != set(other):
+        raise ValueError(f"the records hold different candidates: "
+                         f"{sorted(set(record) ^ set(other))}")
+    both = [dict(label=k, means=(mean_sr(record[k]), mean_sr(other[k])))
+            for k in record if covers(record[k]) and covers(other[k])]
+    for f in both:
+        f["low"] = min(f["means"])
+    return sorted(both, key=lambda f: (-f["low"], f["label"]))[:n]
+
+
+def agent_file(label: str) -> str:
+    """A candidate label's file under a sweep's `--out` directory:
+    `seed_<s>/<step>` -> `seed_<s>/ckpt_<step>.npz`, `seed_<s>/final` ->
+    `seed_<s>/new_agent.npz`."""
+    seed, ckpt = label.split("/")
+    return f"{seed}/new_agent.npz" if ckpt == "final" else f"{seed}/ckpt_{ckpt}.npz"
+
+
+def strict_rows(report: dict) -> list[dict]:
+    """Each agent of a `precision_campaign` report: its 12-scenario mean,
+    its cover count, stage_1's successes of its episodes, and `strict`:
+    every scenario at or above its published rate, stage_1 with no failed
+    episode."""
+    rows = []
+    for agent, per in report["agents"].items():
+        s1 = per["stage_1"]
+        rows.append(dict(
+            agent=agent, mean=mean_sr(per), cover=cover(per),
+            stage_1=(int(s1["successes"]), int(s1["episodes"])),
+            strict=covers(per) and s1["successes"] == s1["episodes"]))
+    return rows
 
 
 def compare(port_table, ref_table, checkpoints=None, alpha: float = 0.01) -> dict:
@@ -113,6 +193,31 @@ def format_report(result: dict) -> str:
     return "\n".join(lines)
 
 
+def reference_name(path: str) -> str:
+    """What a reference record is: the JAX package's hunt it holds, named by
+    its file, or its path for a record that is not one of them."""
+    return _HUNTS.get(os.path.basename(path), os.path.relpath(path))
+
+
+def format_finalists(record: dict, other: dict) -> str:
+    every = finalists(record, other, None)
+    lines = [f"both-RNG cover-12: {len(every)} of {len(record)} candidates; "
+             f"{sum(f['low'] > 0.87 for f in every)} of them with both means above 0.87",
+             f"finalists (the first {N_FINALISTS} by the lower of the two means):"]
+    for f in every[:N_FINALISTS]:
+        lines.append(f"  {f['label']:>20s}  means {f['means'][0]:.4f} / {f['means'][1]:.4f}"
+                     f"  low {f['low']:.4f}  -> {agent_file(f['label'])}")
+    return "\n".join(lines)
+
+
+def format_strict(report: dict) -> str:
+    lines = [f"n={report['episodes']} (seed {report['seed']}, chunk {report['chunk']}):"]
+    for r in strict_rows(report):
+        lines.append(f"  {r['agent']}: mean {r['mean']:.4f}, cover {r['cover']}/12, "
+                     f"stage_1 {r['stage_1'][0]}/{r['stage_1'][1]}, strict {r['strict']}")
+    return "\n".join(lines)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -122,6 +227,12 @@ def main(argv=None) -> int:
                    help="family-wise alpha, split over the checkpoints (Bonferroni)")
     p.add_argument("--checkpoints", nargs="+", default=None,
                    help="env-step labels and/or 'final' (default: the reference's)")
+    p.add_argument("--finalists", default=None, metavar="OTHER_SELECT.json",
+                   help="the same candidates' select_agents record under another eval "
+                   "RNG: list the both-RNG finalists of the two port records")
+    p.add_argument("--n1000", nargs="+", default=(), metavar="REPORT.json",
+                   help="precision_campaign reports: each agent's mean, cover count "
+                   "and whether it is strict")
     args = p.parse_args(argv)
     with open(args.port) as f:
         port = json.load(f)
@@ -132,13 +243,27 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"hunt_check: {e}", file=sys.stderr)
         return 2
-    print(f"port {args.port} against reference {os.path.relpath(args.reference)}, "
-          f"two-sided Mann-Whitney U, family-wise alpha {args.alpha}")
+    print(f"port {args.port} against {reference_name(args.reference)} "
+          f"({os.path.relpath(args.reference)}), two-sided Mann-Whitney U, "
+          f"family-wise alpha {args.alpha}")
     print(format_report(result))
     for name, record in (("port", port), ("reference", ref)):
         print(f"cover-12 ({name}): {cover_count(record)} of {len(record)} candidates, "
               f"{cover_count(record, finals_only=True)} of "
               f"{sum(k.endswith('/final') for k in record)} finals")
+    if args.finalists:
+        with open(args.finalists) as f:
+            other = json.load(f)
+        try:
+            text = format_finalists(port, other)
+        except ValueError as e:
+            print(f"hunt_check: {e}", file=sys.stderr)
+            return 2
+        print(f"port {args.port} and {args.finalists}:")
+        print(text)
+    for path in args.n1000:
+        with open(path) as f:
+            print(f"{path}: " + format_strict(json.load(f)))
     return 0 if result["ok"] else 1
 
 

@@ -9,8 +9,9 @@ schedule gives exactly the record's step keys at the recipe's shape; the
 gate passes on the record's own seeds 7000-7007 against 7008-7023, fails on
 those 8 moved down by 0.08 success rate, refuses a checkpoint that a side
 lacks, and imports nothing of the JAX package; the committed port-trained
-agent flies `stage_2` alike in both packages (two-proportion |z| <= 3, the
-bar of tests/test_sb3_import.py).
+agents (hunt 7's top final and the fine-tune hunt's best n=1000 finalist,
+tests/test_torch_finetune_hunt.py) fly `stage_2` alike in both packages
+(two-proportion |z| <= 3, the bar of tests/test_sb3_import.py).
 """
 
 import glob
@@ -29,7 +30,7 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 RECORD_STEPS = ["18743296", "37486592", "56229888", "74973184",
                 "93847552", "112590848", "131334144"]
 CHECKPOINTS = RECORD_STEPS + ["final"]
-Z_MAX = 3.0
+Z_MAX, Z_EPISODES = 3.0, 200
 
 
 @pytest.fixture(scope="module")
@@ -152,21 +153,33 @@ def test_hunt_check_imports_no_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
-def test_port_trained_agent_flies_alike_in_both_packages():
-    """The hunt's top-ranked final, trained by the port on the card, flown
-    on stage_2 x 200 stochastic episodes by the JAX package's
-    `run_episodes` and by the port's, both on the CPU: the success rates
-    agree within two-proportion |z| <= 3."""
+@pytest.fixture(scope="module")
+def jax_stage2():
+    """The JAX package's `run_episodes` on stage_2 x Z_EPISODES stochastic
+    episodes from PRNGKey(0), its runner compiled once for every agent of
+    one architecture (the weights are an argument of the program)."""
     import jax
 
-    from drone2d_tpu.eval.episode import run_episodes as jax_run_episodes
+    from drone2d_tpu.eval.episode import _episode_runner, _to_results
     from drone2d_tpu.eval.run import load_params as jax_load_params, scenario_config as jax_cfg
+
+    one_episode = _episode_runner(jax_cfg("stage_2"), False, False, 0)
+    program = jax.jit(jax.vmap(one_episode, in_axes=(None, 0)))
+    keys = jax.random.split(jax.random.PRNGKey(0), Z_EPISODES)
+    return lambda path: _to_results(*program(jax_load_params(path), keys))
+
+
+def _flies_alike(jax_stage2, pattern):
+    """The committed agent at `pattern`, flown on stage_2 x Z_EPISODES
+    stochastic episodes by the JAX package and by the port, both on the
+    CPU: the success rates agree within two-proportion |z| <= Z_MAX.
+    Returns the port's successes."""
     from drone2d_tpu_torch.eval.episode import run_episodes
     from drone2d_tpu_torch.eval.run import load_params, scenario_config
 
-    (path,) = glob.glob(os.path.join(ROOT, "artifacts", "agent_torch_h7_s*", "new_agent.npz"))
-    n = 200
-    want = jax_run_episodes(jax_cfg("stage_2"), jax_load_params(path), jax.random.PRNGKey(0), n)
+    (path,) = glob.glob(os.path.join(ROOT, "artifacts", pattern, "new_agent.npz"))
+    n = Z_EPISODES
+    want = jax_stage2(path)
     got = run_episodes(scenario_config("stage_2"), load_params(path, device="cpu"), 0, n,
                        device="cpu")
     s_jax, s_port = int(np.asarray(want.success).sum()), int(got.success.sum())
@@ -174,5 +187,23 @@ def test_port_trained_agent_flies_alike_in_both_packages():
     sigma = np.sqrt(pooled * (1 - pooled) * 2 / n)
     z = 0.0 if sigma == 0 else (s_port - s_jax) / n / sigma
     assert abs(z) <= Z_MAX, (s_port, s_jax, z)
+    return s_port
+
+
+def test_port_trained_agent_flies_alike_in_both_packages(jax_stage2):
+    """The hunt's top-ranked final, trained by the port on the card, flown
+    on stage_2 x 200 stochastic episodes by the JAX package's
+    `run_episodes` and by the port's, both on the CPU: the success rates
+    agree within two-proportion |z| <= 3."""
+    s_port = _flies_alike(jax_stage2, "agent_torch_h7_s*")
     # a trained agent, not a random one
-    assert s_port / n >= 0.5, s_port
+    assert s_port / Z_EPISODES >= 0.5, s_port
+
+
+def test_port_finetuned_agent_flies_alike_in_both_packages(jax_stage2):
+    """The fine-tune hunt's best n=1000 finalist, fine-tuned by the port on
+    the card from agent_s6006 and shipped through `package_agent`, flown on
+    stage_2 x 200 by both packages: |z| <= 3 (the runner compiled once for
+    both hunts' agents, which share one architecture)."""
+    s_port = _flies_alike(jax_stage2, "agent_torch_h8_s*")
+    assert s_port / Z_EPISODES >= 0.9, s_port
