@@ -23,7 +23,11 @@ PLR controller on, then 1 after a resume; the rehearsal fine-tune hunt's
 first checkpoint: 8 seeds of that recipe from agent_s6006 through `sweep
 --vmap 8` (23 updates, 3,014,656 env steps a seed), its 8 finals selected
 on the 12 scenarios x 100 and held against the JAX package's hunt 8 at that
-checkpoint; agent_s8004's eval campaign on
+checkpoint; the reference's own training shape (`sb3_shape`: the JAX
+package's SB3-shape hunt's population, 8 seeds x 14 envs x 2048-step
+rollouts, 448 minibatches of 64, exact, 64-64, its rollout captured in
+chunks): one update at one epoch bit-equal to the eager one, the capture's
+costs and 2 replayed updates at 10 epochs; agent_s8004's eval campaign on
 stage_2 through `drone2d_tpu_torch.eval.run.evaluate`; the reference's own
 surface: an SB3 zip imported onto the card, the vector env core at 1024
 envs (256 steps through the kernel), the gym env at B=1 (200 steps), the
@@ -34,8 +38,8 @@ campaigns through `eval.episode.run_episodes_multi`: s8004 + s22307 on the
 the four imported reference agents on 4 of them at 200.
 Data parallelism (`drone2d_tpu_torch.parallel`) at flagship-scratch: a
 world-1 NCCL group's captured update (`update_jit` with the group, NCCL's
-collectives inside the CUDA graphs) bit-equal to the eager data-parallel
-update and the plain `update_jit`, the three timed in turn; and two gloo
+collectives inside the CUDA graphs) bit-equal to the plain `update_jit`,
+the two timed in turn; and two gloo
 ranks on the one card (2 x 512 envs, eager: gloo cannot
 be captured) against the union batch replayed in one process, with the
 population split over them; the split-carry step
@@ -58,9 +62,9 @@ captured steps, each adapter also timed eagerly in turn), with their
 draws (reset templates, noise, shuffles) made inside the graphs from the
 generators the graphs are bound to; the `graphs` phase holds `update_jit`
 bit-equal to the eager `update` over 2 updates in the recipe's shuffle and
-for a population of 8, the generators' states included, and the captured eval
-runner and a drawn-inside campaign bit-equal to the eager ones, and times
-each pair in turn; the data-parallel, bench, probe and graft paths are
+for a population of 8, the generators' states included, and a drawn-inside
+campaign flown by the captured eval runner bit-equal to the eager draws and
+runner; the data-parallel, bench, probe and graft paths are
 held bit-equal to their eager draws too, and one replay of each drawn path
 runs with every wait for the card refused
 (`torch.cuda.set_sync_debug_mode("error")`).
@@ -84,7 +88,6 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
-import functools
 import io
 import json
 import math
@@ -118,7 +121,7 @@ from drone2d_tpu_torch.eval.run import evaluate, load_params, scenario_config
 from drone2d_tpu_torch.graft import GraftStep, graft_step
 from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.gae import compute_gae
-from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState, collect_steps
+from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState, collect_steps, warmup_launches
 from drone2d_tpu_torch.learn.zoo import ZooTrainer, shard_population, snapshot_schedule
 from drone2d_tpu_torch.models.policy import (
     ActorCritic,
@@ -138,6 +141,7 @@ from drone2d_tpu_torch.scripts import (
     package_agent,
     precision_campaign,
     probe_split_carry,
+    probe_update_capture,
     profile_step,
     roofline_probe,
     roofline_update,
@@ -174,14 +178,15 @@ TRAIN_UPDATES = 3  # from scratch, then 1 more after a resume
 # work, whose n_steps + 1 kernel launches are real and counted
 WARMUPS = 1
 # the graphs phase: update_jit against update over GRAPH_UPDATES updates in
-# the recipe's shuffle (timeperm) and for the population of ZOO_SEEDS; the
-# two timed in turn, GRAPH_TIMING each; the captured eval runner against the
-# eager one on GRAPH_EVAL_SCENARIO x EVAL_EPISODES with agent_s8004, seed
-# GRAPH_EVAL_SEED (cut to hold the script's time: 2 updates, the capturing
-# call and a replay, in timeperm alone; `train_timing` runs one captured
-# update in exact and in affine, and tests/test_torch_cuda.py holds 3
-# updates in every shuffle bit-equal on the card)
-GRAPH_UPDATES, GRAPH_TIMING = 2, 1
+# the recipe's shuffle (timeperm) and for the population of ZOO_SEEDS; a
+# drawn-inside campaign on GRAPH_EVAL_SCENARIO x EVAL_EPISODES with
+# agent_s8004, seeds GRAPH_EVAL_SEED and the next (cut to hold the script's
+# time: 2 updates, the capturing call and a replay, in timeperm alone, not
+# timed against `update`, and no full-length eval runner against the eager
+# one; `train_timing` runs one captured update in exact and in affine, and
+# tests/test_torch_cuda.py holds 3 updates in every shuffle and the eval
+# runner in every policy bit-equal on the card)
+GRAPH_UPDATES = 2
 GRAPH_EVAL_SCENARIO, GRAPH_EVAL_SEED = "stage_2", 8004
 # the campaign draws' check: the eval scenario at a shorter episode cap
 CAMPAIGN_CHECK_STEPS = 256
@@ -227,6 +232,14 @@ FT_HUNT_SEEDS = tuple(range(8000, 8008))
 FT_HUNT_TIMESTEPS = 30_000_000
 FT_HUNT_SNAPSHOT_STEPS = tuple(3_000_000 * k for k in range(1, 10))
 SELECT_EPISODES, SELECT_SEED = 100, 0
+# the reference's own training shape (the sb3_shape phase; SB3's
+# `PPO("MlpPolicy")` defaults, which PPOConfig's are): the JAX package's
+# SB3-shape hunt's population (SB3_SEEDS x SB3_ENVS envs) at 2048-step
+# rollouts and 448 minibatches of 64, exact, 64-64, 10 epochs; one update at
+# one epoch held bit-equal to the eager one, SB3_TIMED replays timed at 10
+SB3_SEEDS, SB3_ENVS = probe_update_capture.SEEDS, 14
+SB3_PPO = PPOConfig(n_steps=2048, num_minibatches=448)
+SB3_TIMED = 2
 # the four 128-128 agents of artifacts/, and the stacked campaigns: s8004 and
 # s22307 against their committed campaigns, the four imported reference
 # agents (64-64) against the conformance report
@@ -513,7 +526,10 @@ def imported_agent(name: str, device):
 def phase_kernel_stacked(kernel_row: dict):
     """The kernel with the agent axis, at the stacked shapes of the paths:
     the zoo's rollout step (8 members x 1024 envs, H=128: the four shipped
-    128-128 agents and perturbed copies of them), the selection of the
+    128-128 agents and perturbed copies of them), the SB3-shape hunt's
+    rollout step (8 x 14, H=64: its fresh members) and selection (32 x
+    SELECT_EPISODES, H=64: the four imported agents and 28 perturbed
+    copies), the selection of the
     fine-tune hunt's 8 finals (8 x SELECT_EPISODES) and of the zoo's
     16 candidates (16 x SELECT_EPISODES, H=128: the four shipped agents and
     12 perturbed copies, so member offsets reach 15 weight sets), of the
@@ -530,15 +546,27 @@ def phase_kernel_stacked(kernel_row: dict):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
     shipped = [shipped_agent(a, dev) for a in SHIPPED]
-    perturbed = []  # nineteen copies of each shipped agent, in rounds
-    for _ in range(19):
-        for p in shipped:
-            q = copy.deepcopy(p)
-            with torch.no_grad():
-                for leaf in q.parameters():
-                    leaf.add_(0.05 * leaf.abs().mean() * torch.randn(leaf.shape, generator=gen,
-                                                                     device=dev))
-            perturbed.append(q)
+    def perturbed_copies(agents, rounds):
+        """`rounds` perturbed copies of each of `agents`, in rounds."""
+        out = []
+        for _ in range(rounds):
+            for p in agents:
+                q = copy.deepcopy(p)
+                with torch.no_grad():
+                    for leaf in q.parameters():
+                        leaf.add_(0.05 * leaf.abs().mean() * torch.randn(
+                            leaf.shape, generator=gen, device=dev))
+                out.append(q)
+        return out
+
+    perturbed = perturbed_copies(shipped, 19)
+    imported = [imported_agent(a, dev) for a in IMPORTED]
+    # the SB3-shape hunt's population as it starts (fresh 64-64 members of
+    # its seeds) and its selection's 32 candidates (the four imported 64-64
+    # agents and 28 perturbed copies)
+    sb3_members = [ActorCritic(27, 2, SB3_PPO.hidden_sizes,
+                               generator=torch.Generator().manual_seed(s), device=dev)
+                   for s in SB3_SEEDS]
     shapes = {
         "s8_n1024": (shipped + perturbed[:4], 1024, "zoo rollout step, 8 seeds x 1024 envs"),
         "s8_n100": (shipped + perturbed[:4], SELECT_EPISODES,
@@ -551,13 +579,18 @@ def phase_kernel_stacked(kernel_row: dict):
         "s80_n100": (shipped + perturbed, SELECT_EPISODES,
                      "the fine-tune hunt's selection, 80 candidates x SELECT_EPISODES "
                      "episodes"),
+        "s8_n14_h64": (sb3_members, SB3_ENVS,
+                       "the SB3-shape hunt's rollout step, 8 seeds x 14 envs"),
+        "s32_n100_h64": (imported + perturbed_copies(imported, 7), SELECT_EPISODES,
+                         "the SB3-shape hunt's selection, 32 candidates x SELECT_EPISODES "
+                         "episodes"),
         "a2_n1000": (shipped[:2], EVAL_EPISODES, "stacked eval, s8004 + s22307"),
         "a3_n1000": (shipped[:3], EVAL_EPISODES,
                      "precision campaign of a hunt's 3 finalists"),
-        "a4_n200": ([imported_agent(a, dev) for a in IMPORTED], IMPORTED_EPISODES,
+        "a4_n200": (imported, IMPORTED_EPISODES,
                     "stacked eval, the 4 imported agents"),
         "a1_n250": (shipped[:1], AAPE_EPISODES, "aape, the focal agent's stack of one"),
-        "a4_n250": ([imported_agent(a, dev) for a in IMPORTED], AAPE_EPISODES,
+        "a4_n250": (imported, AAPE_EPISODES,
                     "aape, the 4 imported agents' stack"),
     }
     log(f"kernel with the agent axis vs plain (|d| <= {TOL} * max(1, max |plain|); each "
@@ -882,28 +915,6 @@ def _train_in(d: str, kernel_row: dict):
     return (train_cfg, env_cfg, ppo_cfg), state
 
 
-def _states_equal(a, b) -> dict:
-    """Which parts of two learner states are bit-equal: the weights, Adam's
-    whole state (moments and step counts), the envs with obs and counters,
-    and the generators' states (a population's, one a member)."""
-    def same(xs, ys):
-        xs, ys = list(xs), list(ys)
-        return len(xs) == len(ys) and all(
-            (x is None and y is None) or torch.equal(x, y) for x, y in zip(xs, ys))
-
-    def gens(s):
-        return [g.get_state() for g in (s.generators if hasattr(s, "generators")
-                                        else [s.generator])]
-
-    return {
-        "weights": same(a.params.parameters(), b.params.parameters()),
-        "adam": same(graphs.optimizer_tensors(a.optimizer), graphs.optimizer_tensors(b.optimizer)),
-        "envs": same(*(graphs.leaves((s.env_state, s.obs, s.global_step, s.episodes_total,
-                                      s.family_counts, s.family_wins)) for s in (a, b))),
-        "generators": same(gens(a), gens(b)),
-    }
-
-
 @contextlib.contextmanager
 def no_host_sync():
     """Inside the block any operation that waits for the card raises
@@ -925,15 +936,15 @@ def phase_graphs(cfgs, kernel_row: dict):
     Adam's whole state, metrics, envs, counters and the generators' states
     bit-equal after each update, 2 (n_steps + 1) launches for the capturing
     call and n_steps + 1 for each later one; the programs' nodes, capture
-    and instantiation seconds and pool bytes; the two updates timed in turn
-    (GRAPH_TIMING each), the rollout and SGD graphs replayed alone, the host
-    launches and device ops of an update each way under the profiler, one
-    more update replayed with every wait for the card refused
-    (`no_host_sync`); the captured eval runner against the eager one (agent_s8004 on
-    GRAPH_EVAL_SCENARIO x EVAL_EPISODES, stochastic and deterministic):
-    every field of the results equal, and an eval step's time each way.
-    The path's launches are those of the captured calls: the eager
-    references' are counted apart."""
+    and instantiation seconds and pool bytes; the rollout and SGD graphs
+    replayed alone, the host launches and device ops of an update each way
+    under the profiler, one more update replayed with every wait for the
+    card refused (`no_host_sync`); a campaign drawn inside its graph and
+    flown by the captured runner (agent_s8004 on GRAPH_EVAL_SCENARIO x
+    EVAL_EPISODES at a CAMPAIGN_CHECK_STEPS cap, two seeds) against the
+    eager draws and runner: every field of the results equal.  The path's
+    launches are those of the captured calls: the eager references' are
+    counted apart."""
     train_cfg, env_cfg, ppo_cfg = cfgs
     n, N = ppo_cfg.n_steps + 1, train_cfg.num_envs
     torch.cuda.synchronize()
@@ -965,7 +976,7 @@ def phase_graphs(cfgs, kernel_row: dict):
             secs.append(time.perf_counter() - t0)
             counts.append(fused_sample_action.launches - before)
             b, mb = reference(learner.update, b)
-            eq = _states_equal(a, b)
+            eq = probe_update_capture.states_equal(a, b)
             eq["metrics"] = set(ma) == set(mb) and all(torch.equal(ma[k], mb[k]) for k in mb)
             equal.append(eq)
         program = next(iter(learner._graphs.entries.values()))
@@ -983,22 +994,6 @@ def phase_graphs(cfgs, kernel_row: dict):
             timing = (learner, a, b, program)
 
     learner, a, b, program = timing
-    secs = {"update_jit": [], "update": []}
-    for _ in range(GRAPH_TIMING):
-        for name, fn in (("update_jit", learner.update_jit), ("update", learner.update)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if name == "update_jit":
-                a, m = fn(a)
-            else:
-                b, m = reference(fn, b)
-            float(m["loss"])
-            secs[name].append(time.perf_counter() - t0)
-    steps = N * ppo_cfg.n_steps
-    for name, v in secs.items():
-        log(f"  {name} (timeperm, in turn): min {min(v):.4f} median {statistics.median(v):.4f} "
-            f"max {max(v):.4f} s; {steps / statistics.median(v):.1f} train_steps_per_s; all "
-            f"{[round(x, 4) for x in v]}")
     parts = {}
     for name, g, k in (("rollout + GAE", program.rollout, ppo_cfg.n_steps),
                        ("SGD epoch", program.epoch, ppo_cfg.num_minibatches)):
@@ -1041,41 +1036,12 @@ def phase_graphs(cfgs, kernel_row: dict):
             f"host launches a minibatch step, device busy {100 * dev_us / wall_us:.1f}% of "
             f"{wall_us / 1e3:.1f} ms")
 
-    # the captured eval runner against the same chunks run eagerly
-    cfg = scenario_config(GRAPH_EVAL_SCENARIO)
-    env = Drone2DEnv(cfg)
+    # a campaign's draws inside their graph and its captured runner
+    # (`run_episodes`, the kept env's generator re-seeded each call) against
+    # the eager draws of a fresh generator flown by the eager runner, at two
+    # seeds
     params = load_agent("cuda")
-    gen = torch.Generator(device="cuda").manual_seed(GRAPH_EVAL_SEED)
-    state, obs = env.reset_batch(gen, EVAL_EPISODES)
-    draws = torch.randn((cfg.n_steps, EVAL_EPISODES, 2), generator=gen, device="cuda")
-    for det in (False, True):
-        res, secs = {}, {}
-        for captured in (True, False, True):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run = run_episodes_from if captured else functools.partial(reference,
-                                                                       run_episodes_from)
-            res[captured] = run(env, params, state, obs, draws, deterministic=det,
-                                captured=captured)
-            secs.setdefault(captured, []).append(time.perf_counter() - t0)
-        got, want = res[True], res[False]
-        equal = {k: bool(np.array_equal(g, w)) for k, g, w in zip(got._fields, got, want)}
-        # the runner stops at the first check after the last episode latched
-        ran = min(cfg.n_steps, -(-int(want.time_steps.max()) // eval_episode.CHECK_EVERY)
-                  * eval_episode.CHECK_EVERY)
-        log(f"  eval runner ({'deterministic' if det else 'stochastic'}, {GRAPH_EVAL_SCENARIO} x "
-            f"{EVAL_EPISODES}, s8004, seed {GRAPH_EVAL_SEED}): captured vs eager equal in every "
-            f"field: {all(equal.values())}; SR {want.success.mean():.3f}; {ran} steps run; "
-            f"captured {secs[True][1]:.3f} s ({1e3 * secs[True][1] / ran:.3f} ms a step; "
-            f"{secs[True][0]:.3f} s with its capture), eager {secs[False][0]:.3f} s "
-            f"({1e3 * secs[False][0] / ran:.3f} ms a step)")
-        if not all(equal.values()):
-            raise AssertionError(f"graphs: captured eval runner differs from the eager one: "
-                                 f"{equal}")
-    # a campaign's draws inside their graph (`run_episodes`, the kept env's
-    # generator re-seeded each call) against the eager draws of a fresh
-    # generator flown by the eager runner, at two seeds
-    short = cfg.replace(n_steps=CAMPAIGN_CHECK_STEPS)
+    short = scenario_config(GRAPH_EVAL_SCENARIO).replace(n_steps=CAMPAIGN_CHECK_STEPS)
     same = []
     for seed in (GRAPH_EVAL_SEED, GRAPH_EVAL_SEED + 1):
         got = eval_episode.run_episodes(short, params, seed, EVAL_EPISODES)
@@ -1551,6 +1517,50 @@ def phase_finetune_hunt(kernel_row: dict):
                  schedule=(FT_HUNT_TIMESTEPS, dict(snapshot_steps=FT_HUNT_SNAPSHOT_STEPS)),
                  reference=hunt_check.REFERENCE_H8, snapshot_first=False,
                  init_params=FINETUNE_AGENT)
+
+
+def phase_sb3_shape(kernel_row: dict):
+    """The reference's own training shape on the card: the population of the
+    JAX package's SB3-shape hunt (SB3_SEEDS x SB3_ENVS envs, 2048-step
+    rollouts, 448 minibatches of 64, exact, 64-64) through `update_jit`
+    (`scripts/probe_update_capture`): one update at one epoch (the epoch
+    graph is the same for any number) bit-equal to the eager `update` from
+    a twin state, weights, Adam, metrics, envs, counters and generators;
+    then the capture at the recipe's 10 epochs (the rollout's chunks, nodes,
+    seconds, pool bytes, the host's peak resident set) and SB3_TIMED
+    replayed updates, each with a finite loss.  The path's launches are the
+    captured calls': `warmup_launches` + n_steps + 1 for a capturing call,
+    n_steps + 1 for each replay; the eager reference's are counted apart."""
+    T = SB3_PPO.n_steps
+    torch.cuda.synchronize()
+    fused_sample_action.launches = 0
+    check = probe_update_capture.check_eager(SB3_PPO, SB3_ENVS, SB3_SEEDS)
+    eager = check["update_launches"]
+    m = probe_update_capture.measure(SB3_PPO, SB3_ENVS, SB3_SEEDS, updates=SB3_TIMED)
+    torch.cuda.synchronize()
+    launches = fused_sample_action.launches - eager
+    capturing = warmup_launches(T) + T + 1
+    want = 2 * capturing + SB3_TIMED * (T + 1)
+    log(f"sb3_shape: {len(SB3_SEEDS)} seeds x {SB3_ENVS} envs x {T} steps, "
+        f"{SB3_PPO.num_minibatches} x {SB3_PPO.n_epochs} SGD of "
+        f"{SB3_ENVS * T // SB3_PPO.num_minibatches}, {SB3_PPO.shuffle}, "
+        f"{'-'.join(map(str, SB3_PPO.hidden_sizes))}; rollout graphs of {m['chunks']} steps")
+    log(f"  one update at 1 epoch: update_jit bit-equal to update {check['equal']}; "
+        f"update_jit {check['update_jit_s']:.3f} s (its capture included), update "
+        f"{check['update_s']:.3f} s")
+    log(f"  capture at {SB3_PPO.n_epochs} epochs: nodes {m['nodes']} (head, chunks, tail, an SGD "
+        f"epoch), warm-up {m['warmup_s']:.3f} s, recording {m['recording_s']:.3f} s, "
+        f"instantiation {m['instantiation_s']:.3f} s, pool {m['pool_bytes'] / 2**20:.1f} MiB, "
+        f"host peak resident {m['peak_rss_mib_before']:.0f} -> {m['peak_rss_mib_after']:.0f} "
+        f"MiB; the capturing call {m['capturing_call_s']:.3f} s")
+    log(f"  replayed updates: {[round(x, 4) for x in m['replay_s']]} s "
+        f"({len(SB3_SEEDS) * SB3_ENVS * T / statistics.median(m['replay_s']):.1f} env steps a "
+        f"second for the population), loss {m['loss']:.4f}; kernel launches {launches} (want "
+        f"{want}), and {eager} of the eager reference; card {card_line()}")
+    if not all(check["equal"].values()) or launches != want or not math.isfinite(m["loss"]):
+        raise AssertionError(f"sb3_shape: {check['equal']}, launches {launches} (want {want}), "
+                             f"loss {m['loss']}")
+    kernel_row["launches_by_path"]["sb3_shape"] = launches
 
 
 def _run_cli(main_fn, argv) -> str:
@@ -2183,14 +2193,14 @@ def phase_ddp(kernel_row: dict):
     (`parallel.make_group`; no other backend is tried), DDP_UPDATES updates
     each from twin states, taken in turn: the captured `shard_update` (the
     main path: `update_jit` with the group, NCCL's collectives inside the
-    CUDA graphs), the eager `PPOLearner.update(..., group=group)` and the
-    plain `update_jit`, each drawing from a twin of the rank's own generator
-    (`mesh.rank_generator`), the captured ones inside their rollout graphs;
+    CUDA graphs) and the plain `update_jit`, each drawing from a twin of the
+    rank's own generator (`mesh.rank_generator`) inside its rollout graph;
     the weights, Adam's state, every metric and the generator's state after
-    bit-equal to both (the plain eager `update` is held bit-equal to
-    `update_jit` in the `graphs` phase), n_steps + 1 launches a replayed
-    update (twice that for the capturing one), the three updates' seconds
-    in turn; and the collectives' share of an eager
+    bit-equal (the plain eager `update` is held bit-equal to `update_jit` in
+    the `graphs` phase, the eager data-parallel update to the captured one
+    by tests/test_torch_cuda.py), n_steps + 1 launches a replayed update
+    (twice that for the capturing one), the updates' seconds in turn; and
+    the collectives' share of an eager
     SGD step (an epoch's SGD with and without the group, in turn, and the
     NCCL kernels' device time under the profiler)."""
     _, train_cfg, env_cfg, ppo_cfg = parse_args(["--preset", "flagship-scratch"])
@@ -2203,9 +2213,10 @@ def phase_ddp(kernel_row: dict):
         state = mesh.shard_init(group, learner, DDP_SEED)
         gen = state.generator.get_state()
 
-        # the references, each from a twin of the rank's generator
+        # the reference, from a twin of the rank's generator (the eager
+        # data-parallel update was cut to hold the script's time:
+        # tests/test_torch_cuda.py holds the captured one bit-equal to it)
         paths = {"captured": mesh.shard_update(group, learner),
-                 "eager": functools.partial(learner.update, group=group),
                  "update_jit": learner.update_jit}
         states = {k: _copy_state(state, torch.Generator(device=dev).set_state(gen))
                   for k in paths}
@@ -2214,7 +2225,7 @@ def phase_ddp(kernel_row: dict):
         counts = []
         torch.cuda.synchronize()
         fused_sample_action.launches = 0
-        for _ in range(DDP_UPDATES):  # the three in turn, update by update
+        for _ in range(DDP_UPDATES):  # the two in turn, update by update
             for name, fn in paths.items():
                 before = fused_sample_action.launches
                 torch.cuda.synchronize()
@@ -2228,7 +2239,7 @@ def phase_ddp(kernel_row: dict):
         launches = sum(counts)
         got = states["captured"]
         equal = {}
-        for ref in ("eager", "update_jit"):
+        for ref in ("update_jit",):
             want = states[ref]
             equal[ref] = {
                 "weights": all(torch.equal(a, b) for a, b in zip(
@@ -2253,13 +2264,11 @@ def phase_ddp(kernel_row: dict):
             raise AssertionError(f"ddp: captured world-1 update {equal}, launches {counts}")
 
         steps = ppo_cfg.n_steps * train_cfg.num_envs
-        log("  seconds an update (host clock, synchronized, the three in turn; the first "
-            "of captured and update_jit includes its capture): " + "; ".join(
+        log("  seconds an update (host clock, synchronized, the two in turn; the first "
+            "of each includes its capture): " + "; ".join(
                 f"{k} {[round(x, 4) for x in v]}" for k, v in secs.items()))
         log("  train_steps_per_s from the last update of each: " + ", ".join(
-            f"{k} {steps / v[-1]:.1f}" for k, v in secs.items())
-            + f"; captured / eager {secs['eager'][-1] / secs['captured'][-1]:.2f}x; card "
-            f"{card_line()}")
+            f"{k} {steps / v[-1]:.1f}" for k, v in secs.items()) + f"; card {card_line()}")
         # one more captured update under the profiler (not the path's count)
         events, host, _, _ = launch_window(
             lambda: float(paths["captured"](states["captured"])[1]["loss"]))
@@ -2946,6 +2955,7 @@ def main():
     timed("rehearsal_reset", phase_rehearsal_reset)
     timed("finetune", phase_finetune, row)
     timed("finetune_hunt", phase_finetune_hunt, row)
+    timed("sb3_shape", phase_sb3_shape, row)
     timed("eval_reference", phase_eval_reference)
     timed("eval_breakdown", phase_eval_breakdown)
     timed("compat", phase_compat, row)

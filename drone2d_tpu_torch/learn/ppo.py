@@ -38,6 +38,7 @@ into its CUDA graphs.  `group=None` runs no collective.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import weakref
 from typing import Dict, Tuple
 
@@ -208,6 +209,24 @@ class RolloutBatch:
     dones: torch.Tensor      # (T, N) bool
 
 
+def rollout_buffers(T: int, N: int, device, families: bool, make=torch.zeros):
+    """What `collect_steps` fills for T steps of N envs, made by `make`
+    (`torch.zeros` or `torch.empty`): the RolloutBatch, the final-step infos
+    of `_STAT_KEYS` and `_COMPONENT_KEYS`, and the families (None unless
+    `families`)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    batch = RolloutBatch(
+        obs=make((T, N, OBS_DIM), **f32),
+        actions=make((T, N, ACT_DIM), **f32),
+        log_probs=make((T, N), **f32),
+        values=make((T, N), **f32),
+        rewards=make((T, N), **f32),
+        dones=make((T, N), dtype=torch.bool, device=device),
+    )
+    infos = {k: make((T, N), **f32) for k in _STAT_KEYS + _COMPONENT_KEYS}
+    return batch, infos, make((T, N), dtype=torch.int64, device=device) if families else None
+
+
 @torch.no_grad()
 def collect_steps(params: ActorCritic, env: Drone2DEnv, env_state: EnvState,
                   obs: torch.Tensor, reset_state: EnvState, reset_obs: torch.Tensor,
@@ -221,19 +240,8 @@ def collect_steps(params: ActorCritic, env: Drone2DEnv, env_state: EnvState,
     (T, N), and each env's family before its step (T, N) under adaptive
     rehearsal, else None."""
     T, N = noise.shape[0], obs.shape[0]
-    dev = obs.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    batch = RolloutBatch(
-        obs=torch.empty((T, N, OBS_DIM), **f32),
-        actions=torch.empty((T, N, ACT_DIM), **f32),
-        log_probs=torch.empty((T, N), **f32),
-        values=torch.empty((T, N), **f32),
-        rewards=torch.empty((T, N), **f32),
-        dones=torch.empty((T, N), dtype=torch.bool, device=dev),
-    )
-    infos = {k: torch.empty((T, N), **f32) for k in _STAT_KEYS + _COMPONENT_KEYS}
-    families = (torch.empty((T, N), dtype=torch.int64, device=dev)
-                if env.cfg.adaptive_rehearsal else None)
+    batch, infos, families = rollout_buffers(T, N, obs.device, env.cfg.adaptive_rehearsal,
+                                             torch.empty)
     lead = noise.shape[1:-1]  # (N,), or (S, N / S) for a population
     for t in range(T):
         # one launch for every member of a population
@@ -417,17 +425,25 @@ class PPOLearner:
         """The rollout's device work, all of it on the device with no host
         sync (`update_jit` captures it): the steps, the episode sums and the
         last values.  Returns (env_state, obs, batch, last_values, stats)."""
-        S = params.members
-        lead = (self.num_envs,) if S is None else (S, self.num_envs)
         env_state, obs, batch, infos, families = collect_steps(
             params, self.env, env_state, obs, reset_state, reset_obs, noise)
+        last_values, stats = self._rollout_end(params, obs, batch, infos, families)
+        return env_state, obs, batch, last_values, stats
+
+    @torch.no_grad()
+    def _rollout_end(self, params: ActorCritic, obs: torch.Tensor, batch: RolloutBatch,
+                     infos, families):
+        """A rollout's ending, from `collect_steps`' outputs: the values at
+        its last obs and its episode sums -> (last_values, stats)."""
+        S = params.members
+        lead = (self.num_envs,) if S is None else (S, self.num_envs)
         stats = episode_stats(batch.dones, infos, families, members=S)
         # the kernel's value output with zero noise, so that nothing plain
         # runs on the card's path
         _, _, last_values = params.sample_action(
             obs.view(*lead, OBS_DIM),
             noise=torch.zeros((*lead, ACT_DIM), dtype=torch.float32, device=obs.device))
-        return env_state, obs, batch, last_values.reshape(-1), stats
+        return last_values.reshape(-1), stats
 
     def _advance(self, state, env_state: EnvState, obs: torch.Tensor):
         """`state` after a rollout that ended at (env_state, obs): the step
@@ -674,9 +690,11 @@ class PPOLearner:
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """`update` as compiled programs, the counterpart of the JAX
         package's `update_jit` (`drone2d_tpu/learn/ppo.py:489-491`): on the
-        card two CUDA graphs (not TorchScript), one of the draws, the
-        rollout and GAE and one of an SGD epoch, replayed once and
-        `n_epochs` times.
+        card CUDA graphs (not TorchScript), one of the draws, the rollout
+        and GAE, replayed once (for a rollout longer than `ROLLOUT_CHUNK`
+        steps: a head of the draws, chunks of the steps and a tail of GAE,
+        replayed in turn), and one of an SGD epoch, replayed `n_epochs`
+        times.
 
         With no `draws`, the rollout graph begins with `draws(state)`, in
         its order (the reset template, the noise, every epoch's shuffles),
@@ -690,8 +708,9 @@ class PPOLearner:
         `parallel.mesh.union_update` replays through it).  The graphs run
         the kernels `update` runs, so the results are bit-equal to
         `update`'s.  The first call for a (weights, optimizer, shapes,
-        generators or given draws, group) key captures them (a warm-up
-        update's device work and draws, undone, then the recording; a state
+        generators or given draws, group) key captures them (a warm-up run
+        of each graph, its device work and draws undone and its kernel
+        launches counted, `warmup_launches`, then the recording; a state
         whose weights, optimizer or generators are other objects captures
         anew); the learner keeps the last two.  The returned state and
         metrics are the caller's: no later call writes them.  A failed capture raises; so
@@ -765,28 +784,62 @@ class PPOLearner:
         ), metrics
 
 
+# `update_jit` records a rollout of up to ROLLOUT_CHUNK steps as one graph,
+# unrolled, and a longer one as graphs of ROLLOUT_CHUNK steps (and one of
+# the rest) replayed in turn, so that no graph grows with n_steps.  The
+# reference's 2048-step rollout of 8 x 14 envs unrolled is one graph of
+# 1,357,302 nodes, which took 62.6 s and 12.8 GiB of host memory to capture;
+# in chunks of 256 the capture took 9.3 s and an update replayed as fast,
+# 3.67 s (scripts/probe_update_capture.py; NVIDIA H100 80GB HBM3, 700.00 W)
+ROLLOUT_CHUNK = 256
+
+
+def rollout_chunks(n_steps: int) -> list:
+    """The steps of each rollout graph `update_jit` replays in turn for a
+    rollout of `n_steps`: [n_steps] when it is one graph."""
+    if n_steps <= ROLLOUT_CHUNK:
+        return [n_steps]
+    rest = n_steps % ROLLOUT_CHUNK
+    return [ROLLOUT_CHUNK] * (n_steps // ROLLOUT_CHUNK) + ([rest] if rest else [])
+
+
+def warmup_launches(n_steps: int) -> int:
+    """The kernel launches of `update_jit`'s capture warm-up: one run of each
+    distinct rollout graph's steps, and the last values' launch."""
+    return sum(set(rollout_chunks(n_steps))) + 1
+
+
 class _UpdateProgram:
     """`update_jit`'s captured program for one learner, weights, optimizer,
     shapes, generators (or given draws) and process group (or none): the
-    draws, the rollout and GAE as one graph, an SGD epoch as another.
+    rollout graphs (`rollout_chunks`) and an SGD epoch's graph.  A rollout
+    of one chunk is one graph: the draws, the steps, GAE.  A longer one is
+    a head (the draws), its chunks and a tail (the last values, the episode
+    sums and GAE over the whole rollout): each chunk reads its noise from,
+    and writes its steps into, the whole rollout's buffers at a step offset
+    on the device that the head zeroes and each chunk advances, and carries
+    the envs and obs in the static input buffers.  The tail reads the whole
+    buffers as the eager rollout reads its own, so either way a replay runs
+    the kernels `update` runs on the same values.
 
     Static buffers hold the state's envs and obs, and either its curriculum
     step and rehearsal probabilities (the draws made in the graph, from the
     state's generators) or the given draws' template and noise, copied in
     every call; and one epoch's shuffle, copied in before each epoch's
-    replay from the rollout graph's shuffles or the given ones.  The epoch
-    graph reads the rollout graph's batch, advantages and returns where
-    that graph writes them, and updates the weights and Adam's state in
-    place, as `update` does.  With a group the rollout graph ends with the
-    episode stats' sum over the ranks and the epoch graph holds each
+    replay from the rollout's shuffles or the given ones.  The epoch
+    graph reads the rollout's batch, advantages and returns where the
+    last rollout graph writes them, and updates the weights and Adam's state
+    in place, as `update` does.  With a group the last rollout graph ends
+    with the episode stats' sum over the ranks and the epoch graph holds each
     minibatch's collectives (`_epoch`).  Every epoch's shuffles are drawn
-    in the rollout graph, as `draws` draws them: 'affine' draws all epochs'
-    multipliers in one call and then all offsets, so a draw an epoch would
-    draw in another order."""
+    with the rollout's draws, as `draws` draws them: 'affine' draws all
+    epochs' multipliers in one call and then all offsets, so a draw an
+    epoch would draw in another order."""
 
     def __init__(self, learner: PPOLearner, state, draws=None, group=None):
         params, opt, S = state.params, state.optimizer, state.params.members
         self.drawn = drawn = draws is None
+        dev, cfg = learner.device, learner.cfg
         # the learner holds this program: a weak reference back, so that the
         # pair is freed, graphs and all, without waiting for a collection
         learner = weakref.proxy(learner)
@@ -796,41 +849,86 @@ class _UpdateProgram:
         if not drawn:
             learner._check_noise(state, draws[2])
         self.inputs = inputs = graphs.clone(self._inputs(state, draws))
-        self.perm = perm = torch.empty(learner.perm_shape(S), dtype=torch.int64,
-                                       device=learner.device)
+        self.perm = perm = torch.empty(learner.perm_shape(S), dtype=torch.int64, device=dev)
         if drawn:
             # the state as `draws` reads it: its generators, the static step
             # and probabilities
             view = dataclasses.replace(state, env_state=inputs[0], obs=inputs[1],
                                        global_step=inputs[2], rehearsal_probs=inputs[3])
             gens = learner.generators(state)
-            perm.copy_(torch.arange(perm.shape[-1], device=learner.device).expand(perm.shape))
+            perm.copy_(torch.arange(perm.shape[-1], device=dev).expand(perm.shape))
         else:
             gens = ()
             perm.copy_(draws[3][..., 0, :])
 
-        def rollout():
-            if drawn:
-                reset_state, reset_obs, noise, perms = learner.draws(view)
-            else:
-                (reset_state, reset_obs, noise), perms = inputs[2:], None
-            env_state, obs, batch, last_values, stats = learner._rollout_body(
-                params, inputs[0], inputs[1], reset_state, reset_obs, noise)
+        def draw():
+            """(reset_state, reset_obs, noise, perms): drawn, or the given
+            template and noise (their shuffles copied in by the call)."""
+            return learner.draws(view) if drawn else (*inputs[2:], None)
+
+        def finish(env_state, obs, batch, last_values, stats, perms):
             if group is not None:
                 stats = sum_stats(stats, group)
             advantages, returns = compute_gae(
                 batch.rewards, batch.values, batch.dones, last_values,
-                gamma=learner.cfg.gamma, gae_lambda=learner.cfg.gae_lambda)
+                gamma=cfg.gamma, gae_lambda=cfg.gae_lambda)
             data = learner._sgd_data(
                 (batch.obs, batch.actions, batch.log_probs, advantages, returns), S)
             return env_state, obs, stats, data, perms
 
-        self.rollout = first = graphs.Graph(rollout, learner.device, generators=gens)
+        chunks = rollout_chunks(cfg.n_steps)
+        if len(chunks) == 1:
+            def rollout():
+                reset_state, reset_obs, noise, perms = draw()
+                env_state, obs, batch, last_values, stats = learner._rollout_body(
+                    params, inputs[0], inputs[1], reset_state, reset_obs, noise)
+                return finish(env_state, obs, batch, last_values, stats, perms)
+
+            distinct = [graphs.Graph(rollout, dev, generators=gens)]
+            self.rollout_graphs = distinct
+        else:
+            offset = torch.zeros((), dtype=torch.int64, device=dev)
+            # zeros, not garbage: the capture's warm-up runs the tail over
+            # buffers that only its chunks' steps have written
+            whole = rollout_buffers(cfg.n_steps, inputs[1].shape[0], dev,
+                                    learner.env.cfg.adaptive_rehearsal)
+
+            def head():
+                offset.zero_()
+                return draw()
+
+            first = graphs.Graph(head, dev, generators=gens)
+
+            def chunk(k):
+                reset_state, reset_obs, noise, _ = first.outputs
+                at = offset + torch.arange(k, device=dev)
+                env_state, obs, *steps = collect_steps(
+                    params, learner.env, inputs[0], inputs[1], reset_state, reset_obs,
+                    noise.index_select(0, at))
+                for dst, src in zip(graphs.leaves(whole), graphs.leaves(steps)):
+                    if dst is not None:
+                        dst.index_copy_(0, at, src)
+                graphs.copy_(inputs[:2], (env_state, obs))
+                offset.add_(k)
+
+            def tail():
+                batch, infos, families = whole
+                last_values, stats = learner._rollout_end(params, inputs[1], batch, infos,
+                                                          families)
+                return finish(inputs[0], inputs[1], batch, last_values, stats,
+                              first.outputs[3])
+
+            by_steps = {k: graphs.Graph(functools.partial(chunk, k), dev)
+                        for k in sorted(set(chunks), reverse=True)}
+            self.rollout_graphs = [first, *(by_steps[k] for k in chunks),
+                                   graphs.Graph(tail, dev)]
+            distinct = [first, *by_steps.values(), self.rollout_graphs[-1]]
+        self.chunks = chunks
+        last = self.rollout_graphs[-1]
         self.epoch = graphs.Graph(
-            lambda: learner._epoch(params, opt, first.outputs[3], perm, group=group),
-            learner.device)
+            lambda: learner._epoch(params, opt, last.outputs[3], perm, group=group), dev)
         self.capture_stats = graphs.capture(
-            [self.rollout, self.epoch], restore=list(params.parameters()), optimizers=[opt])
+            [*distinct, self.epoch], restore=list(params.parameters()), optimizers=[opt])
 
     @staticmethod
     def _inputs(state, draws):
@@ -852,6 +950,13 @@ class _UpdateProgram:
                 graphs.signature(_UpdateProgram._inputs(state, draws)
                                  + (None if draws is None else draws[3],)),
                 None if draws is not None else tuple(learner.generators(state)), group)
+
+    def rollout(self):
+        """Replay the rollout graphs in turn -> the last one's outputs (env_state,
+        obs, stats, the SGD data, the shuffles or None)."""
+        for g in self.rollout_graphs:
+            out = g()
+        return out
 
     def __call__(self, state, draws=None):
         """Replay on `state` (with `draws`, if the program takes them): ->

@@ -1,9 +1,13 @@
 """Learning parity of a seed hunt: its selection record against one of the
 JAX package's hunts, read as data from the repo's artifacts: hunt 7
 (`REFERENCE`, `artifacts/campaigns/r4/r4_h7_scratch_pp8_select.json`,
-flagship-scratch, seeds 7000-7023) or hunt 8 (`REFERENCE_H8`,
+flagship-scratch, seeds 7000-7023), hunt 8 (`REFERENCE_H8`,
 `artifacts/campaigns/r4/r4_h8_gen2_select.json`, flagship-finetune from
-agent_s6006, seeds 8000-8007), each 12 scenarios x 100 episodes.
+agent_s6006, seeds 8000-8007) or the SB3-shape hunt (`REFERENCE_SB3`,
+`artifacts/campaigns/r3/r3_9m_sb3shape/select.json`, the reference's own
+training shape: 14 envs x 2048 steps, 448 minibatches of 64, exact, 64-64,
+the published reward recipe, seeds 40-47 x 9M), each 12 scenarios x 100
+episodes.
 
     python -m drone2d_tpu_torch.scripts.hunt_check PORT_SELECT.json \\
         [--reference artifacts/campaigns/r4/r4_h8_gen2_select.json] \\
@@ -51,17 +55,28 @@ from drone2d_tpu_torch.eval.barplots import PUBLISHED_SR
 # the JAX package's hunts, read as data from the repo's artifacts
 _RECORDS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "artifacts", "campaigns", "r4")
+    "artifacts", "campaigns")
 # hunt 7: flagship-scratch, 24 seeds x 150M steps
-REFERENCE = os.path.join(_RECORDS, "r4_h7_scratch_pp8_select.json")
+REFERENCE = os.path.join(_RECORDS, "r4", "r4_h7_scratch_pp8_select.json")
 # hunt 8: flagship-finetune from agent_s6006, 8 seeds x 30M steps (made agent_s8004)
-REFERENCE_H8 = os.path.join(_RECORDS, "r4_h8_gen2_select.json")
+REFERENCE_H8 = os.path.join(_RECORDS, "r4", "r4_h8_gen2_select.json")
+# the SB3-shape hunt: PPOConfig's defaults at 14 envs x 2048 steps and 448
+# minibatches, the published reward recipe (PP_rew_max 3.5, rew_collision
+# -70, abs_inv_CA_min_rew 1/6: docs/RESULTS.md:88-93, 604-621), 8 seeds x 9M
+REFERENCE_SB3 = os.path.join(_RECORDS, "r3", "r3_9m_sb3shape", "select.json")
+# each record by its path under artifacts/campaigns/
 _HUNTS = {
-    "r4_h7_scratch_pp8_select.json": "the JAX package's hunt 7 (flagship-scratch), eval seed 0",
-    "r4_h8_gen2_select.json":
+    "r4/r4_h7_scratch_pp8_select.json":
+        "the JAX package's hunt 7 (flagship-scratch), eval seed 0",
+    "r4/r4_h8_gen2_select.json":
         "the JAX package's hunt 8 (flagship-finetune from agent_s6006), eval seed 0",
-    "r4_h8_gen2_select777.json":
+    "r4/r4_h8_gen2_select777.json":
         "the JAX package's hunt 8 (flagship-finetune from agent_s6006), eval seed 777",
+    "r3/r3_9m_sb3shape/select.json":
+        "the JAX package's SB3-shape hunt (14 envs x 2048 steps, 448 minibatches of 64, "
+        "exact, 64-64, the published reward recipe, 9M steps), eval seed 0",
+    "r4/r4_9m_sb3_pp8_select.json":
+        "the JAX package's SB3-shape rerun with PP_rew_max 8 (9M steps), eval seed 0",
 }
 # hunt 8 took its three both-RNG finalists to n=1000
 N_FINALISTS = 3
@@ -195,8 +210,10 @@ def format_report(result: dict) -> str:
 
 def reference_name(path: str) -> str:
     """What a reference record is: the JAX package's hunt it holds, named by
-    its file, or its path for a record that is not one of them."""
-    return _HUNTS.get(os.path.basename(path), os.path.relpath(path))
+    its path under artifacts/campaigns/, or its path for a record that is
+    not one of them."""
+    under = os.path.relpath(os.path.abspath(path), _RECORDS).replace(os.sep, "/")
+    return _HUNTS.get(under, os.path.relpath(path))
 
 
 def format_finalists(record: dict, other: dict) -> str:

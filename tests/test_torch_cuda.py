@@ -784,6 +784,83 @@ def test_population_update_jit_bit_equal_to_update(dev):
                    for x, y in zip(a.generators, b.generators))
 
 
+def _jit_against_eager(learner, a, b, updates):
+    """`updates` updates of twin states through update_jit and update, in
+    turn: bit-equal after each, the generators' states included; the
+    capturing call launches the kernel warmup_launches + n_steps + 1 times,
+    each later one n_steps + 1."""
+    from drone2d_tpu_torch.learn.ppo import warmup_launches
+
+    T = learner.cfg.n_steps
+    for u in range(updates):
+        before = fused_sample_action.launches
+        a, ma = learner.update_jit(a)
+        torch.cuda.synchronize()
+        assert fused_sample_action.launches - before == (T + 1) + (
+            warmup_launches(T) if u == 0 else 0)
+        b, mb = learner.update(b)
+        assert set(ma) == set(mb) and all(torch.equal(ma[k], mb[k]) for k in ma)
+        _assert_same_state(a, b)
+        gens = (a.generators, b.generators) if hasattr(a, "generators") else (
+            [a.generator], [b.generator])
+        assert all(torch.equal(x.get_state(), y.get_state()) for x, y in zip(*gens))
+    assert learner._graphs.captures == 1
+    return a, ma
+
+
+@pytest.mark.parametrize("shuffle", ["exact", "affine", "timeperm"])
+def test_chunked_update_jit_bit_equal_to_update(dev, shuffle):
+    """A rollout longer than ROLLOUT_CHUNK (1024 steps of 16 envs, 4 chunks
+    of 256) through update_jit and update, 2 updates each in turn, in each
+    shuffle: bit-equal, and episodes finished inside the rollout."""
+    from drone2d_tpu_torch.learn.ppo import rollout_chunks
+
+    cfg = PPOConfig(n_steps=1024, num_minibatches=8, n_epochs=1, shuffle=shuffle)
+    assert rollout_chunks(cfg.n_steps) == [256] * 4
+    learner = PPOLearner(EnvConfig(), cfg, 16, device=dev)
+    _, m = _jit_against_eager(learner, learner.init(5), learner.init(5), 2)
+    assert float(m["episodes/episodes"]) > 0
+
+
+def test_sb3_shape_population_update_jit_bit_equal_to_update(dev):
+    """The reference's own shape: the population of the SB3-shape hunt (8
+    seeds x 14 envs x 2048 steps, 448 minibatches of 64, exact, 64-64; one
+    epoch) through update_jit, its rollout in 8 chunks, and update, 2
+    updates each in turn: bit-equal."""
+    from drone2d_tpu_torch.learn.ppo import rollout_chunks
+
+    cfg = PPOConfig(n_steps=2048, num_minibatches=448, n_epochs=1)
+    assert (cfg.shuffle, cfg.hidden_sizes, len(rollout_chunks(2048))) == ("exact", (64, 64), 8)
+    trainer = ZooTrainer(EnvConfig(), cfg, 14, device=dev)
+    seeds = list(range(40, 48))
+    _jit_against_eager(trainer, trainer.init(seeds), trainer.init(seeds), 2)
+
+
+def test_chunked_population_with_a_rest_and_rehearsal_bit_equal(dev):
+    """A population of 2 under adaptive rehearsal (the family counts written
+    by the chunks) with a rollout of 300 steps (chunks of 256 and 44):
+    update_jit bit-equal to update over 2 updates, episodes counted by
+    family."""
+    env = EnvConfig(adaptive_rehearsal=True, stage_mix_prob=0.3, corridor_mix_prob=0.1)
+    cfg = PPOConfig(n_steps=300, num_minibatches=4, n_epochs=1)
+    trainer = ZooTrainer(env, cfg, 8, device=dev)
+    a, m = _jit_against_eager(trainer, trainer.init([1, 2]), trainer.init([1, 2]), 2)
+    assert float(a.family_counts.sum()) > 0
+
+
+def test_flagship_update_jit_still_bit_equal_to_update(dev):
+    """flagship-scratch at its own shape (1024 envs x 128 steps, one rollout
+    graph; 64 x 10 SGD, timeperm, 128-128): update_jit bit-equal to update
+    over 2 updates."""
+    from drone2d_tpu_torch.learn.ppo import rollout_chunks
+
+    env_cfg, ppo_cfg, train_cfg = apply_preset("flagship-scratch", EnvConfig(), PPOConfig(),
+                                               TrainConfig())
+    assert rollout_chunks(ppo_cfg.n_steps) == [ppo_cfg.n_steps]
+    learner = PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs, device=dev)
+    _jit_against_eager(learner, learner.init(7), learner.init(7), 2)
+
+
 @pytest.mark.parametrize("policy", ["stochastic", "deterministic", "random"])
 def test_captured_eval_runner_bit_equal_to_eager(dev, policy):
     """agent_s8004 on stage_2 at a 100-step cap (a 64-step graph and a
