@@ -27,13 +27,24 @@ configuration and device, with one generator, across calls
 (`_campaign_env`): each call re-seeds that generator on the host, so a
 chunked campaign replays the same draw graph and the same runner chunks
 from a new seed each chunk, and draws exactly what the eager draws would.
+
+Each call is a root span `eval.call` (`utils/profiling.py`) and adds to the
+counters `eval.calls` and `eval.call_s`; inside it the spans `eval.draws`
+(the kept env and its draw graph, captured or replayed), `eval.runner`
+(the runner, found or captured), `eval.chunks` (the chunk replays and the
+host's reads of whether every episode has latched) and `eval.results`
+(the copies to the host).  `_campaign_env` counts its hits, misses and
+evictions (`campaign_env.*`).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
+import threading
+import time
 import weakref
 import zlib
 from typing import List, NamedTuple, Optional
@@ -45,7 +56,7 @@ from drone2d_tpu_torch.config import EnvConfig
 from drone2d_tpu_torch.env.env import ACT_DIM, OBS_DIM, Drone2DEnv
 from drone2d_tpu_torch.env.types import EnvState, cat_states, select_state
 from drone2d_tpu_torch.models.policy import ActorCritic
-from drone2d_tpu_torch.utils import graphs
+from drone2d_tpu_torch.utils import graphs, profiling
 
 # how many steps run between the checks whether every episode has latched
 CHECK_EVERY = 64
@@ -107,6 +118,14 @@ def run_episodes_from(
     a the n of rows [a n, (a + 1) n), and the results come back shaped
     (A, n, ...).
     """
+    with _eval_call():
+        return _run_from(env, params, state, obs, draws, deterministic, captured)
+
+
+def _run_from(env: Drone2DEnv, params: Optional[ActorCritic], state: EnvState,
+              obs: torch.Tensor, draws: Optional[torch.Tensor], deterministic: bool,
+              captured: bool) -> EpisodeResults:
+    """`run_episodes_from`'s work, inside an open eval call."""
     T, N, dev = env.cfg.n_steps, obs.shape[0], obs.device
     lead = (N,) if params is None or params.members is None else (params.members, -1)
     if (params is None or not deterministic) and (
@@ -114,41 +133,70 @@ def run_episodes_from(
         raise ValueError(f"this policy needs draws of shape {(T, N, ACT_DIM)}")
     if params is not None and deterministic:
         draws = None
-    runner = _chunk_runner(env, params, state, obs, draws, captured)
-    carry = runner.start(state, obs)
-    traj = torch.empty((T, N, 2), device=dev)
-    angles = torch.empty((T, N), device=dev)
-    t = 0
-    while t < T:
-        n = min(CHECK_EVERY, T - t)
-        if draws is not None:
-            runner.draws[:n].copy_(draws[t:t + n])
-        runner.chunks[n]()
-        traj[t:t + n] = runner.traj[:n]
-        angles[t:t + n] = runner.angles[:n]
-        t += n
-        if t < T and bool(carry.done.all()):
-            traj[t:] = carry.state.body.pos
-            angles[t:] = carry.state.body.angle
-            break
+    with profiling.span("eval.runner"):
+        runner = _chunk_runner(env, params, state, obs, draws, captured)
+        carry = runner.start(state, obs)
+    with profiling.span("eval.chunks"):
+        traj = torch.empty((T, N, 2), device=dev)
+        angles = torch.empty((T, N), device=dev)
+        t = 0
+        while t < T:
+            n = min(CHECK_EVERY, T - t)
+            if draws is not None:
+                runner.draws[:n].copy_(draws[t:t + n])
+            runner.chunks[n]()
+            traj[t:t + n] = runner.traj[:n]
+            angles[t:t + n] = runner.angles[:n]
+            t += n
+            if t < T and bool(carry.done.all()):
+                traj[t:] = carry.state.body.pos
+                angles[t:] = carry.state.body.angle
+                break
 
-    # an episode that hit the cap without a terminal is a timeout fail
-    c = carry
-    timeout = ~c.done
-    fail = c.fail | timeout
-    ape = torch.where(timeout, c.state.path_error / T, c.ape)
-    time_steps = torch.where(timeout, T, c.time_steps)
-    total_reward = torch.where(timeout, c.state.total_reward, c.total_reward)
+    with profiling.span("eval.results"):
+        # an episode that hit the cap without a terminal is a timeout fail
+        c = carry
+        timeout = ~c.done
+        fail = c.fail | timeout
+        ape = torch.where(timeout, c.state.path_error / T, c.ape)
+        time_steps = torch.where(timeout, T, c.time_steps)
+        total_reward = torch.where(timeout, c.state.total_reward, c.total_reward)
 
-    def host(x):  # (A, n, ...) for a stack of agents
-        return x.cpu().numpy().reshape(*lead, *x.shape[1:])
+        def host(x):  # (A, n, ...) for a stack of agents
+            return x.cpu().numpy().reshape(*lead, *x.shape[1:])
 
-    return EpisodeResults(
-        success=host(c.success), fail=host(fail), collision=host(c.collision), ape=host(ape),
-        time_steps=host(time_steps), total_reward=host(total_reward),
-        traj=host(traj.transpose(0, 1)), angles=host(angles.transpose(0, 1)),
-        traj_len=host(c.traj_len),
-    )
+        return EpisodeResults(
+            success=host(c.success), fail=host(fail), collision=host(c.collision),
+            ape=host(ape), time_steps=host(time_steps), total_reward=host(total_reward),
+            traj=host(traj.transpose(0, 1)), angles=host(angles.transpose(0, 1)),
+            traj_len=host(c.traj_len),
+        )
+
+
+# whether an eval call is open on this thread (`_eval_call`)
+_in_call = threading.local()
+
+
+@contextlib.contextmanager
+def _eval_call():
+    """One eval call: the root span `eval.call`, and the counters
+    `eval.calls` and `eval.call_s` (always on: a `perf_counter` pair).
+    Inside an open call it adds nothing: `run_episodes` and
+    `run_episodes_multi` fly their draws through `run_episodes_from`, looked
+    up on the module, which callers may wrap."""
+    if getattr(_in_call, "open", False):
+        yield
+        return
+    _in_call.open, t0 = True, time.perf_counter()
+    try:
+        with profiling.span("eval.call") as span:
+            yield
+            seconds = time.perf_counter() - t0
+            span.set(seconds=seconds)
+    finally:
+        _in_call.open = False
+    profiling.count("eval.calls")
+    profiling.count("eval.call_s", seconds)
 
 
 @dataclasses.dataclass
@@ -205,7 +253,9 @@ class _ChunkRunner:
                 _chunk, env, params, lead, steps, self.carry, self.draws, self.traj,
                 self.angles), dev, eager=not captured)
             for steps in sorted({n, T % CHECK_EVERY} - {0}, reverse=True)}
-        graphs.capture(list(self.chunks.values()))
+        # the env's first runner: the env was made anew for this call
+        graphs.capture(list(self.chunks.values()),
+                       cause="eval.runner" + (":new_env" if env.graphs.captures == 0 else ""))
 
     def start(self, state: EnvState, obs: torch.Tensor) -> _Carry:
         """The carry set to a run's start at (state, obs)."""
@@ -287,11 +337,15 @@ def _campaign_env(cfg: EnvConfig, device) -> _CampaignEnv:
     key = (cfg, None if device is None else str(torch.device(device)))
     entry = _CAMPAIGN_ENVS.get(key)
     if entry is None:
+        profiling.count("campaign_env.misses")
         env = Drone2DEnv(cfg, device)
         entry = _CampaignEnv(env, torch.Generator(device=env.device), graphs.GraphCache(size=2))
         while len(_CAMPAIGN_ENVS) >= CAMPAIGN_ENVS:
             _CAMPAIGN_ENVS.popitem(last=False)
+            profiling.count("campaign_env.evictions")
         _CAMPAIGN_ENVS[key] = entry
+    else:
+        profiling.count("campaign_env.hits")
     _CAMPAIGN_ENVS.move_to_end(key)
     return entry
 
@@ -331,7 +385,9 @@ def _campaign_draws(cfg: EnvConfig, device, seed: int, n: int, global_step: floa
         step = torch.full((), float(global_step), dtype=torch.float32, device=env.device)
         graph = graphs.Graph(lambda: _episode_draws(env, gen, n, step, policy, repeat),
                              env.device, generators=[gen])
-        graphs.capture([graph])
+        # the env's first draw graph: the env was made anew for this call
+        graphs.capture([graph],
+                       cause="eval.draws" + (":new_env" if c.draws.captures == 0 else ""))
         c.draws.put(key, graph)
     return (c.env, *graph())
 
@@ -354,8 +410,11 @@ def run_episodes(
     (SB3's default samples the Gaussian, main.py:263)."""
     policy = ("random" if params is None else "deterministic" if deterministic
               else "stochastic")
-    env, state, obs, draws = _campaign_draws(cfg, device, seed, n_episodes, global_step, policy)
-    return run_episodes_from(env, params, state, obs, draws, deterministic=deterministic)
+    with _eval_call():
+        with profiling.span("eval.draws"):
+            env, state, obs, draws = _campaign_draws(cfg, device, seed, n_episodes,
+                                                     global_step, policy)
+        return run_episodes_from(env, params, state, obs, draws, deterministic=deterministic)
 
 
 def run_episodes_multi(
@@ -384,10 +443,13 @@ def run_episodes_multi(
     keys, whose streams differ: only the statistics compare."""
     A = params_stack.members
     n, repeat = (n_episodes, A) if same_episodes else (A * n_episodes, 1)
-    env, state, obs, draws = _campaign_draws(
-        cfg, device, seed, n, global_step, "deterministic" if deterministic else "stochastic",
-        repeat)
-    return run_episodes_from(env, params_stack, state, obs, draws, deterministic=deterministic)
+    with _eval_call():
+        with profiling.span("eval.draws"):
+            env, state, obs, draws = _campaign_draws(
+                cfg, device, seed, n, global_step,
+                "deterministic" if deterministic else "stochastic", repeat)
+        return run_episodes_from(env, params_stack, state, obs, draws,
+                                 deterministic=deterministic)
 
 
 def campaign_keys(seed: int, scenario: str, n_chunks: int) -> List[int]:

@@ -52,7 +52,7 @@ from drone2d_tpu_torch.env.types import N_FAMILIES, EnvState
 from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.gae import compute_gae
 from drone2d_tpu_torch.models.policy import ActorCritic
-from drone2d_tpu_torch.utils import graphs
+from drone2d_tpu_torch.utils import graphs, profiling
 
 # Final-step info components averaged over finished episodes
 # (tensorboardlogger.py:101-108).
@@ -927,8 +927,10 @@ class _UpdateProgram:
         last = self.rollout_graphs[-1]
         self.epoch = graphs.Graph(
             lambda: learner._epoch(params, opt, last.outputs[3], perm, group=group), dev)
+        self.cuda = torch.device(dev).type == "cuda"
         self.capture_stats = graphs.capture(
-            [*distinct, self.epoch], restore=list(params.parameters()), optimizers=[opt])
+            [*distinct, self.epoch], restore=list(params.parameters()), optimizers=[opt],
+            cause="update")
 
     @staticmethod
     def _inputs(state, draws):
@@ -960,16 +962,22 @@ class _UpdateProgram:
 
     def __call__(self, state, draws=None):
         """Replay on `state` (with `draws`, if the program takes them): ->
-        (env_state, obs, stats, rows), the caller's own copies."""
+        (env_state, obs, stats, rows), the caller's own copies.  The span
+        `update` holds `update.rollout` (the rollout graphs) and
+        `update.sgd` (the epoch replays and their shuffles' copies), each
+        timed on the device too."""
         learner, M = self.learner, self.learner.cfg.num_minibatches
-        graphs.copy_(self.inputs, self._inputs(state, draws))
-        out = self.rollout()
-        env_state, obs, stats = graphs.clone(out[:3])
-        perms = out[4] if self.drawn else draws[3]
-        rows = learner._rows(state.params.members)
-        for e in range(learner.cfg.n_epochs):
-            self.perm.copy_(perms[..., e, :])
-            rows[e * M:(e + 1) * M] = self.epoch()
+        with profiling.span("update"):
+            graphs.copy_(self.inputs, self._inputs(state, draws))
+            with profiling.span("update.rollout", device=self.cuda):
+                out = self.rollout()
+            env_state, obs, stats = graphs.clone(out[:3])
+            perms = out[4] if self.drawn else draws[3]
+            rows = learner._rows(state.params.members)
+            with profiling.span("update.sgd", device=self.cuda):
+                for e in range(learner.cfg.n_epochs):
+                    self.perm.copy_(perms[..., e, :])
+                    rows[e * M:(e + 1) * M] = self.epoch()
         return env_state, obs, stats, rows
 
 

@@ -16,6 +16,11 @@ one env step and one policy-kernel launch a step for all of them).
 Prints a per-candidate table (success rate per scenario, mean SR, and how
 many of the 12 published success rates the candidate matches or beats) and
 writes the full summary JSON.  Runs on the CUDA card unless `--device cpu`.
+The line after the flights says where their time went: policy-kernel
+launches, the CUDA graphs captured and the seconds they took (by cause),
+the campaign envs reused, made anew and released, and the runner and draw
+caches' hits, misses and evictions (`utils/profiling.py`'s counters; no
+capture on the CPU).
 """
 
 from __future__ import annotations
@@ -35,7 +40,27 @@ from drone2d_tpu_torch.eval.episode import run_episodes_multi
 from drone2d_tpu_torch.eval.run import load_params, scenario_config
 from drone2d_tpu_torch.models.policy import stack_params
 from drone2d_tpu_torch.ops.fused_policy import fused_sample_action
+from drone2d_tpu_torch.utils import profiling
 from drone2d_tpu_torch.utils.checkpoint import checkpoint_steps
+
+
+def capture_line(before: dict, after: dict) -> str:
+    """What the flights between two readings of the counters captured and
+    released: graph captures and their seconds, by cause, the campaign
+    envs reused, made anew and released, and the graph caches' hits,
+    misses and evictions."""
+    def d(name):
+        return after.get(name, 0) - before.get(name, 0)
+
+    causes = sorted(k[len("graphs.captures["):-1] for k in after
+                    if k.startswith("graphs.captures[") and d(k))
+    by = ", ".join(f"{c} {d(f'graphs.captures[{c}]'):g} "
+                   f"({d(f'graphs.capture_s[{c}]'):.1f} s)" for c in causes)
+    return (f"graph captures {d('graphs.captures'):g} in {d('graphs.capture_s'):.1f} s"
+            f"{f' ({by})' if by else ''}; campaign envs: {d('campaign_env.hits'):g} reused, "
+            f"{d('campaign_env.misses'):g} made, {d('campaign_env.evictions'):g} released; "
+            f"graph caches: {d('graph_cache.hits'):g} hits, {d('graph_cache.misses'):g} misses, "
+            f"{d('graph_cache.evictions'):g} evictions")
 
 
 def find_candidates(run_dirs, finals_only=False):
@@ -93,6 +118,7 @@ def main(argv=None) -> None:
                           for _, path, step in cands])
 
     t0, launches = time.perf_counter(), fused_sample_action.launches
+    before = profiling.counters()
     table = {label: {} for label, _, _ in cands}
     for scen in scenarios:
         cfg = scenario_config(scen)
@@ -109,6 +135,7 @@ def main(argv=None) -> None:
     print(f"flew {len(cands)} candidates on {len(scenarios)} scenarios in "
           f"{time.perf_counter() - t0:.1f} s, {fused_sample_action.launches - launches} "
           "policy-kernel launches")
+    print(capture_line(before, profiling.counters()))
 
     # ranking: published-SR coverage first, then published-AAPE coverage
     # (at or below the published "Reactive" AAPE), then mean SR

@@ -38,6 +38,13 @@ capture recorded.
 when full, so that many configurations in one process do not pile up
 memory pools; `ShapeGraph` holds one graph, made anew when the shapes of
 its inputs change (the adapters' steps).
+
+Each capture on the card is a `graphs.capture` span (`utils/profiling.py`)
+with its cause (which program asked: `update`, `eval.runner`,
+`eval.draws`, `shape_graph` or `other`), graphs, nodes and seconds, and
+adds to the counters `graphs.captures` and `graphs.capture_s`, in all and
+by cause (`graphs.captures[<cause>]`); a `GraphCache` counts its hits,
+misses and evictions under `graph_cache.*`.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from typing import Callable, Iterable, List, Sequence
 import torch
 
 from drone2d_tpu_torch.ops.fused_policy import fused_sample_action
+from drone2d_tpu_torch.utils import profiling
 
 # the kernel wrappers whose `launches` count a replay must advance
 COUNTED = (fused_sample_action,)
@@ -204,8 +212,10 @@ def _restore_point(tensors: Sequence[torch.Tensor], optimizers: Sequence):
 
 
 def capture(graphs: Sequence[Graph], *, restore: Sequence[torch.Tensor] = (),
-            optimizers: Sequence = ()) -> CaptureStats | None:
-    """Warm up and capture `graphs`, in order, into one memory pool.
+            optimizers: Sequence = (), cause: str = "other") -> CaptureStats | None:
+    """Warm up and capture `graphs`, in order, into one memory pool, for
+    the program `cause` names (see the module's docstring), which the
+    capture's span and counters carry.
 
     The warm-up runs each body once, in order, on a side stream; then the
     tensors of `restore`, the state of `optimizers` and the graphs'
@@ -225,6 +235,21 @@ def capture(graphs: Sequence[Graph], *, restore: Sequence[torch.Tensor] = (),
         if not all(g.eager for g in graphs):
             raise ValueError("capture() takes graphs that all run eagerly or none")
         return None
+    t0 = time.perf_counter()
+    with profiling.span("graphs.capture", cause=cause) as span:
+        stats = _capture(graphs, restore, optimizers)
+        seconds = time.perf_counter() - t0
+        span.set(graphs=len(graphs), nodes=sum(stats.nodes), warmup_s=stats.warmup_s,
+                 capture_s=stats.capture_s, instantiate_s=stats.instantiate_s,
+                 seconds=seconds)
+    for key in ("", f"[{cause}]"):
+        profiling.count("graphs.captures" + key)
+        profiling.count("graphs.capture_s" + key, seconds)
+    return stats
+
+
+def _capture(graphs: Sequence[Graph], restore, optimizers) -> CaptureStats:
+    """`capture`'s work on the card."""
     device = graphs[0].device
     generators = list({id(gen): gen for g in graphs for gen in g.generators}.values())
     for gen in generators:
@@ -334,7 +359,8 @@ class ShapeGraph:
             self.graph = self.inputs = None  # release the old graph's pool first
             inputs = clone(tree)
             graph = Graph(self.make_body(inputs), self.device, generators=self.generators)
-            capture([graph], restore=[t for t in leaves(self.stepped(inputs)) if t is not None])
+            capture([graph], restore=[t for t in leaves(self.stepped(inputs)) if t is not None],
+                    cause="shape_graph")
             self.shapes, self.graph, self.inputs = shapes, graph, inputs
         else:
             copy_(self.inputs, tree)
@@ -344,6 +370,8 @@ class ShapeGraph:
 class GraphCache:
     """Captured programs by key, at most `size` of them: adding one to a full
     cache releases the least recently used (its graphs and memory pool).
+    It counts the programs made (`captures`), and the recorder its hits,
+    misses and evictions (`graph_cache.*`).
 
     A key names what a program depends on: the shapes of its inputs, the
     storages it reads and writes in place (`storage_key`) and the
@@ -359,7 +387,10 @@ class GraphCache:
     def get(self, key):
         """The program under `key`, or None."""
         program = self.entries.get(key)
-        if program is not None:
+        if program is None:
+            profiling.count("graph_cache.misses")
+        else:
+            profiling.count("graph_cache.hits")
             self.entries.move_to_end(key)
         return program
 
@@ -368,6 +399,7 @@ class GraphCache:
         while len(self.entries) >= self.size:
             self.entries.popitem(last=False)
             released = True
+            profiling.count("graph_cache.evictions")
         self.entries[key] = program
         self.captures += 1
         if released and torch.cuda.is_available():

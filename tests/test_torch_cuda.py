@@ -667,6 +667,29 @@ def test_device_window_counts_the_call_not_its_lead_in(dev):
     assert len(events) == 3 and dev_us > 0 and wall_us > 0
 
 
+def test_device_window_leaves_out_the_spans_annotations(dev):
+    """The program's spans open `record_function` inside a profiler window;
+    their annotations on the device's timeline are no device events."""
+    from drone2d_tpu_torch.utils import profiling
+
+    x = torch.zeros(1024, device=dev)
+    x.add_(1)
+    torch.cuda.synchronize()
+
+    def spanned():
+        with profiling.span("outer", device=True):
+            with profiling.span("inner"):
+                for _ in range(3):
+                    x.mul_(2)
+
+    profiling.reset()
+    events, dev_us, _ = profiling.device_window(spanned)
+    assert [s.name for s in profiling.spans()] == ["outer", "inner"]
+    assert len(events) == 3 and dev_us > 0
+    assert not {"outer", "inner"} & {e.name for e in events}
+    profiling.reset()
+
+
 def test_bench_chunk_on_card_matches_cpu(dev):
     """The bench chunk (policy kernel, clip, template step) on the card
     against the plain version on the CPU, from identical inputs."""
@@ -1145,3 +1168,80 @@ def test_capture_survives_a_graph_freed_by_the_collector(dev):
     finally:
         gc.set_threshold(*threshold)
     assert torch.equal(g()[3], x * 3)
+
+
+@pytest.fixture
+def spans_on():
+    """The recorder (`utils/profiling.py`) emptied and on; off and empty after."""
+    from drone2d_tpu_torch.utils import profiling
+
+    profiling.reset()
+    profiling.enable()
+    yield profiling
+    profiling.enable(False)
+    profiling.reset()
+
+
+def test_update_jit_spans_on_card(dev, spans_on):
+    """Two captured updates with spans off, then two from a twin state with
+    spans on: bit-equal; one capture, caused by `update`; the last update's
+    `update.rollout` and `update.sgd` timed on the device, their sum within
+    the host's time from the `update` span's start to the synchronize after
+    it."""
+    import time
+
+    profiling = spans_on
+    cfg = PPOConfig(**GRAPH_PPO)
+    on = PPOLearner(EnvConfig(), cfg, 64, device=dev)
+    off = PPOLearner(EnvConfig(), cfg, 64, device=dev)
+    a, b = on.init(3), off.init(3)
+    profiling.enable(False)
+    for _ in range(2):
+        b, mb = off.update_jit(b)
+    profiling.reset()
+    profiling.enable()
+    for _ in range(2):
+        a, ma = on.update_jit(a)
+    torch.cuda.synchronize()
+    synced_ns = time.time_ns()
+    assert set(ma) == set(mb) and all(torch.equal(ma[k], mb[k]) for k in ma)
+    _assert_same_state(a, b)
+    c = profiling.counters()
+    assert c["graphs.captures[update]"] == c["graphs.captures"] == 1
+    assert c["graph_cache.hits"] == 1
+    spans = profiling.spans()
+    (capture,) = [s for s in spans if s.name == "graphs.capture"]
+    assert capture.attrs["cause"] == "update" and capture.attrs["nodes"] > 0
+    update = [s for s in spans if s.name == "update"][-1]
+    kids = {s.name: s for s in spans if s.parent == update.id}
+    rollout, sgd = kids["update.rollout"].device_s, kids["update.sgd"].device_s
+    assert rollout > 0 and sgd > 0
+    assert (rollout + sgd) * 1e9 <= synced_ns - update.start_ns
+
+
+def test_selection_calls_past_the_campaign_envs_capture_anew(dev, spans_on, monkeypatch):
+    """Two selection calls on two scenarios with room for one campaign env:
+    each makes its env anew and captures twice, its draw graph and its
+    runner, with the causes that say so."""
+    import collections
+
+    from drone2d_tpu_torch.eval import episode
+
+    monkeypatch.setattr(episode, "_CAMPAIGN_ENVS", collections.OrderedDict())
+    monkeypatch.setattr(episode, "CAMPAIGN_ENVS", 1)
+    stack = stack_params([flat_dict_to_params(dict(np.load(p)), device=dev) for p in AGENTS])
+    for scen in ("stage_2", "corridor"):
+        res = episode.run_episodes_multi(scenario_config(scen).replace(n_steps=100), stack, 5,
+                                         16, device=dev)
+        assert res.success.shape == (3, 16)
+    profiling = spans_on
+    spans = profiling.spans()
+    calls = [s for s in spans if s.name == "eval.call"]
+    assert len(calls) == 2
+    for call in calls:
+        causes = sorted(s.attrs["cause"] for s in spans
+                        if s.name == "graphs.capture" and s.root == call.id)
+        assert causes == ["eval.draws:new_env", "eval.runner:new_env"]
+    c = profiling.counters()
+    assert c["graphs.captures"] == 4 and c["campaign_env.misses"] == 2
+    assert c["campaign_env.evictions"] == 1 and c["eval.calls"] == 2

@@ -1,5 +1,5 @@
-"""The port's host tools on the CPU: `utils/profiling.py`, `debug.py` and
-the plots (`eval/curves.py`, `eval/replotting.py`, `eval/barplots.py`).
+"""The port's host tools on the CPU: `utils/profiling.py`'s trace, `debug.py`
+and the plots (`eval/curves.py`, `eval/replotting.py`, `eval/barplots.py`).
 
 The plots are drawn by the port and by the JAX package from the same data
 and must come out pixel-equal: the same matplotlib figures, and for the
@@ -25,7 +25,7 @@ from drone2d_tpu_torch.eval import barplots, curves, replotting
 from drone2d_tpu_torch.eval.artifacts import write_campaign
 from drone2d_tpu_torch.eval.episode import run_episodes
 from drone2d_tpu_torch.learn.ppo import PPOLearner
-from drone2d_tpu_torch.utils.profiling import PhaseTimer, trace
+from drone2d_tpu_torch.utils.profiling import trace
 
 torch.set_num_threads(1)
 
@@ -34,24 +34,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _same_png(a, b):
     np.testing.assert_array_equal(imageio.imread(a), imageio.imread(b))
-
-
-def test_phase_timer_counts_and_dumps(tmp_path):
-    pt = PhaseTimer()
-    x = torch.ones(4)
-    for _ in range(3):
-        with pt.phase("rollout", block_on={"x": x, "rest": [x, None]}):
-            x = x + 1
-    with pt.phase("sgd"):
-        pass
-    s = pt.summary()
-    assert s["rollout"]["calls"] == 3 and s["sgd"]["calls"] == 1
-    assert s["rollout"]["total_s"] >= 0 and s["rollout"]["mean_ms"] == pytest.approx(
-        1e3 * s["rollout"]["total_s"] / 3)
-    pt.dump(str(tmp_path / "phases.jsonl"))
-    pt.dump(str(tmp_path / "phases.jsonl"))
-    rows = [json.loads(line) for line in open(tmp_path / "phases.jsonl")]
-    assert len(rows) == 2 and rows[0]["rollout"]["calls"] == 3
 
 
 def test_trace_writes_chrome_trace_on_cpu(tmp_path):
