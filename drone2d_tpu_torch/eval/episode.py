@@ -35,6 +35,14 @@ counters `eval.calls` and `eval.call_s`; inside it the spans `eval.draws`
 host's reads of whether every episode has latched) and `eval.results`
 (the copies to the host).  `_campaign_env` counts its hits, misses and
 evictions (`campaign_env.*`).
+
+The runner, its chunks captured as CUDA graphs, is kept apart from the
+scenario's env (`_chunk_runner`): only the env's constructor and its resets
+read the scenario (`RESET_ONLY`), so a runner steps an env of its own made
+from the step's configuration, and one runner flies every scenario whose
+states have its shapes.  The runner cache counts its hits, misses and
+evictions (`eval_runner.*`), and `eval_runner.shared` the hits on a runner
+made for another scenario.
 """
 
 from __future__ import annotations
@@ -45,7 +53,6 @@ import dataclasses
 import functools
 import threading
 import time
-import weakref
 import zlib
 from typing import List, NamedTuple, Optional
 
@@ -229,14 +236,18 @@ def _fresh_carry(state: EnvState, obs: torch.Tensor) -> _Carry:
 
 
 class _ChunkRunner:
-    """`run_episodes_from`'s chunks for one env, policy and batch: static
-    buffers for the carry, a chunk's draws and its positions and angles, and
-    one graph a chunk length (CHECK_EVERY, and T mod CHECK_EVERY when it is
-    not 0), captured on the card, called directly on the CPU."""
+    """`run_episodes_from`'s chunks for one step configuration, policy and
+    batch: the env they step (`env`, made from the step's configuration),
+    static buffers for the carry, a chunk's draws and its positions and
+    angles, and one graph a chunk length (CHECK_EVERY, and T mod
+    CHECK_EVERY when it is not 0), captured on the card, called directly on
+    the CPU.  `scenario` is the one it was made for."""
 
     def __init__(self, env: Drone2DEnv, params: Optional[ActorCritic], state: EnvState,
-                 obs: torch.Tensor, draws: Optional[torch.Tensor], captured: bool = True):
+                 obs: torch.Tensor, draws: Optional[torch.Tensor], captured: bool,
+                 scenario: str, cause: str):
         T, N, dev = env.cfg.n_steps, obs.shape[0], obs.device
+        self.env, self.scenario = env, scenario
         self.carry = graphs.clone(_fresh_carry(state, obs))
         n = min(CHECK_EVERY, T)
         # contiguous: each step's (N, 2) slice feeds the kernel
@@ -244,18 +255,12 @@ class _ChunkRunner:
         self.traj = torch.empty((n, N, 2), device=dev)
         self.angles = torch.empty((n, N), device=dev)
         lead = (N,) if params is None or params.members is None else (params.members, -1)
-        # the env holds this runner, and the chunks close over its buffers
-        # and a weak reference to the env: no reference cycle, so the runner
-        # is freed, graphs and all, as soon as the env is
-        env = weakref.proxy(env)
         self.chunks = {
             steps: graphs.Graph(functools.partial(
                 _chunk, env, params, lead, steps, self.carry, self.draws, self.traj,
                 self.angles), dev, eager=not captured)
             for steps in sorted({n, T % CHECK_EVERY} - {0}, reverse=True)}
-        # the env's first runner: the env was made anew for this call
-        graphs.capture(list(self.chunks.values()),
-                       cause="eval.runner" + (":new_env" if env.graphs.captures == 0 else ""))
+        graphs.capture(list(self.chunks.values()), cause=cause)
 
     def start(self, state: EnvState, obs: torch.Tensor) -> _Carry:
         """The carry set to a run's start at (state, obs)."""
@@ -302,19 +307,47 @@ def _chunk(env, params, lead, steps: int, c: _Carry, draws, traj, angles) -> Non
         ape=ape, time_steps=time_steps, total_reward=total_reward))
 
 
+# EnvConfig's fields that only the env's constructor and its resets read
+RESET_ONLY = ("mode", "scenario")
+
+
+def step_config(cfg: EnvConfig) -> EnvConfig:
+    """`cfg` with its `RESET_ONLY` fields at EnvConfig's defaults: what
+    `Drone2DEnv.step` reads of it, the same for every scenario."""
+    return cfg.replace(**{f.name: f.default for f in dataclasses.fields(EnvConfig)
+                          if f.name in RESET_ONLY})
+
+
+# the eval runners, by what their captured chunks depend on (`_chunk_runner`);
+# the least recently used is released first, its graphs and pool with it
+_EVAL_RUNNERS = graphs.GraphCache(size=2, counter="eval_runner")
+
+
 def _chunk_runner(env: Drone2DEnv, params: Optional[ActorCritic], state: EnvState,
                   obs: torch.Tensor, draws: Optional[torch.Tensor],
                   captured: bool) -> _ChunkRunner:
-    """The env's runner for this policy and batch, made (and captured) at
-    its first use and kept on the env (`Drone2DEnv.graphs`)."""
+    """The runner for `env`'s step, this policy and batch, from the runner
+    cache, made (and captured) at its first use.  Its key is what the
+    chunks depend on: the step's configuration (`step_config`) and device,
+    the policy and the storages of its weights, and the shapes of (state,
+    obs, draws); so a runner made for one scenario flies every other one
+    whose states have its shapes.  A new runner steps the env of a kept
+    runner of its step configuration, or else an env made anew (the
+    capture's cause then says `:new_env`)."""
     mode = "random" if params is None else "deterministic" if draws is None else "stochastic"
-    key = (mode, captured, CHECK_EVERY,
+    step = (step_config(env.cfg), str(env.device))
+    key = (step, mode, captured, CHECK_EVERY,
            None if params is None else graphs.storage_key(params.parameters()),
            graphs.signature((state, obs, draws)))
-    runner = env.graphs.get(key)
+    runner = _EVAL_RUNNERS.get(key)
     if runner is None:
-        runner = _ChunkRunner(env, params, state, obs, draws, captured)
-        env.graphs.put(key, runner)
+        kin = next((r.env for k, r in _EVAL_RUNNERS.entries.items() if k[0] == step), None)
+        runner = _ChunkRunner(Drone2DEnv(step[0], env.device) if kin is None else kin, params,
+                              state, obs, draws, captured, env.cfg.scenario,
+                              cause="eval.runner" + (":new_env" if kin is None else ""))
+        _EVAL_RUNNERS.put(key, runner)
+    elif runner.scenario != env.cfg.scenario:
+        profiling.count("eval_runner.shared")
     return runner
 
 

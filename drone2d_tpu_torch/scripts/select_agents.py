@@ -18,9 +18,10 @@ many of the 12 published success rates the candidate matches or beats) and
 writes the full summary JSON.  Runs on the CUDA card unless `--device cpu`.
 The line after the flights says where their time went: policy-kernel
 launches, the CUDA graphs captured and the seconds they took (by cause),
-the campaign envs reused, made anew and released, and the runner and draw
-caches' hits, misses and evictions (`utils/profiling.py`'s counters; no
-capture on the CPU).
+the campaign envs reused, made anew and released, the eval runners' hits
+(and how many of them were on a runner made for another scenario), misses
+and evictions, and the draw caches' hits, misses and evictions
+(`utils/profiling.py`'s counters; no capture on the CPU).
 """
 
 from __future__ import annotations
@@ -47,8 +48,9 @@ from drone2d_tpu_torch.utils.checkpoint import checkpoint_steps
 def capture_line(before: dict, after: dict) -> str:
     """What the flights between two readings of the counters captured and
     released: graph captures and their seconds, by cause, the campaign
-    envs reused, made anew and released, and the graph caches' hits,
-    misses and evictions."""
+    envs reused, made anew and released, the eval runners' hits (those on
+    a runner made for another scenario: shared), misses and evictions, and
+    the other graph caches' hits, misses and evictions."""
     def d(name):
         return after.get(name, 0) - before.get(name, 0)
 
@@ -59,6 +61,9 @@ def capture_line(before: dict, after: dict) -> str:
     return (f"graph captures {d('graphs.captures'):g} in {d('graphs.capture_s'):.1f} s"
             f"{f' ({by})' if by else ''}; campaign envs: {d('campaign_env.hits'):g} reused, "
             f"{d('campaign_env.misses'):g} made, {d('campaign_env.evictions'):g} released; "
+            f"eval runners: {d('eval_runner.hits'):g} hits ({d('eval_runner.shared'):g} shared "
+            f"across scenarios), {d('eval_runner.misses'):g} misses, "
+            f"{d('eval_runner.evictions'):g} evictions; "
             f"graph caches: {d('graph_cache.hits'):g} hits, {d('graph_cache.misses'):g} misses, "
             f"{d('graph_cache.evictions'):g} evictions")
 

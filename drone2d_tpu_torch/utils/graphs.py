@@ -44,7 +44,7 @@ with its cause (which program asked: `update`, `eval.runner`,
 `eval.draws`, `shape_graph` or `other`), graphs, nodes and seconds, and
 adds to the counters `graphs.captures` and `graphs.capture_s`, in all and
 by cause (`graphs.captures[<cause>]`); a `GraphCache` counts its hits,
-misses and evictions under `graph_cache.*`.
+misses and evictions under `graph_cache.*` (or a name of its own).
 """
 
 from __future__ import annotations
@@ -371,7 +371,8 @@ class GraphCache:
     """Captured programs by key, at most `size` of them: adding one to a full
     cache releases the least recently used (its graphs and memory pool).
     It counts the programs made (`captures`), and the recorder its hits,
-    misses and evictions (`graph_cache.*`).
+    misses and evictions (`<counter>.*`: `graph_cache.*` unless it is
+    given a name).
 
     A key names what a program depends on: the shapes of its inputs, the
     storages it reads and writes in place (`storage_key`) and the
@@ -379,8 +380,8 @@ class GraphCache:
     holds those tensors and generators, so no other can take their
     addresses while it is cached."""
 
-    def __init__(self, size: int = 2):
-        self.size = size
+    def __init__(self, size: int = 2, counter: str = "graph_cache"):
+        self.size, self.counter = size, counter
         self.entries: collections.OrderedDict = collections.OrderedDict()
         self.captures = 0  # programs made, over the cache's life
 
@@ -388,9 +389,9 @@ class GraphCache:
         """The program under `key`, or None."""
         program = self.entries.get(key)
         if program is None:
-            profiling.count("graph_cache.misses")
+            profiling.count(f"{self.counter}.misses")
         else:
-            profiling.count("graph_cache.hits")
+            profiling.count(f"{self.counter}.hits")
             self.entries.move_to_end(key)
         return program
 
@@ -399,7 +400,7 @@ class GraphCache:
         while len(self.entries) >= self.size:
             self.entries.popitem(last=False)
             released = True
-            profiling.count("graph_cache.evictions")
+            profiling.count(f"{self.counter}.evictions")
         self.entries[key] = program
         self.captures += 1
         if released and torch.cuda.is_available():

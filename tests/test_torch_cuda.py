@@ -1219,16 +1219,28 @@ def test_update_jit_spans_on_card(dev, spans_on):
     assert (rollout + sgd) * 1e9 <= synced_ns - update.start_ns
 
 
-def test_selection_calls_past_the_campaign_envs_capture_anew(dev, spans_on, monkeypatch):
-    """Two selection calls on two scenarios with room for one campaign env:
-    each makes its env anew and captures twice, its draw graph and its
-    runner, with the causes that say so."""
+def _empty_eval_caches(monkeypatch, campaign_envs=None):
+    """The eval module's campaign envs and runners emptied (room for
+    `campaign_envs` envs, if given); put back after the test."""
     import collections
 
     from drone2d_tpu_torch.eval import episode
+    from drone2d_tpu_torch.utils import graphs
 
     monkeypatch.setattr(episode, "_CAMPAIGN_ENVS", collections.OrderedDict())
-    monkeypatch.setattr(episode, "CAMPAIGN_ENVS", 1)
+    monkeypatch.setattr(episode, "_EVAL_RUNNERS", graphs.GraphCache(size=2, counter="eval_runner"))
+    if campaign_envs is not None:
+        monkeypatch.setattr(episode, "CAMPAIGN_ENVS", campaign_envs)
+
+
+def test_selection_calls_past_the_campaign_envs_capture_anew(dev, spans_on, monkeypatch):
+    """Two selection calls on two scenarios with room for one campaign env:
+    each makes its env anew and captures its draw graph; the first also
+    captures the runner, which the second flies (shared across scenarios),
+    with the causes that say so."""
+    from drone2d_tpu_torch.eval import episode
+
+    _empty_eval_caches(monkeypatch, campaign_envs=1)
     stack = stack_params([flat_dict_to_params(dict(np.load(p)), device=dev) for p in AGENTS])
     for scen in ("stage_2", "corridor"):
         res = episode.run_episodes_multi(scenario_config(scen).replace(n_steps=100), stack, 5,
@@ -1238,10 +1250,37 @@ def test_selection_calls_past_the_campaign_envs_capture_anew(dev, spans_on, monk
     spans = profiling.spans()
     calls = [s for s in spans if s.name == "eval.call"]
     assert len(calls) == 2
-    for call in calls:
-        causes = sorted(s.attrs["cause"] for s in spans
-                        if s.name == "graphs.capture" and s.root == call.id)
-        assert causes == ["eval.draws:new_env", "eval.runner:new_env"]
+    causes = [sorted(s.attrs["cause"] for s in spans
+                     if s.name == "graphs.capture" and s.root == call.id) for call in calls]
+    assert causes == [["eval.draws:new_env", "eval.runner:new_env"], ["eval.draws:new_env"]]
     c = profiling.counters()
-    assert c["graphs.captures"] == 4 and c["campaign_env.misses"] == 2
+    assert c["graphs.captures"] == 3 and c["campaign_env.misses"] == 2
     assert c["campaign_env.evictions"] == 1 and c["eval.calls"] == 2
+    assert c["eval_runner.shared"] == c["eval_runner.hits"] == 1
+
+
+def test_runner_shared_across_scenarios_bit_equal_on_card(dev, spans_on, monkeypatch):
+    """A stack flown on stage_2 and then on corridor with the runner
+    shared: every result field, `traj` and `angles` equal (`torch.equal`)
+    to the same corridor call flown with both caches emptied and its runner
+    stepping an env of corridor's own configuration; the corridor call
+    captured its draw graph alone, and the runner was shared once."""
+    from drone2d_tpu_torch.eval import episode
+
+    profiling = spans_on
+    stack = stack_params([flat_dict_to_params(dict(np.load(p)), device=dev) for p in AGENTS])
+    stage, corridor = (scenario_config(s).replace(n_steps=200) for s in ("stage_2", "corridor"))
+    _empty_eval_caches(monkeypatch)
+    episode.run_episodes_multi(stage, stack, 5, 64, device=dev)
+    profiling.reset()
+    got = episode.run_episodes_multi(corridor, stack, 6, 64, device=dev)
+    c = profiling.counters()
+    assert c["graphs.captures"] == c["graphs.captures[eval.draws:new_env]"] == 1
+    assert c["eval_runner.shared"] == c["eval_runner.hits"] == 1
+    _empty_eval_caches(monkeypatch)
+    monkeypatch.setattr(episode, "step_config", lambda cfg: cfg)
+    want = episode.run_episodes_multi(corridor, stack, 6, 64, device=dev)
+    assert episode._EVAL_RUNNERS.entries.popitem()[1].env.cfg.scenario == "corridor"
+    assert got.traj.shape == (3, 64, 200, 2)
+    for k, g, w in zip(got._fields, got, want):
+        assert torch.equal(torch.from_numpy(g), torch.from_numpy(w)), k

@@ -301,8 +301,9 @@ def test_latch_coast_and_timeout_scripted(monkeypatch):
     state.t[4] = 0
     draws = torch.tensor([1.0, -1.0]).expand(100, 5, 2).contiguous()
     steps = []
-    step = env.step
-    env.step = lambda s, a: (steps.append(1), step(s, a))[1]
+    step = Drone2DEnv.step  # the runner steps an env of its own: count every env's steps
+    monkeypatch.setattr(Drone2DEnv, "step",
+                        lambda self, s, a: (steps.append(1), step(self, s, a))[1])
     monkeypatch.setattr(episode, "CHECK_EVERY", 8)
     early = episode.run_episodes_from(env, None, state, obs, draws)
     n_early = len(steps)

@@ -286,10 +286,13 @@ def test_chunked_runner_matches_jax(jax_runs, case, monkeypatch):
     assert np.abs(got.angles - want.angles).max() <= RUNNER_TOL * np.pi
 
 
-def test_runner_is_kept_and_reused_on_its_env():
-    """One runner a policy and batch on the env, reused by the next run with
-    another start; a third policy releases the oldest (the cache holds
-    two); a second run from the same start gives the same results."""
+def test_runner_is_kept_and_reused_on_its_env(monkeypatch):
+    """One runner a policy and batch for the env's step, kept in the runner
+    cache and reused by the next run with another start; a third policy
+    releases the oldest (the cache holds two); a second run from the same
+    start gives the same results."""
+    runners = graphs.GraphCache(size=2, counter="eval_runner")
+    monkeypatch.setattr(episode, "_EVAL_RUNNERS", runners)
     cfg = run.scenario_config("stage_2").replace(n_steps=70, path_table_n=128)
     env = Drone2DEnv(cfg, device="cpu")
     params = ActorCritic(27, 2, HIDDEN, generator=torch.Generator().manual_seed(0), device="cpu")
@@ -302,10 +305,10 @@ def test_runner_is_kept_and_reused_on_its_env():
     b = episode.run_episodes_from(env, params, state, obs, draws)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
-    assert env.graphs.captures == 1
+    assert runners.captures == 1
     episode.run_episodes_from(env, params, state, obs, None, deterministic=True)
     episode.run_episodes_from(env, None, state, obs, draws.clamp(-1, 1))
-    assert env.graphs.captures == 3 and len(env.graphs.entries) == 2
+    assert runners.captures == 3 and len(runners.entries) == 2
 
 
 # -- the graph helpers ---------------------------------------------------------

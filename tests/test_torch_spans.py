@@ -1,7 +1,8 @@
 """The port's spans and counters (`drone2d_tpu_torch/utils/profiling.py`) on
 the CPU: the recorder off and on, its clock against the profiler's, and
 where the program records them (the update, the graph caches, the eval
-calls and their campaign envs).  Nothing of the JAX package is used.
+calls, their campaign envs and their runners, one shared across
+scenarios).  Nothing of the JAX package is used.
 
     python -m pytest tests/test_torch_spans.py -q
 """
@@ -256,6 +257,37 @@ def test_campaign_envs_counted_past_their_cap(recorder, monkeypatch):
         assert kids == ["eval.draws", "eval.runner", "eval.chunks", "eval.results"]
 
 
+def test_runner_shared_across_scenarios_bit_equal_to_its_own(recorder, monkeypatch):
+    """`run_episodes_multi` on a spatial scenario after a stage scenario
+    flies the stage's runner (one miss, one hit, shared once) and gives
+    what the spatial scenario gives alone, with the caches emptied and its
+    runner stepping an env of the scenario's own configuration: `step`
+    reads nothing of the scenario."""
+    def emptied(step_config):
+        monkeypatch.setattr(episode, "_CAMPAIGN_ENVS", collections.OrderedDict())
+        monkeypatch.setattr(episode, "_EVAL_RUNNERS",
+                            graphs.GraphCache(size=2, counter="eval_runner"))
+        monkeypatch.setattr(episode, "step_config", step_config)
+        recorder.reset()
+
+    stack = _stack()
+    stage, spatial = (scenario_config(s).replace(n_steps=70, path_table_n=128)
+                      for s in ("stage_2", "corridor"))
+    emptied(episode.step_config)
+    episode.run_episodes_multi(stage, stack, 3, 4, device="cpu")
+    got = episode.run_episodes_multi(spatial, stack, 5, 4, device="cpu")
+    c = recorder.counters()
+    assert (c["eval_runner.misses"], c["eval_runner.hits"], c["eval_runner.shared"]) == (
+        1, 1, 1)
+    emptied(lambda cfg: cfg)
+    want = episode.run_episodes_multi(spatial, stack, 5, 4, device="cpu")
+    assert recorder.counters()["eval_runner.misses"] == 1
+    assert (episode._EVAL_RUNNERS.entries.popitem()[1].env.cfg.mode, got.traj.shape) == (
+        "test", (2, 4, 70, 2))
+    for k, g, w in zip(got._fields, got, want):
+        np.testing.assert_array_equal(g, w, err_msg=k)
+
+
 def test_run_episodes_from_called_directly_is_its_own_root(recorder):
     cfg = scenario_config("stage_2").replace(n_steps=4, path_table_n=128)
     env, state, obs, draws = episode._campaign_draws(cfg, "cpu", 7, 2, 0.0, "stochastic")
@@ -279,9 +311,11 @@ def test_select_agents_capture_line():
              "graphs.captures[eval.runner:new_env]": 2,
              "graphs.capture_s[eval.runner:new_env]": 8.0,
              "campaign_env.hits": 1, "campaign_env.misses": 2, "campaign_env.evictions": 1,
+             "eval_runner.hits": 5, "eval_runner.shared": 4, "eval_runner.misses": 2,
              "graph_cache.hits": 3, "graph_cache.misses": 4}
     assert capture_line(before, after) == (
         "graph captures 4 in 8.5 s (eval.draws:new_env 2 (0.5 s), eval.runner:new_env 2 "
-        "(8.0 s)); campaign envs: 1 reused, 2 made, 1 released; graph caches: 3 hits, "
+        "(8.0 s)); campaign envs: 1 reused, 2 made, 1 released; eval runners: 5 hits "
+        "(4 shared across scenarios), 2 misses, 0 evictions; graph caches: 3 hits, "
         "4 misses, 0 evictions")
     assert capture_line(after, after).startswith("graph captures 0 in 0.0 s;")
