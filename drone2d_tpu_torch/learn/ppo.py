@@ -743,6 +743,17 @@ class PPOLearner:
             self._graphs.put(_UpdateProgram.key(self, state, draws, group), program)
         return self._finish(self._advance(state, env_state, obs), stats, self._means(rows))
 
+    def update_data(self, state) -> tuple | None:
+        """The SGD data that the last `update_jit(state)` (its weights,
+        optimizer and generators) replayed its epochs over, laid out as
+        `_sgd_data` lays it out: (obs, actions, log_probs, advantages,
+        returns), copies; None if no kept program serves `state`.  It reads
+        the program's static buffers, which its next replay overwrites, so
+        that a check can step another SGD from the batch the captured
+        rollout made."""
+        program = self._graphs.entries.get(_UpdateProgram.key(self, state))
+        return None if program is None else graphs.clone(program.rollout_graphs[-1].outputs[3])
+
     def update_from(
         self,
         state: TrainState,

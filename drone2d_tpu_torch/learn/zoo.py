@@ -43,12 +43,13 @@ import torch.distributed as dist
 
 from drone2d_tpu_torch.config import EnvConfig, PPOConfig
 from drone2d_tpu_torch.env.env import ACT_DIM, OBS_DIM
-from drone2d_tpu_torch.env.types import EnvState, cat_states
+from drone2d_tpu_torch.env.types import FAMILY_NAMES, EnvState, cat_states
 from drone2d_tpu_torch.eval.run import load_params
 from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.plr import reweight_rehearsal
 from drone2d_tpu_torch.learn.ppo import PPOLearner, TrainState
 from drone2d_tpu_torch.models.policy import ActorCritic, params_to_flat_dict, stack_params
+from drone2d_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -120,6 +121,42 @@ def assemble(members: Sequence[TrainState], learning_rate: float) -> ZooState:
            for k in ("global_step", "episodes_total", "rehearsal_probs", "family_counts",
                      "family_wins")},
     )
+
+
+def warm_start(trainer: ZooTrainer, seeds: Sequence[int], init_params: str) -> ZooState:
+    """A population of `seeds` with every member from its own copy of one
+    agent (an agent .npz or the port's checkpoint directory): the policy
+    only, so that the optimizer, envs and generators stay per seed and the
+    members diverge through their data and draws.  Raises unless the
+    agent's shapes are the population's.  Recorded as the span
+    `zoo.warm_start` (the file, the members, the seconds on the host)."""
+    with profiling.span("zoo.warm_start", file=str(init_params), members=len(seeds)) as span:
+        t = time.perf_counter()
+        params = load_params(init_params, device=trainer.device)
+        got = {k: v.shape for k, v in params_to_flat_dict(params).items()}
+        want = {k: v.shape for k, v in params_to_flat_dict(
+            ActorCritic(OBS_DIM, ACT_DIM, trainer.cfg.hidden_sizes, device="cpu")).items()}
+        if got != want:
+            raise ValueError(f"init_params {init_params} has shapes {got}, but the "
+                             f"population expects {want} (check hidden_sizes)")
+        state = trainer.init(seeds, params=params)
+        span.set(seconds=time.perf_counter() - t)
+    return state
+
+
+def count_rehearsal(state: ZooState, since=None):
+    """Add to the counters `rehearsal.episodes[<family>]` and
+    `rehearsal.wins[<family>]` (`env.types.FAMILY_NAMES`) the growth of the
+    population's finished episodes and wins per family since `since`, the
+    sums this returned at its last call (None: since zero).  It copies the
+    sums to the host, so call it only where the host waits anyway.  Returns
+    the sums, (S, 8) host arrays each."""
+    sums = (state.family_counts.cpu().numpy(), state.family_wins.cpu().numpy())
+    for kind, now, before in zip(("episodes", "wins"), sums, since or (0.0, 0.0)):
+        grown = (now - before).sum(axis=0)
+        for name, n in zip(FAMILY_NAMES, grown.tolist()):
+            profiling.count(f"rehearsal.{kind}[{name}]", n)
+    return sums
 
 
 def shard_population(group, seeds: Sequence[int]) -> List[int]:
@@ -213,40 +250,35 @@ def train_zoo(
             "cross_mix_prob) > 0 to define the budget the controller "
             "redistributes"
         )
-    params = None
     if init_params:
-        # every member from the same agent (the policy only: optimizer, envs
-        # and generators stay per seed, so members diverge through their
-        # data and draws)
-        params = load_params(init_params, device=trainer.device)
-        got = {k: v.shape for k, v in params_to_flat_dict(params).items()}
-        want = {k: v.shape for k, v in params_to_flat_dict(
-            ActorCritic(OBS_DIM, ACT_DIM, ppo_cfg.hidden_sizes, device="cpu")).items()}
-        if got != want:
-            raise ValueError(f"init_params {init_params} has shapes {got}, but the "
-                             f"population expects {want} (check hidden_sizes)")
-    state = trainer.init(seeds, params=params)
-    if init_params and lead:
-        print(f"warm-started {len(seeds)} members from {init_params}")
+        state = warm_start(trainer, seeds, init_params)
+        if lead:
+            print(f"warm-started {len(seeds)} members from {init_params}")
+    else:
+        state = trainer.init(seeds)
     spu = trainer.batch_size  # env steps a member an update
     n_updates, snap_at = snapshot_schedule(total_timesteps, spu, snapshots, snapshot_steps)
 
     adaptive = env_cfg.adaptive_rehearsal and env_cfg.rehearsal_adapt
-    plr_last = (state.family_counts.cpu().numpy(), state.family_wins.cpu().numpy())
+    # the family sums at the last tick, which the counters and the
+    # controller both take their growth from
+    last = count_rehearsal(state) if env_cfg.adaptive_rehearsal else None
     t0 = time.perf_counter()
     for u in range(1, n_updates + 1):
         # the captured update (CUDA graphs on the card), the counterpart of
         # jit(vmap(update)); a rank's block trains alone, with no collective
         state, metrics = trainer.update_jit(state)
-        if adaptive and u % log_every == 0:
-            # each member reweights its own families by its own failure
-            # rates since the last tick (learn/plr.py broadcasts over members)
-            counts, wins, probs = (x.cpu().numpy() for x in (
-                state.family_counts, state.family_wins, state.rehearsal_probs))
-            new_probs = reweight_rehearsal(probs, counts - plr_last[0], wins - plr_last[1])
-            plr_last = (counts, wins)
-            state = dataclasses.replace(state, rehearsal_probs=torch.as_tensor(
-                new_probs, dtype=torch.float32, device=trainer.device))
+        if env_cfg.adaptive_rehearsal and (u % log_every == 0 or u == n_updates):
+            sums = count_rehearsal(state, last)
+            if adaptive and u % log_every == 0:
+                # each member reweights its own families by its own failure
+                # rates since the last tick (learn/plr.py broadcasts over
+                # members)
+                new_probs = reweight_rehearsal(state.rehearsal_probs.cpu().numpy(),
+                                               sums[0] - last[0], sums[1] - last[1])
+                state = dataclasses.replace(state, rehearsal_probs=torch.as_tensor(
+                    new_probs, dtype=torch.float32, device=trainer.device))
+            last = sums
         if u == 1:
             # the first update also builds the kernel: the rate starts after it
             float(metrics["loss"][0])
