@@ -131,6 +131,7 @@ from drone2d_tpu_torch.models.policy import (
 )
 from drone2d_tpu_torch.ops import cuda_build, geometry, physics
 from drone2d_tpu_torch.ops.fused_policy import fused_sample_action, fused_sample_action_ref
+from drone2d_tpu_torch.ops.ppo_sgd import ppo_sgd_plan, ppo_sgd_step
 from drone2d_tpu_torch.parallel import mesh
 from drone2d_tpu_torch.scripts import (
     aape_survivorship,
@@ -638,6 +639,169 @@ def phase_kernel_stacked(kernel_row: dict):
     kernel_row["stacked"] = out
 
 
+def _graph_ms(body, reps: int) -> float:
+    """Device ms of `body` captured once in a CUDA graph (after a warm-up
+    run) and replayed `reps` times back to back, from CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        body()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _sgd_setup(hidden: int, members: int, shuffle: str, n_steps: int, num_envs: int,
+               minibatches: int, seed: int):
+    """A learner of one epoch, a population of `members` fresh actor-critics
+    and a rollout of random tensors laid out for its SGD (old log-probs that
+    put the ratios inside and beyond the clip range) -> (learner, params,
+    data, the epoch's shuffle)."""
+    dev = torch.device("cuda")
+    cfg = PPOConfig(n_steps=n_steps, num_minibatches=minibatches, n_epochs=1, shuffle=shuffle,
+                    hidden_sizes=(hidden, hidden))
+    learner = PPOLearner(EnvConfig(path_table_n=128), cfg, num_envs, device=dev)
+    g = torch.Generator().manual_seed(seed)
+    params = stack_params([ActorCritic(27, 2, (hidden, hidden), device=dev,
+                                       generator=torch.Generator().manual_seed(seed + i))
+                           for i in range(members)])
+    T, W = n_steps, members * num_envs
+    raw = tuple(x.to(dev) for x in (
+        torch.randn(T, W, 27, generator=g), 0.8 * torch.randn(T, W, 2, generator=g),
+        -1.0 - 2.0 * torch.rand(T, W, generator=g), 0.3 + 2.0 * torch.randn(T, W, generator=g),
+        3.0 * torch.randn(T, W, generator=g)))
+    perm = torch.stack([learner.draw_perms(torch.Generator(device=dev).manual_seed(seed + i))[0]
+                        for i in range(members)])
+    return learner, params, learner._sgd_data(raw, members), perm
+
+
+# the fused SGD step against the plain one on the card: the clipped
+# gradients and Adam's moments to SGD_REL of each leaf's largest element
+# (the two sum each gradient over the rows in another order and grouping,
+# about 1e-7 of the summed terms, which cancellation can leave at ~1e-5 of
+# the leaf's largest element), the rows to TOL of max(1, |v|) (means over
+# the minibatch), the weights to 1e-3 of the lr x steps budget (a weight
+# moves by at most lr a step)
+SGD_REL = 1e-4
+
+
+def _sgd_compare(hidden: int, shuffle: str, n_steps: int, num_envs: int, minibatches: int,
+                 steps: int, seed: int) -> float:
+    """The first `steps` fused minibatch steps of an epoch of a population of
+    8 against the plain steps (`PPOLearner.plain_sgd_step`, on the card)
+    from the same weights and minibatches; raises past the bounds above.
+    -> the rows' largest absolute difference."""
+    learner, params, data, perm = _sgd_setup(hidden, 8, shuffle, n_steps, num_envs,
+                                             minibatches, seed)
+    lr = learner.cfg.learning_rate
+    got, want = copy.deepcopy(params), copy.deepcopy(params)
+    opt_g, opt_w = optim.adam(got.parameters(), lr), optim.adam(want.parameters(), lr)
+    rows = learner._rows(8, epochs=1)[:steps]
+    plan = ppo_sgd_plan(got, opt_g, data, perm, learner.cfg, learner.num_envs)
+    for k in range(steps):
+        ppo_sgd_step(plan, k, rows[k])
+    mbs = learner._epoch_minibatches(data, perm, 8)
+    plain = torch.stack([learner.plain_sgd_step(want, opt_w, mb)
+                         for _, mb in zip(range(steps), mbs)])
+    torch.cuda.synchronize()
+
+    def rel(x, y):
+        return float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+
+    errs = {"rows": scaled_err(rows, plain), "weights": 0.0, "grad": 0.0, "exp_avg": 0.0,
+            "exp_avg_sq": 0.0}
+    for a, b in zip(got.parameters(), want.parameters()):
+        sa, sb = opt_g.state[a], opt_w.state[b]
+        if not (torch.equal(sa["step"], sb["step"]) and float(sa["step"]) == steps):
+            raise AssertionError(f"fused SGD step count {float(sa['step'])}, want {steps}")
+        errs["weights"] = max(errs["weights"],
+                              float((a - b).detach().abs().max()) / (1e-3 * lr * steps))
+        for key, x, y in (("grad", a.grad, b.grad), ("exp_avg", sa["exp_avg"], sb["exp_avg"]),
+                          ("exp_avg_sq", sa["exp_avg_sq"], sb["exp_avg_sq"])):
+            errs[key] = max(errs[key], rel(x, y))
+    rows_a_step = n_steps * num_envs // minibatches
+    log(f"  8 x {rows_a_step} rows, H={hidden}, {shuffle}, {steps} steps: rows {errs['rows']:.3e}, "
+        f"weights {errs['weights']:.3e} of the budget, grad {errs['grad']:.3e}, exp_avg "
+        f"{errs['exp_avg']:.3e}, exp_avg_sq {errs['exp_avg_sq']:.3e}")
+    if errs["rows"] > TOL or errs["weights"] > 1.0 or max(
+            errs[k] for k in ("grad", "exp_avg", "exp_avg_sq")) > SGD_REL:
+        raise AssertionError(f"fused SGD step disagrees with plain (8 x {rows_a_step} rows, "
+                             f"H={hidden} {shuffle}): {errs}")
+    return float((rows - plain).abs().max())
+
+
+def sgd_step_flops(hidden: int, rows: int, obs_dim: int = 27) -> int:
+    """FLOPs of one minibatch step of `rows` rows of an actor-critic with two
+    hidden layers of `hidden` and two actions: the forward's products
+    (`benchmark/counts.py::policy_forward_flops`), as many again for the
+    weights' gradients, and the inputs' gradients of every layer but the
+    first (no gradient flows into the observations)."""
+    forward = 2 * 2 * (obs_dim * hidden + hidden * hidden) + 2 * 3 * hidden
+    return rows * (3 * forward - 2 * 2 * obs_dim * hidden)
+
+
+def phase_sgd_kernel() -> dict:
+    """The PPO minibatch step as one kernel (`ops/ppo_sgd.py`) against its
+    plain version (`PPOLearner.plain_sgd_step`, on the card), a population
+    of 8 (`_sgd_compare`): an epoch of 4 steps at each shuffle at a small
+    shape (128 rows a member: one or two row blocks), then 8 steps at each
+    main path's shape, the hunts' (8 x 2,048 rows at H=128, timeperm: 16 row
+    blocks summed through the partials) and the SB3 shape's (8 x 64 rows at
+    H=64, exact over 2,048 x 14 rows).  Then one step's device time at those
+    two shapes, each over an epoch captured in a CUDA graph and replayed,
+    with the bound by the FLOPs the step needs (`sgd_step_flops`)."""
+    log("fused SGD step vs plain (8 members):")
+    err = 0.0
+    for shuffle, hidden in (("timeperm", 128), ("exact", 64), ("affine", 256)):
+        err = max(err, _sgd_compare(hidden, shuffle, 8, 64, 4, 4, 3))
+    err = max(err, _sgd_compare(128, "timeperm", 128, 1024, 64, 8, 5))
+    err = max(err, _sgd_compare(64, "exact", 2048, 14, 448, 8, 6))
+
+    def times(hidden, shuffle, n_steps, num_envs, minibatches):
+        learner, params, data, perm = _sgd_setup(hidden, 8, shuffle, n_steps, num_envs,
+                                                 minibatches, 11)
+        fused, plain = copy.deepcopy(params), copy.deepcopy(params)
+        opt_f = optim.adam(fused.parameters(), learner.cfg.learning_rate)
+        opt_p = optim.adam(plain.parameters(), learner.cfg.learning_rate)
+        rows = learner._rows(8, epochs=1)
+
+        def plain_epoch():
+            for k, mb in enumerate(learner._epoch_minibatches(data, perm, 8)):
+                rows[k] = learner.plain_sgd_step(plain, opt_p, mb)
+
+        ms = _graph_ms(lambda: learner._epoch(fused, opt_f, data, perm), 5) / minibatches
+        plain_ms = _graph_ms(plain_epoch, 2) / minibatches
+        rows_a_step = n_steps * num_envs // minibatches
+        flops = 8 * sgd_step_flops(hidden, rows_a_step)
+        bound = flops / PEAK_F32_FLOPS * 1e3
+        log(f"  step of 8 x {rows_a_step} rows at H={hidden} ({shuffle}, captured epoch of "
+            f"{minibatches}): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms; "
+            f"{flops / 1e6:.1f} MFLOP -> bound {bound:.5f} ms ({100 * bound / ms:.1f}% of it)")
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "operations",
+                "library_ms": None}
+
+    hunt = times(128, "timeperm", 128, 1024, 64)
+    sb3 = times(64, "exact", 2048, 14, 448)
+    log("  library_ms: null (no single PyTorch call computes a PPO step)")
+    return {"name": "ppo_sgd_step", "route": "cuda",
+            "source": "drone2d_tpu_torch/csrc/ppo_sgd.cu",
+            "replaces": None,  # none: the JAX package leaves its SGD step to XLA
+            "launches": None, "max_abs_err": err, **hunt,
+            # the SB3 shape's step: 8 x 64 rows at H=64
+            "s8_r64_h64": sb3, "launches_by_path": {}}
+
+
 def phase_reference():
     """A short rollout on the card against the same rollout on the CPU (the
     plain versions), from identical inputs: the env ops and the kernel
@@ -1065,48 +1229,16 @@ def phase_graphs(cfgs, kernel_row: dict):
 
 
 def phase_train_timing(cfgs, state):
-    """One minibatch step at the recipe by layer, on a fresh rollout's
-    batch; one update each with the 'exact' and 'affine' shuffles; the
-    device's busy share over one SGD epoch under the profiler.  (The
-    update's own time is the bench's train line, and its split by layer
-    the `probes` phase's `bench_update_split`.)"""
+    """One update each with the 'exact' and 'affine' shuffles on a fresh
+    rollout's batch; the device's busy share over one SGD epoch under the
+    profiler.  (The update's own time is the bench's train line, its split
+    by layer the `probes` phase's `bench_update_split`, and one SGD step's
+    the `sgd_kernel` phase's.)"""
     train_cfg, env_cfg, ppo_cfg = cfgs
     learner = PPOLearner(env_cfg, ppo_cfg, train_cfg.num_envs)
     state, batch, last_values, _ = learner.rollout(state)
     adv, ret = compute_gae(batch.rewards, batch.values, batch.dones, last_values,
                            gamma=ppo_cfg.gamma, gae_lambda=ppo_cfg.gae_lambda)
-
-    # one minibatch step by layer, each synchronized, median of 20
-    mb = [x.reshape((-1,) + x.shape[2:])[: learner.minibatch_size]
-          for x in (batch.obs, batch.actions, batch.log_probs, adv, ret)]
-    params, opt = state.params, state.optimizer
-    layers = {"loss (forward)": [], "backward": [], "clip": [], "adam": []}
-    for i in range(21):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = learner.loss_fn(params, *mb)[0]
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        optim.clip_by_global_norm_([p.grad for p in params.parameters()], ppo_cfg.max_grad_norm)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        opt.step()
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        if i:
-            for name, dt in zip(layers, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-                layers[name].append(dt * 1e3)
-    log(f"  SGD step layers, minibatch {learner.minibatch_size} (host clock, synchronized, "
-        f"median ms of 20): " + ", ".join(f"{k} {statistics.median(v):.3f}"
-                                          for k, v in layers.items()))
-    # the last eager loss holds its autograd graph (so would its aux
-    # values), whose gradient accumulators stay on this stream: a capture
-    # could not depend on it
-    del loss
 
     for shuffle in ("exact", "affine"):
         other = PPOLearner(env_cfg, ppo_cfg.replace(shuffle=shuffle), train_cfg.num_envs)
@@ -1483,7 +1615,7 @@ def phase_campaign(kernel_row: dict):
     return rows
 
 
-def phase_zoo(kernel_row: dict):
+def phase_zoo(kernel_row: dict, sgd_row: dict):
     """The population path at the seed hunt's first checkpoint: `python -m
     drone2d_tpu_torch.scripts.sweep --preset flagship-scratch --vmap 8` over
     HUNT_SEEDS to the first snapshot of the JAX package's hunt 7 (143
@@ -1494,12 +1626,12 @@ def phase_zoo(kernel_row: dict):
     failure to learn; the whole hunt (`README.md`, 8 seeds x 150M steps,
     every checkpoint) is the real check."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as d:
-        _hunt_in(d, kernel_row, path=("zoo", "select"), preset="flagship-scratch",
+        _hunt_in(d, kernel_row, sgd_row, path=("zoo", "select"), preset="flagship-scratch",
                  seeds=HUNT_SEEDS, schedule=(HUNT_TIMESTEPS, dict(snapshots=HUNT_SNAPSHOTS)),
                  reference=hunt_check.REFERENCE, snapshot_first=True)
 
 
-def phase_finetune_hunt(kernel_row: dict):
+def phase_finetune_hunt(kernel_row: dict, sgd_row: dict):
     """The rehearsal fine-tune hunt's first checkpoint: `sweep --preset
     flagship-finetune --init-params artifacts/agent_s6006/new_agent.npz
     --vmap 8` over FT_HUNT_SEEDS to the first snapshot of the JAX package's
@@ -1512,7 +1644,7 @@ def phase_finetune_hunt(kernel_row: dict):
     shows; the whole hunt (`README.md`, 8 seeds x 30M steps, every
     checkpoint, both selection RNGs) is the real check."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ft_hunt_") as d:
-        _hunt_in(d, kernel_row, path=("finetune_hunt", "finetune_select"),
+        _hunt_in(d, kernel_row, sgd_row, path=("finetune_hunt", "finetune_select"),
                  preset="flagship-finetune", seeds=FT_HUNT_SEEDS,
                  schedule=(FT_HUNT_TIMESTEPS, dict(snapshot_steps=FT_HUNT_SNAPSHOT_STEPS)),
                  reference=hunt_check.REFERENCE_H8, snapshot_first=False,
@@ -1573,7 +1705,7 @@ def _run_cli(main_fn, argv) -> str:
     return buf.getvalue()
 
 
-def _hunt_in(d: str, kernel_row: dict, *, path, preset, seeds, schedule, reference,
+def _hunt_in(d: str, kernel_row: dict, sgd_row: dict, *, path, preset, seeds, schedule, reference,
              snapshot_first, init_params=None):
     """A hunt's first checkpoint in `d`: `sweep --preset PRESET --vmap S` over
     `seeds` to the first snapshot of `schedule` ((total timesteps,
@@ -1582,7 +1714,9 @@ def _hunt_in(d: str, kernel_row: dict, *, path, preset, seeds, schedule, referen
     from `init_params` if given, with a snapshot after the first update if
     `snapshot_first` (else none): one kernel launch a rollout step for all
     S seeds ((updates + 1) x (n_steps + 1) launches, the capture's warm-up
-    included), a finite loss, the seed_<s>/ files, members whose weights
+    included) and three SGD kernel launches a minibatch step (the warm-up's
+    one epoch included: 3 x minibatches x (epochs x updates + 1)), a finite
+    loss, the seed_<s>/ files, members whose weights
     are finite and pairwise different (and moved from the warm start); then
     `select_agents` over the candidates (the finals alone without the first
     snapshot) on the 12 scenarios x SELECT_EPISODES, each path with the
@@ -1603,12 +1737,12 @@ def _hunt_in(d: str, kernel_row: dict, *, path, preset, seeds, schedule, referen
         argv += ["--init-params", str(init_params)]
     log(f"{name}: python -m drone2d_tpu_torch.scripts.sweep {' '.join(argv)}")
     torch.cuda.synchronize()
-    fused_sample_action.launches = 0
+    fused_sample_action.launches = ppo_sgd_step.launches = 0
     t0 = time.perf_counter()
     text = _run_cli(sweep.main, argv)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = fused_sample_action.launches
+    launches, sgd_launches = fused_sample_action.launches, ppo_sgd_step.launches
     log(f"  {name}: {len(seeds)} seeds x {updates} updates in {dt:.2f} s (setup, "
         f"capture and snapshots included), kernel launches {launches} "
         f"({launches / (updates + WARMUPS):.0f} a population update, the capture's "
@@ -1616,6 +1750,12 @@ def _hunt_in(d: str, kernel_row: dict, *, path, preset, seeds, schedule, referen
     if launches != (updates + WARMUPS) * (ppo_cfg.n_steps + 1):
         raise AssertionError(f"{name}: fused_sample_action launched {launches} times, want "
                              f"({updates} + {WARMUPS}) x {ppo_cfg.n_steps + 1}")
+    want_sgd = 3 * ppo_cfg.num_minibatches * (ppo_cfg.n_epochs * updates + 1)
+    log(f"  {name}: SGD kernel launches {sgd_launches} (want {want_sgd})")
+    if sgd_launches != want_sgd:
+        raise AssertionError(f"{name}: ppo_sgd_step launched {sgd_launches} times, "
+                             f"want {want_sgd}")
+    sgd_row["launches_by_path"][name] = sgd_launches
     m = re.search(rf"update {updates}/{updates} .*loss\s+(\S+)", text)
     if not m or not math.isfinite(float(m.group(1))):
         raise AssertionError(f"{name}: no finite loss in the last update's line")
@@ -2937,6 +3077,7 @@ def main():
     timed("build", phase_build)
     row = timed("kernel_vs_plain", phase_kernel_vs_plain)
     timed("kernel_stacked", phase_kernel_stacked, row)
+    sgd_row = timed("sgd_kernel", phase_sgd_kernel)
     timed("reference", phase_reference)
     timed("update_reference", phase_update_reference)
     learner, state = timed("rollout", phase_slice, row)
@@ -2951,10 +3092,10 @@ def main():
     timed("ddp2", phase_ddp2, row)
     timed("split", phase_split, row)
     timed("profiling", phase_profiling, row, *slice_state)
-    timed("zoo", phase_zoo, row)
+    timed("zoo", phase_zoo, row, sgd_row)
     timed("rehearsal_reset", phase_rehearsal_reset)
     timed("finetune", phase_finetune, row)
-    timed("finetune_hunt", phase_finetune_hunt, row)
+    timed("finetune_hunt", phase_finetune_hunt, row, sgd_row)
     timed("sb3_shape", phase_sb3_shape, row)
     timed("eval_reference", phase_eval_reference)
     timed("eval_breakdown", phase_eval_breakdown)
@@ -2970,8 +3111,9 @@ def main():
     timed("probes", phase_probes, row)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {sum(seconds.values()):.1f}")
-    row["launches"] = sum(row["launches_by_path"].values())
-    print(json.dumps({"kernels": [row]}))
+    for r in (row, sgd_row):
+        r["launches"] = sum(r["launches_by_path"].values())
+    print(json.dumps({"kernels": [row, sgd_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,9 +4,10 @@ Counterpart of `drone2d_tpu/learn/ppo.py`.  A rollout steps all envs in
 lockstep for `n_steps`: the policy sample (the fused kernel on the card), a
 clip of the action to [-1, 1] for the env, and the auto-resetting env step
 against a reset template built once per rollout.  An update is a rollout,
-GAE, then `n_epochs` x `num_minibatches` steps of the clipped-surrogate loss
-through plain `policy_value` with gradients, clipped by global norm and
-applied by Adam (`learn/optim.py`).
+GAE, then `n_epochs` x `num_minibatches` steps of the clipped-surrogate loss,
+clipped by global norm and applied by Adam (`learn/optim.py`): on the card
+each step is one hand-written kernel (`ops/ppo_sgd.py`), on the CPU the
+plain loss through `policy_value` with autograd.
 
 Under `adaptive_rehearsal` the state carries the PLR fields: the family
 probabilities the reset templates are drawn with, and each family's
@@ -52,7 +53,9 @@ from drone2d_tpu_torch.env.types import N_FAMILIES, EnvState
 from drone2d_tpu_torch.learn import optim
 from drone2d_tpu_torch.learn.gae import compute_gae
 from drone2d_tpu_torch.models.policy import ActorCritic
+from drone2d_tpu_torch.ops import ppo_sgd
 from drone2d_tpu_torch.utils import graphs, profiling
+from drone2d_tpu_torch.utils.collectives import all_reduce_grads_, all_reduce_mean_
 
 # Final-step info components averaged over finished episodes
 # (tensorboardlogger.py:101-108).
@@ -144,14 +147,6 @@ def episode_stats(dones: torch.Tensor, infos: Dict[str, torch.Tensor],
         family_counts=family_counts.view(shape),
         family_wins=family_wins.view(shape),
     )
-
-
-def all_reduce_mean_(x: torch.Tensor, group) -> torch.Tensor:
-    """The mean of `x` over the ranks of `group`, in place: all_reduce SUM,
-    then a division by the world size (by 1.0, exact, for one rank).  Only
-    `all_reduce`, which gloo and NCCL both run on CUDA tensors."""
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
-    return x.div_(float(dist.get_world_size(group)))
 
 
 def sum_stats(stats: EpisodeStats, group) -> EpisodeStats:
@@ -542,7 +537,8 @@ class PPOLearner:
         minibatch, as () tensors on the device, (S,) for a population.
         With `group`, each minibatch's gradients, loss and aux are averaged
         over the ranks after the backward pass, before the clip and Adam, in
-        one all_reduce of one flat buffer."""
+        one all_reduce of one flat buffer.  The steps the SGD kernel ran are
+        counted in `sgd.fused_steps` (`count_fused_steps`)."""
         cfg, M = self.cfg, self.cfg.num_minibatches
         S = state.params.members
         *lead, n = self.perm_shape(S)
@@ -553,9 +549,11 @@ class PPOLearner:
         data = self._sgd_data((batch.obs, batch.actions, batch.log_probs, advantages, returns),
                               S)
         rows = self._rows(S)
+        launches = ppo_sgd.ppo_sgd_step.launches
         for e in range(cfg.n_epochs):
             rows[e * M:(e + 1) * M] = self._epoch(state.params, state.optimizer, data,
                                                   perms[..., e, :], group=group)
+        count_fused_steps(launches, group)
         return self._means(rows)
 
     def _rows(self, members: int | None, epochs: int | None = None) -> torch.Tensor:
@@ -578,24 +576,43 @@ class PPOLearner:
         shuffle `perm` ((n,), or (S, n) for a population), in place on
         `params` and `opt`, with no host sync (`update_jit` captures it,
         with `group`'s collectives too).  Returns its (num_minibatches, 1 +
-        aux, ...) rows."""
+        aux, ...) rows.
+
+        On the card each minibatch step is the hand-written kernel
+        (`ops/ppo_sgd.py`: three launches, the rows read straight from `data`
+        by the shuffle), which raises for an architecture it does not take;
+        on the CPU it is `plain_sgd_step` on the gathered minibatch."""
         S = params.members
-        leaves = list(params.parameters())
         rows = self._rows(S, epochs=1)
+        if data[0].device.type == "cuda":
+            plan = ppo_sgd.ppo_sgd_plan(params, opt, data, perm, self.cfg, self.num_envs,
+                                        group=group)
+            for k in range(self.cfg.num_minibatches):
+                ppo_sgd.ppo_sgd_step(plan, k, rows[k])
+            return rows
         for k, mb in enumerate(self._epoch_minibatches(data, perm, S)):
-            loss, aux = self.loss_fn(params, *mb, group=group)
-            opt.zero_grad(set_to_none=True)
-            # a population's members share no weight: the sum's gradient is
-            # each member's own
-            loss.sum().backward()
-            row = torch.stack([v.detach() for v in (loss, *map(aux.get, _AUX_KEYS))])
-            if group is not None:
-                row = _all_reduce_grads_(leaves, row, group)
-            optim.clip_by_global_norm_([p.grad for p in leaves], self.cfg.max_grad_norm,
-                                       members=S)
-            opt.step()
-            rows[k] = row
+            rows[k] = self.plain_sgd_step(params, opt, mb, group=group)
         return rows
+
+    def plain_sgd_step(self, params: ActorCritic, opt: torch.optim.Adam, minibatch,
+                       group=None) -> torch.Tensor:
+        """The plain minibatch step, the SGD kernel's oracle, on one gathered
+        minibatch (obs, actions, old log-probs, advantages, returns), in
+        place on `params` and `opt`: `loss_fn`, the gradient (a population's
+        members share no weight, so the sum's gradient is each member's
+        own), with `group` its average over the ranks, the per-member clip
+        and Adam's step.  Returns the (loss, *aux) row, (6,) or (6, S)."""
+        leaves = list(params.parameters())
+        loss, aux = self.loss_fn(params, *minibatch, group=group)
+        opt.zero_grad(set_to_none=True)
+        loss.sum().backward()
+        row = torch.stack([v.detach() for v in (loss, *map(aux.get, _AUX_KEYS))])
+        if group is not None:
+            row = all_reduce_grads_(leaves, row, group)
+        optim.clip_by_global_norm_([p.grad for p in leaves], self.cfg.max_grad_norm,
+                                   members=params.members)
+        opt.step()
+        return row
 
     def _sgd_data(self, data, members: int | None):
         """`data`'s (T, N, ...) tensors laid out for `_epoch_minibatches`:
@@ -939,6 +956,7 @@ class _UpdateProgram:
         self.epoch = graphs.Graph(
             lambda: learner._epoch(params, opt, last.outputs[3], perm, group=group), dev)
         self.cuda = torch.device(dev).type == "cuda"
+        self.group = group
         self.capture_stats = graphs.capture(
             [*distinct, self.epoch], restore=list(params.parameters()), optimizers=[opt],
             cause="update")
@@ -976,7 +994,8 @@ class _UpdateProgram:
         (env_state, obs, stats, rows), the caller's own copies.  The span
         `update` holds `update.rollout` (the rollout graphs) and
         `update.sgd` (the epoch replays and their shuffles' copies), each
-        timed on the device too."""
+        timed on the device too; the replays' kernel steps are counted in
+        `sgd.fused_steps`."""
         learner, M = self.learner, self.learner.cfg.num_minibatches
         with profiling.span("update"):
             graphs.copy_(self.inputs, self._inputs(state, draws))
@@ -985,29 +1004,22 @@ class _UpdateProgram:
             env_state, obs, stats = graphs.clone(out[:3])
             perms = out[4] if self.drawn else draws[3]
             rows = learner._rows(state.params.members)
+            launches = ppo_sgd.ppo_sgd_step.launches
             with profiling.span("update.sgd", device=self.cuda):
                 for e in range(learner.cfg.n_epochs):
                     self.perm.copy_(perms[..., e, :])
                     rows[e * M:(e + 1) * M] = self.epoch()
+            count_fused_steps(launches, self.group)
         return env_state, obs, stats, rows
 
 
-def _all_reduce_grads_(leaves, row: torch.Tensor, group) -> torch.Tensor:
-    """Average every leaf's gradient and the minibatch's (loss, *aux) `row`
-    over the ranks of `group` in one all_reduce: the gradients and the row
-    flattened into one buffer, reduced, divided by the world size and
-    copied back into the gradients.  Returns the reduced row.
-
-    The copy keeps each gradient in its own allocation: views into the
-    buffer would sit at offsets that are not 16-byte aligned, and CUDA's
-    multi-tensor norm (the clip) then sums in another order than for the
-    plain update's gradients."""
-    grads = [p.grad for p in leaves]
-    flat = all_reduce_mean_(torch.cat([g.reshape(-1) for g in grads] + [row.reshape(-1)]),
-                            group)
-    parts = torch.split(flat, [g.numel() for g in grads] + [row.numel()])
-    torch._foreach_copy_(grads, [x.view_as(g) for x, g in zip(parts, grads)])
-    return parts[-1].view_as(row)
+def count_fused_steps(launches: int, group) -> None:
+    """Add to the counter `sgd.fused_steps` the minibatch steps the SGD
+    kernel ran since its launch count (`ppo_sgd_step.launches`, which a
+    replayed graph advances too) read `launches`: none on the CPU."""
+    steps = (ppo_sgd.ppo_sgd_step.launches - launches) // ppo_sgd.launches_a_step(group)
+    if steps:
+        profiling.count("sgd.fused_steps", steps)
 
 
 def affine_perm(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:

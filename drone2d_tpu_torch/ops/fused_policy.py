@@ -77,10 +77,11 @@ def _library():
 _SCALAR_LEAVES = ("pi_out/b", "vf_out/b", "log_std")
 
 
-def _kernel_operands(params):
-    """The kernel's weight operands, checked.  Raises NotImplementedError
-    for an architecture the kernel does not take, ValueError for operands
-    it cannot read (dtype, layout, alignment)."""
+def architecture(params, kernel: str = "fused_sample_action") -> tuple:
+    """(obs_dim, H) of an actor-critic that the port's kernels take (this
+    one and `ops/ppo_sgd.py`'s): two hidden layers of one width H, a
+    multiple of 8 up to MAX_HIDDEN, obs_dim up to MAX_OBS_DIM and two
+    actions.  Raises NotImplementedError, naming `kernel`, for any other."""
     hidden = tuple(layer.w.shape[-1] for layer in params.pi)
     vf_hidden = tuple(layer.w.shape[-1] for layer in params.vf)
     obs_dim, act_dim = params.pi[0].w.shape[-2], params.log_std.shape[-1]
@@ -89,10 +90,18 @@ def _kernel_operands(params):
             and h % 8 == 0 and 8 <= h <= MAX_HIDDEN
             and obs_dim <= MAX_OBS_DIM and act_dim == 2):
         raise NotImplementedError(
-            "fused_sample_action on the card takes two hidden layers of one width H "
+            f"{kernel} on the card takes two hidden layers of one width H "
             f"(H a multiple of 8, 8 <= H <= {MAX_HIDDEN}), obs_dim <= {MAX_OBS_DIM} and "
             f"2 actions; got hidden {hidden} (value trunk {vf_hidden}), "
             f"obs_dim {obs_dim}, act_dim {act_dim}")
+    return obs_dim, h
+
+
+def _kernel_operands(params):
+    """The kernel's weight operands, checked.  Raises NotImplementedError
+    for an architecture the kernel does not take, ValueError for operands
+    it cannot read (dtype, layout, alignment)."""
+    obs_dim, h = architecture(params)
     (p0, p1), (v0, v1) = params.pi, params.vf
     weights = {
         "pi0/w": p0.w, "pi0/b": p0.b, "pi1/w": p1.w, "pi1/b": p1.b,

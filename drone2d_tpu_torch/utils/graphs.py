@@ -29,10 +29,10 @@ card a CPU generator raises.
 On the CPU a `Graph` calls its body directly, over the same static
 buffers: the caller's CPU path, which the tests exercise.
 
-Kernel launch counts (`fused_sample_action.launches`) stay true under
-replay: the warm-up's launches are real and count, the capture's launch
-nothing and are taken back out, and each replay adds the number its
-capture recorded.
+Kernel launch counts (`fused_sample_action.launches`,
+`ppo_sgd_step.launches`) stay true under replay: the warm-up's launches
+are real and count, the capture's launch nothing and are taken back out,
+and each replay adds the number its capture recorded.
 
 `GraphCache` holds a few captured programs by key and releases the oldest
 when full, so that many configurations in one process do not pile up
@@ -60,10 +60,11 @@ from typing import Callable, Iterable, List, Sequence
 import torch
 
 from drone2d_tpu_torch.ops.fused_policy import fused_sample_action
+from drone2d_tpu_torch.ops.ppo_sgd import ppo_sgd_step
 from drone2d_tpu_torch.utils import profiling
 
 # the kernel wrappers whose `launches` count a replay must advance
-COUNTED = (fused_sample_action,)
+COUNTED = (fused_sample_action, ppo_sgd_step)
 
 
 # -- trees of tensors ---------------------------------------------------------

@@ -20,7 +20,11 @@ compiled programs: `update_jit` bit-equal to `update` over 3 updates (one
 learner in each shuffle, a population of 8), the captured eval runner
 bit-equal to the eager one, launch counts under replay, a capture that
 meets a host sync raises, and a checkpoint written after `update_jit`
-resumes on the CPU.
+resumes on the CPU.  The PPO minibatch step's kernel (`ops/ppo_sgd.py`):
+one step and a whole `sgd` against the plain steps at three widths, three
+member counts and every shuffle, reruns and a member alone bit-equal, the
+architectures it refuses, its counts under replay, and a checkpoint after
+its steps continuing bit-equal.
 
 These need an NVIDIA GPU and nvcc, and skip without one.  This file imports
 no JAX, so on a machine with the card and without JAX it runs alone:
@@ -28,6 +32,7 @@ no JAX, so on a machine with the card and without JAX it runs alone:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import copy
 import dataclasses
 import functools
 import os
@@ -41,7 +46,7 @@ from drone2d_tpu_torch.env.env import Drone2DEnv
 from drone2d_tpu_torch.eval.episode import run_episodes_from
 from drone2d_tpu_torch.eval.run import scenario_config
 from drone2d_tpu_torch.learn import optim
-from drone2d_tpu_torch.learn.ppo import PPOLearner
+from drone2d_tpu_torch.learn.ppo import PPOLearner, RolloutBatch
 from drone2d_tpu_torch.learn.zoo import ZooTrainer, assemble
 from drone2d_tpu_torch.models.policy import ActorCritic, flat_dict_to_params, stack_params
 from drone2d_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
@@ -728,7 +733,9 @@ def test_bench_counts_launches_and_device_ops_on_card(dev):
                              repeats=1)
     assert train["warmup_launches"] == 9 and train["launches"] == 9
     assert train["launches_all"] == 9 + 2 * 9 + 9 + 9
-    assert np.isfinite(train["loss"]) and train["ops_a_step"] > 10
+    # a minibatch step is the SGD kernel's three launches (ops/ppo_sgd.py), with
+    # the epoch's own few ops shared out
+    assert np.isfinite(train["loss"]) and 3 <= train["ops_a_step"] < 10
     host, ops = train["captured_an_update"]
     assert host < ops
 
@@ -1284,3 +1291,238 @@ def test_runner_shared_across_scenarios_bit_equal_on_card(dev, spans_on, monkeyp
     assert got.traj.shape == (3, 64, 200, 2)
     for k, g, w in zip(got._fields, got, want):
         assert torch.equal(torch.from_numpy(g), torch.from_numpy(w)), k
+
+
+# -- the PPO minibatch step as one kernel (ops/ppo_sgd.py) ---------------------
+
+
+def _sgd_case(dev, hidden, members, shuffle, seed=0, num_minibatches=4, num_envs=64):
+    """One epoch of `num_minibatches` steps over a rollout of random tensors
+    (8 steps x `num_envs` envs a member; old log-probs that put the ratios
+    inside and beyond the clip range), for a population of `members` (None:
+    one actor-critic) of width `hidden` -> (learner, params, the rollout's
+    (T, S N, ...) tensors, the `_sgd_data` layout, one epoch's shuffle)."""
+    cfg = PPOConfig(n_steps=8, num_minibatches=num_minibatches, n_epochs=2, shuffle=shuffle,
+                    hidden_sizes=(hidden, hidden))
+    learner = PPOLearner(EnvConfig(path_table_n=128), cfg, num_envs, device=dev)
+    g = torch.Generator().manual_seed(seed)
+    ms = [ActorCritic(27, 2, (hidden, hidden), generator=torch.Generator().manual_seed(seed + i),
+                      device=dev) for i in range(members or 1)]
+    with torch.no_grad():
+        for i, m in enumerate(ms):
+            m.log_std.copy_(torch.tensor([-0.4 + 0.05 * i, 0.1]))
+            m.vf_out.b.fill_(0.5)
+    params = ms[0] if members is None else stack_params(ms)
+    T, W = cfg.n_steps, (members or 1) * num_envs
+    raw = tuple(x.to(dev) for x in (
+        torch.randn(T, W, 27, generator=g), 0.8 * torch.randn(T, W, 2, generator=g),
+        -1.0 - 2.0 * torch.rand(T, W, generator=g), 0.3 + 2.0 * torch.randn(T, W, generator=g),
+        3.0 * torch.randn(T, W, generator=g)))
+    perms = torch.stack([learner.draw_perms(torch.Generator(device=dev).manual_seed(seed + i))
+                         for i in range(members or 1)])
+    return learner, params, raw, learner._sgd_data(raw, members), \
+        perms[0, 0] if members is None else perms[:, 0].contiguous()
+
+
+def _steps(learner, params, data, perm, steps, fused):
+    """`steps` minibatch steps of one epoch on a copy of `params` with a fresh
+    Adam: fused (`ppo_sgd_step`) or plain (`plain_sgd_step` on the gathered
+    minibatches, on the card) -> (params, optimizer, rows)."""
+    from drone2d_tpu_torch.ops import ppo_sgd
+
+    p = copy.deepcopy(params)
+    opt = optim.adam(p.parameters(), learner.cfg.learning_rate)
+    if fused:
+        rows = learner._rows(p.members, epochs=1)[:steps]
+        plan = ppo_sgd.ppo_sgd_plan(p, opt, data, perm, learner.cfg, learner.num_envs)
+        for k in range(steps):
+            ppo_sgd.ppo_sgd_step(plan, k, rows[k])
+    else:
+        mbs = learner._epoch_minibatches(data, perm, p.members)
+        rows = torch.stack([learner.plain_sgd_step(p, opt, mb)
+                            for _, mb in zip(range(steps), mbs)])
+    torch.cuda.synchronize()
+    return p, opt, rows
+
+
+# |fused - plain| bounds, each over one leaf (or row entry).  The two sum
+# each gradient over the minibatch's rows in another order and grouping
+# (row blocks of 64 or 128, then their partials, against cuBLAS's tiles),
+# which float32 rounds differently: about 1e-7 of the summed terms'
+# magnitude, which cancellation can leave at ~1e-5 of the leaf's largest
+# element.  The row holds means over the minibatch: the repo's loss bound,
+# 1e-5 of max(|v|, 1).  Adam's moments follow their gradients (exp_avg_sq
+# as its square).  A weight moves by at most lr a step, and an error d in
+# its gradient moves it by lr d / (|g| + eps): the repo's weight budget,
+# 1e-3 of lr x steps plus 4 float32 ulps.
+SGD_GRAD_TOL, SGD_ROW_TOL, SGD_BUDGET = 1e-4, 1e-5, 1e-3
+
+
+def _assert_fused_matches_plain(got, want, steps, lr):
+    """`got` (params, optimizer, rows or None) against `want` after `steps`
+    Adam steps, within the bounds above."""
+    (pg, og, rg), (pw, ow, rw) = got, want
+    if rg is not None:
+        assert bool(((rg - rw).abs() <= SGD_ROW_TOL * rw.abs().clamp(min=1.0)).all())
+    budget = SGD_BUDGET * lr * steps
+    for (name, a), b in zip(pg.named_parameters(), pw.parameters()):
+        sa, sb = og.state[a], ow.state[b]
+        assert torch.equal(sa["step"], sb["step"]) and float(sa["step"]) == steps, name
+        w = b.detach().double()
+        bound = budget + 4 * 2.0**-23 * w.abs()
+        assert bool(((a.detach().double() - w).abs() <= bound).all()), name
+        for x, y in ((a.grad, b.grad), (sa["exp_avg"], sb["exp_avg"]),
+                     (sa["exp_avg_sq"], sb["exp_avg_sq"])):
+            assert float((x - y).abs().max()) <= SGD_GRAD_TOL * float(y.abs().max()) + 1e-30, name
+
+
+@pytest.mark.parametrize("shuffle", ["exact", "timeperm", "affine"])
+@pytest.mark.parametrize("members", [None, 1, 8])
+@pytest.mark.parametrize("hidden", [64, 128, 256])
+def test_fused_sgd_step_matches_plain(dev, hidden, members, shuffle):
+    """One fused minibatch step against the plain step on the card from the
+    same weights and minibatch: the clipped gradients, weights, Adam's
+    moments and step count and the row within the bounds above."""
+    learner, params, _, data, perm = _sgd_case(dev, hidden, members, shuffle)
+    got = _steps(learner, params, data, perm, 1, True)
+    want = _steps(learner, params, data, perm, 1, False)
+    _assert_fused_matches_plain(got, want, 1, learner.cfg.learning_rate)
+
+
+@pytest.mark.parametrize("shuffle", ["exact", "timeperm", "affine"])
+@pytest.mark.parametrize("members", [None, 1, 8])
+@pytest.mark.parametrize("hidden", [64, 128, 256])
+def test_fused_sgd_matches_plain(dev, hidden, members, shuffle):
+    """A whole `sgd` (2 epochs of 4 steps) through the kernel against the
+    plain steps over the same minibatches: the metrics, and then the
+    weights, Adam's moments, step counts and last clipped gradients within
+    the bounds above."""
+    learner, params, raw, _, _ = _sgd_case(dev, hidden, members, shuffle)
+    S = members
+    perms = torch.stack([learner.draw_perms(torch.Generator(device=dev).manual_seed(7 + i))
+                         for i in range(members or 1)])
+    perms = perms[0] if members is None else perms
+    batch = RolloutBatch(obs=raw[0], actions=raw[1], log_probs=raw[2], values=raw[4],
+                         rewards=raw[4], dones=torch.zeros_like(raw[4], dtype=torch.bool))
+    pf = copy.deepcopy(params)
+    of = optim.adam(pf.parameters(), learner.cfg.learning_rate)
+    state = dataclasses.replace(learner.start(torch.Generator(device=dev).manual_seed(0), pf),
+                                optimizer=of)
+    metrics = learner.sgd(state, batch, raw[3], raw[4], perms)
+    pp = copy.deepcopy(params)
+    op = optim.adam(pp.parameters(), learner.cfg.learning_rate)
+    rows = torch.stack([learner.plain_sgd_step(pp, op, mb)
+                        for mb in learner._minibatches(raw, perms, S)])
+    torch.cuda.synchronize()
+    want = learner._means(rows)
+    for k in want:
+        assert bool(((metrics[k] - want[k]).abs()
+                     <= SGD_ROW_TOL * want[k].abs().clamp(min=1.0)).all()), k
+    steps = learner.cfg.n_epochs * learner.cfg.num_minibatches
+    _assert_fused_matches_plain((pf, of, None), (pp, op, rows), steps, learner.cfg.learning_rate)
+
+
+@pytest.mark.parametrize("hidden, shuffle", [(64, "exact"), (128, "timeperm"),
+                                             (256, "affine")])
+def test_fused_sgd_steps_match_plain_over_many_row_blocks(dev, hidden, shuffle):
+    """Four fused steps of minibatches of 2,048 rows a member (8 steps x
+    1,024 envs in 4 minibatches: 16 or 32 row blocks a member-trunk, summed
+    through the partials, as at the hunts' shape) against the plain steps:
+    within the bounds above."""
+    learner, params, _, data, perm = _sgd_case(dev, hidden, 8, shuffle, num_envs=1024)
+    got = _steps(learner, params, data, perm, 4, True)
+    want = _steps(learner, params, data, perm, 4, False)
+    _assert_fused_matches_plain(got, want, 4, learner.cfg.learning_rate)
+
+
+def test_fused_sgd_reruns_bit_equal(dev):
+    """Two fused epochs from the same weights and data: bit-identical
+    (no atomics: every sum in a fixed order)."""
+    learner, params, _, data, perm = _sgd_case(dev, 128, 8, "timeperm")
+    a = _steps(learner, params, data, perm, 4, True)
+    b = _steps(learner, params, data, perm, 4, True)
+    assert torch.equal(a[2], b[2])
+    for x, y in zip(a[0].parameters(), b[0].parameters()):
+        assert torch.equal(x, y) and torch.equal(x.grad, y.grad)
+    assert all(torch.equal(x, y) for x, y in zip(optim_tensors(a[1]), optim_tensors(b[1])))
+
+
+@pytest.mark.parametrize("shuffle", ["exact", "timeperm"])
+def test_fused_sgd_member_bit_equal_to_it_alone(dev, shuffle):
+    """Member 3 of a population of 8 through one fused epoch, against the
+    same member alone (its weights, its block of the rollout, its shuffle):
+    weights, gradients, Adam's state and rows bit-equal."""
+    from drone2d_tpu_torch.models.policy import unstack_params
+
+    learner, params, raw, data, perm = _sgd_case(dev, 64, 8, shuffle)
+    got = _steps(learner, params, data, perm, 4, True)
+    alone = unstack_params(params)[3]
+    mine = tuple(x[:, 3 * 64:4 * 64].contiguous() for x in raw)
+    want = _steps(learner, alone, learner._sgd_data(mine, None), perm[3].contiguous(), 4, True)
+    assert torch.equal(got[2][..., 3], want[2])
+    for (name, a), b in zip(got[0].named_parameters(), want[0].parameters()):
+        assert torch.equal(a[3], b) and torch.equal(a.grad[3], b.grad), name
+        sa, sb = got[1].state[a], want[1].state[b]
+        assert torch.equal(sa["step"], sb["step"]), name
+        assert torch.equal(sa["exp_avg"][3], sb["exp_avg"]), name
+        assert torch.equal(sa["exp_avg_sq"][3], sb["exp_avg_sq"]), name
+
+
+@pytest.mark.parametrize("hidden", [(64, 64, 64), (64, 32)])
+def test_fused_sgd_refuses_other_architectures(dev, hidden):
+    """Depth 3 and unequal widths raise NotImplementedError on the card (the
+    plain step is the CPU's alone: no fallback)."""
+    cfg = PPOConfig(n_steps=8, num_minibatches=4, n_epochs=1, hidden_sizes=hidden)
+    learner = PPOLearner(EnvConfig(path_table_n=128), cfg, 64, device=dev)
+    params = ActorCritic(27, 2, hidden, device=dev)
+    raw = tuple(torch.zeros(8, 64, *w, device=dev) for w in ((27,), (2,), (), (), ()))
+    perm = torch.arange(8 * 64, device=dev)
+    with pytest.raises(NotImplementedError):
+        learner._epoch(params, optim.adam(params.parameters(), 3e-4),
+                       learner._sgd_data(raw, None), perm)
+
+
+def test_fused_sgd_counts_its_launches_and_steps_under_replay(dev):
+    """`update` launches the kernel three times a minibatch step and counts each
+    step in `sgd.fused_steps`; `update_jit` counts the same under replay,
+    and its capture's warm-up epoch as real launches but not as an update's
+    steps."""
+    from drone2d_tpu_torch.ops.ppo_sgd import ppo_sgd_step
+    from drone2d_tpu_torch.utils import profiling
+
+    learner = PPOLearner(EnvConfig(), PPOConfig(**GRAPH_PPO), 64, device=dev)
+    steps = GRAPH_PPO["n_epochs"] * GRAPH_PPO["num_minibatches"]
+
+    def counts():
+        return ppo_sgd_step.launches, profiling.counters().get("sgd.fused_steps", 0)
+
+    l0, s0 = counts()
+    learner.update(learner.init(0))
+    l1, s1 = counts()
+    assert (l1 - l0, s1 - s0) == (3 * steps, steps)
+    state, _ = learner.update_jit(learner.init(1))
+    l2, s2 = counts()
+    assert (l2 - l1, s2 - s1) == (3 * (steps + GRAPH_PPO["num_minibatches"]), steps)
+    learner.update_jit(state)
+    l3, s3 = counts()
+    assert (l3 - l2, s3 - s2) == (3 * steps, steps)
+
+
+def test_checkpoint_after_fused_steps_continues_bit_equal(dev, tmp_path):
+    """After a fused epoch, a checkpoint restores on the card the weights
+    and Adam's whole state the kernel reads: the next fused epoch from the
+    restored state and from the original one bit-equal."""
+    learner, params, _, data, perm = _sgd_case(dev, 64, None, "exact")
+    p, opt, _ = _steps(learner, params, data, perm, 4, True)
+    state = dataclasses.replace(learner.start(torch.Generator(device=dev).manual_seed(0), p),
+                                optimizer=opt)
+    save_checkpoint(str(tmp_path), state)
+    again, _ = restore_checkpoint(str(tmp_path), learner)
+    a = learner._epoch(state.params, state.optimizer, data, perm)
+    b = learner._epoch(again.params, again.optimizer, data, perm)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    for x, y in zip(state.params.parameters(), again.params.parameters()):
+        assert torch.equal(x, y)
+    assert all(torch.equal(x, y) for x, y in zip(optim_tensors(state.optimizer),
+                                                 optim_tensors(again.optimizer)))
